@@ -1,0 +1,139 @@
+"""Banded row apply: ``out[rows of b] = bands[b] @ x[start_b : start_b + win]``.
+
+Counterpart of ``enph459_super_resolution_tpu/ops/pallas_kernels.py``: the
+TPU kernel ``_row_kernel`` (launched by ``_banded_row_pallas``) becomes the
+hand-written CUDA kernel ``csrc/banded_rows.cu``.  This module holds
+
+* :func:`pack_banded` -- the kernel's operand layout;
+* :func:`banded_row_apply` -- the wrapper: it launches the kernel for a
+  CUDA tensor (and counts the launch in ``banded_row_apply.launches``),
+  runs the plain version for a CPU tensor, and raises otherwise;
+* :func:`banded_row_apply_reference` -- the plain PyTorch version, one
+  ``bands[b] @ x[start_b : start_b + win]`` per block.
+
+The pack differs from the TPU one: windows are padded only to the kernel's
+K-chunk (``K_CHUNK``), not to 128 lanes, and start at the block's first
+nonzero column (no 8-row alignment).  Each block carries its own first
+output row and row count, so rep-tiled operators whose base op has a short
+last block pack like any other.  Window rows past ``n_in`` are masked by
+the kernel and sliced off by the plain version; their band entries are 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+# C signature of banded_rows_launch in csrc/banded_rows.cu: six pointers
+# (bands, starts, out_row0, rows, x, out), six ints (n_blk, win, n_in,
+# n_out, W, batch) and the stream.
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+
+# Rows of one band block (the kernel's tile height) and the window padding
+# unit (the kernel's K-chunk); both are compile-time constants of
+# csrc/banded_rows.cu (BM and BK there).
+ROWS = 128
+K_CHUNK = 16
+
+
+class RowPack(NamedTuple):
+    """Operands of one banded row apply, on one device."""
+
+    bands: torch.Tensor    # f32 [n_blk, ROWS, win], zero-padded
+    meta: torch.Tensor     # i32 [3, n_blk]: window start, first out row, rows
+    meta_host: np.ndarray  # the same on the host (the plain version's slices)
+    n_out: int
+    n_in: int
+
+
+def pack_banded(blocks, col_ranges, n_out: int, n_in: int,
+                device) -> RowPack:
+    """Stack a block decomposition into the kernel's layout on ``device``.
+
+    ``blocks[b]`` covers output rows ``sum(rows of blocks < b)`` onward and
+    input columns ``col_ranges[b]``; the shared window is the widest block
+    window rounded up to ``K_CHUNK``.
+    """
+    n_blk = len(blocks)
+    rows = np.asarray([b.shape[0] for b in blocks], dtype=np.int32)
+    if rows.max() > ROWS:
+        raise ValueError(f"block of {rows.max()} rows exceeds {ROWS}")
+    if int(rows.sum()) != n_out:
+        raise ValueError(f"blocks cover {rows.sum()} rows, op has {n_out}")
+    win = max(hi - lo for lo, hi in col_ranges)
+    win = -(-win // K_CHUNK) * K_CHUNK
+    bands = np.zeros((n_blk, ROWS, win), dtype=np.float32)
+    meta = np.zeros((3, n_blk), dtype=np.int32)
+    meta[0] = [lo for lo, _ in col_ranges]
+    meta[1] = np.concatenate([[0], np.cumsum(rows)[:-1]])
+    meta[2] = rows
+    for i, (b, (lo, hi)) in enumerate(zip(blocks, col_ranges)):
+        bands[i, : b.shape[0], : hi - lo] = b
+    return RowPack(torch.as_tensor(bands, device=device),
+                   torch.as_tensor(meta, device=device), meta,
+                   int(n_out), int(n_in))
+
+
+def _check(pack: RowPack, x: torch.Tensor) -> None:
+    if x.dtype != torch.float32:
+        raise TypeError(f"banded row apply takes float32, got {x.dtype}")
+    if x.dim() < 2 or x.shape[-2] != pack.n_in:
+        raise ValueError(f"x of shape {tuple(x.shape)} does not match an "
+                         f"operator with {pack.n_in} input rows")
+    if x.device != pack.bands.device:
+        raise ValueError(f"x on {x.device}, operator on {pack.bands.device}")
+
+
+def banded_row_apply_reference(pack: RowPack, x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version: per block, ``bands[b] @ x[start_b : start_b +
+    win]`` into the block's output rows (any device)."""
+    _check(pack, x)
+    win = pack.bands.shape[-1]
+    out = x.new_empty(x.shape[:-2] + (pack.n_out, x.shape[-1]))
+    for b, (start, row0, nrow) in enumerate(pack.meta_host.T.tolist()):
+        xs = x[..., start:start + win, :]   # short at the bottom edge
+        out[..., row0:row0 + nrow, :] = torch.matmul(
+            pack.bands[b, :nrow, : xs.shape[-2]], xs)
+    return out
+
+
+def banded_row_apply(pack: RowPack, x: torch.Tensor) -> torch.Tensor:
+    """``op @ x`` along x's row (-2) axis; x is ``[..., n_in, W]`` float32.
+
+    A CUDA tensor goes through the CUDA kernel, always: there is no shape
+    gate and no fallback.  A CPU tensor goes through the plain version.
+    """
+    if x.device.type == "cpu":
+        return banded_row_apply_reference(pack, x)
+    if x.device.type != "cuda":
+        raise ValueError(f"banded row apply runs on cuda or cpu, not {x.device}")
+    _check(pack, x)
+    from .._build import load_function
+
+    launch = load_function("banded_rows", "banded_rows_launch", _ARGTYPES)
+    x = x.contiguous()
+    lead = x.shape[:-2]
+    width = x.shape[-1]
+    batch = int(np.prod(lead, dtype=np.int64)) if lead else 1
+    out = torch.empty(lead + (pack.n_out, width), device=x.device,
+                      dtype=torch.float32)
+    if out.numel() == 0:
+        return out
+    n_blk, _, win = pack.bands.shape
+    meta = pack.meta
+    step = meta.stride(0) * meta.element_size()
+    rc = launch(
+        pack.bands.data_ptr(), meta.data_ptr(), meta.data_ptr() + step,
+        meta.data_ptr() + 2 * step, x.data_ptr(), out.data_ptr(),
+        n_blk, win, pack.n_in, pack.n_out, width, batch,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"banded_rows kernel launch failed: CUDA error {rc}")
+    banded_row_apply.launches += 1
+    return out
+
+
+banded_row_apply.launches = 0

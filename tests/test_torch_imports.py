@@ -1,0 +1,108 @@
+"""The PyTorch port stands alone: it imports nothing of JAX or of the JAX
+package, and it never runs on the CPU unless asked."""
+
+import ast
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import pytest
+
+from enph459_super_resolution_tpu_torch.device import resolve_device
+
+REPO = Path(__file__).resolve().parents[1]
+PORT = REPO / "enph459_super_resolution_tpu_torch"
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "enph459_super_resolution_tpu")
+
+
+def _blocked(name: str) -> bool:
+    # exact name or a dotted child: 'enph459_super_resolution_tpu_torch'
+    # shares the JAX package's prefix and must stay importable
+    return any(name == b or name.startswith(b + ".") for b in BLOCKED)
+
+
+def test_blocklist_minds_the_prefix():
+    assert _blocked("enph459_super_resolution_tpu")
+    assert _blocked("enph459_super_resolution_tpu.sr.classical")
+    assert _blocked("jax.numpy")
+    assert not _blocked("enph459_super_resolution_tpu_torch")
+    assert not _blocked("enph459_super_resolution_tpu_torch.sr.run")
+    assert not _blocked("jaxtyping")
+
+
+def test_every_port_module_imports_with_jax_blocked():
+    script = textwrap.dedent(f"""
+        import importlib, importlib.abc, pkgutil, sys
+        BLOCKED = {BLOCKED!r}
+
+        def blocked(name):
+            return any(name == b or name.startswith(b + ".") for b in BLOCKED)
+
+        class Refuse(importlib.abc.MetaPathFinder):
+            def find_spec(self, name, path=None, target=None):
+                if blocked(name):
+                    raise ImportError("refused import of " + name)
+                return None
+
+        for mod in [m for m in sys.modules if blocked(m)]:
+            del sys.modules[mod]
+        sys.meta_path.insert(0, Refuse())
+        import enph459_super_resolution_tpu_torch as pkg
+        names = [pkg.__name__]
+        for info in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+            importlib.import_module(info.name)
+            names.append(info.name)
+        leaked = sorted(m for m in sys.modules if blocked(m))
+        assert not leaked, leaked
+        print(len(names))
+    """)
+    res = subprocess.run([sys.executable, "-c", script], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert int(res.stdout.split()[-1]) >= 15  # every module was walked
+
+
+@pytest.mark.parametrize("path", sorted(
+    [str(p.relative_to(REPO)) for p in PORT.rglob("*.py")]
+    + ["chip_smoke.py"]))
+def test_no_jax_import_anywhere_in_source(path):
+    """Lazy imports inside functions too: scan the source, not just the
+    modules' import-time behavior."""
+    tree = ast.parse((REPO / path).read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        assert not any(_blocked(n) for n in names), (path, names)
+
+
+def test_resolve_device_never_falls_back():
+    assert resolve_device("cpu").type == "cpu"
+    with pytest.raises(ValueError):
+        resolve_device("tpu")
+    if not __import__("torch").cuda.is_available():
+        with pytest.raises(RuntimeError):
+            resolve_device("cuda")
+
+
+def test_sr_run_without_device_fails_on_a_box_without_cuda(tmp_path):
+    import torch
+
+    from enph459_super_resolution_tpu_torch.sr import run
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    data = tmp_path / "data" / "s0"
+    os.makedirs(data)
+    out = tmp_path / "out"
+    with pytest.raises(SystemExit) as exc:
+        run.main(["--workload", "mono_cal_target", "--data-dir",
+                  str(data.parent), "--output-dir", str(out),
+                  "--no-figures"])
+    assert exc.value.code != 0
+    assert not out.exists()

@@ -1,0 +1,108 @@
+"""The port's ``sr.run`` CLI against the JAX package's on the same session
+directories (``--device cpu`` for the port): the same artifacts within +-1
+uint8, ``metrics.json`` with the same keys, and ``done.flag`` resume."""
+
+import json
+import os
+
+import numpy as np
+import pytest
+import scipy.ndimage as ndi
+import torch
+
+from enph459_super_resolution_tpu.sr import run as jax_run
+from enph459_super_resolution_tpu_torch.data.io import load_image, save_png
+from enph459_super_resolution_tpu_torch.sr import run as torch_run
+
+ARTIFACTS = ("native_2x.png", "SAA.png", "SAA_IBP.png", "shifts.json",
+             "metrics.json", "done.flag")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite runs in several worker processes at once; torch's own
+    intra-op pool on top of them oversubscribes the cores (a tiny solve
+    then takes a minute instead of a fraction of a second)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _scene(rng, shape=(64, 80)):
+    return ndi.gaussian_filter(rng.uniform(0, 255, shape), 1.2)
+
+
+def _noisy(rng, scene):
+    return np.clip(scene + rng.normal(0, 1, scene.shape), 0,
+                   255).astype(np.uint8)
+
+
+@pytest.fixture()
+def sessions(tmp_path):
+    """A corner_rep session of 2 reps (batched path) and a center+4
+    session, each under its own data dir."""
+    rng = np.random.default_rng(0)
+    corner = tmp_path / "corner" / "tiny_mono_session"
+    scene = _scene(rng)
+    for ci in range(4):
+        for ri in range(2):
+            save_png(_noisy(rng, scene),
+                     str(corner / f"corner{ci}_rep{ri:02d}.png"))
+    center = tmp_path / "center" / "cal0"
+    for name in ("center.png", "shift_0.png", "shift_1.png", "shift_2.png",
+                 "shift_3.png"):
+        save_png(_noisy(rng, scene), str(center / name))
+    return {"mono_barcodes": (str(corner.parent), ["tiny_mono_session/rep0",
+                                                   "tiny_mono_session/rep1"]),
+            "mono_cal_target": (str(center.parent), ["cal0"])}
+
+
+def _args(workload, data, out):
+    return ["--workload", workload, "--data-dir", data, "--output-dir", out,
+            "--no-figures"]
+
+
+@pytest.mark.parametrize("workload", ["mono_barcodes", "mono_cal_target"])
+def test_cli_matches_jax_cli(sessions, tmp_path, workload):
+    data, units = sessions[workload]
+    out_j, out_t = str(tmp_path / "jax"), str(tmp_path / "torch")
+    assert jax_run.main(_args(workload, data, out_j)) == 0
+    assert torch_run.main(_args(workload, data, out_t)
+                          + ["--device", "cpu"]) == 0
+    for unit in units:
+        uj, ut = os.path.join(out_j, unit), os.path.join(out_t, unit)
+        for name in ARTIFACTS + ("LR_mean.png",):
+            assert os.path.exists(os.path.join(ut, name)), (unit, name)
+        for name in ("native_2x.png", "SAA.png", "SAA_IBP.png",
+                     "LR_mean.png"):
+            a = load_image(os.path.join(uj, name)).astype(int)
+            b = load_image(os.path.join(ut, name)).astype(int)
+            assert a.shape == b.shape
+            assert np.abs(a - b).max() <= 1, (unit, name)
+        mj = json.load(open(os.path.join(uj, "metrics.json")))
+        mt = json.load(open(os.path.join(ut, "metrics.json")))
+        assert set(mj) == set(mt)
+        assert mt["hr_shape"] == mj["hr_shape"] == [128, 160]
+        np.testing.assert_allclose(mt["mse_history"], mj["mse_history"],
+                                   rtol=1e-4)
+        sj = json.load(open(os.path.join(uj, "shifts.json")))
+        st = json.load(open(os.path.join(ut, "shifts.json")))
+        assert sj == st
+
+
+def test_cli_done_flag_resume_and_force(sessions, tmp_path, capsys):
+    data, units = sessions["mono_barcodes"]
+    out = str(tmp_path / "torch")
+    args = _args("mono_barcodes", data, out) + ["--device", "cpu"]
+    assert torch_run.main(args) == 0
+    metrics = os.path.join(out, units[0], "metrics.json")
+    stamp = os.stat(metrics).st_mtime_ns
+    capsys.readouterr()
+    assert torch_run.main(args) == 0
+    said = capsys.readouterr().out
+    assert "0 unit(s) processed" in said and "[skip]" in said
+    assert os.stat(metrics).st_mtime_ns == stamp
+    assert torch_run.main(args + ["--force", "--no-batch-reps"]) == 0
+    assert "2 unit(s) processed" in capsys.readouterr().out
+    assert os.stat(metrics).st_mtime_ns != stamp
