@@ -8,25 +8,45 @@ Needs a CUDA card, the CUDA toolkit (``nvcc``) and this repository's
 or of the JAX package.  Phases, one JSON line each:
 
 1. device -- ``nvidia-smi`` name and power limit, SM count and max clock,
-   the PNG codec in use; builds every kernel under ``csrc/``.
-2. kernel -- the banded-row kernel against its plain PyTorch version on
-   the card at every shape the two runs below give it (``zoom_r``,
-   ``saa_r``, ``fwd_r``, ``bwd_r`` at LR 1536x2048, and the 4-rep tiled
-   ``zoom_r``, ``saa_r``, ``fwd_r``, ``bwd_r`` at LR 768x1024), inputs
-   uniform in [0, 255), max|diff| <= 1e-3; with the kernel's, the plain
-   version's and a dense ``torch.matmul``'s times and the card's bound for
-   the same work.
-3. mono_cal_target at full size -- a synthetic center+4 session (5 x
-   1536x2048 -> 3072x4096, 80 IBP iterations) through ``sr.run`` on cuda:
-   artifacts, falling MSE, the kernel's launch count against the count the
-   solve's structure implies, ``native_2x`` within +-1 of
+   the PNG codec in use; builds every kernel under ``csrc/`` (one ``nvcc``
+   per source, all started together).
+2. kernel -- the banded-row kernel K1 against its plain PyTorch version on
+   the card at every shape the runs below give it (``zoom_r``, ``saa_r``,
+   ``fwd_r``, ``bwd_r`` at LR 1536x2048, and the 4-rep tiled ``zoom_r``,
+   ``saa_r``, ``fwd_r``, ``bwd_r`` at LR 768x1024), float32 bands, and its
+   bfloat16-band instantiation at the full-size ``zoom_r`` and ``fwd_r``;
+   inputs uniform in [0, 255), max|diff| <= 1e-3 (bf16 bands: the products
+   are exact and x rounds in both, so only the summation order differs);
+   with the kernel's, the plain version's and a dense ``torch.matmul``'s
+   times and the card's bound for the same work.
+3. fused -- the fused IBP kernels K2 (forward error of every frame) and K3
+   (back-projection update) against their plain versions at the full-size
+   mono pack and the 4-rep rgb pack, float32 and bfloat16 bands;
+   max|diff| <= 1e-3 for f32 and <= 2.0 for bf16 (a bf16 row product that
+   rounds the other way moves by one ulp, 1.0 at 128..255); with the
+   kernel's, the plain version's and the unfused step's (K1 + the column
+   applies) times and the bound.  No single PyTorch call computes K2 or
+   K3, so they have no library time.
+4. mono_cal_target at full size -- a synthetic center+4 session (5 x
+   1536x2048 -> 3072x4096, 80 IBP iterations) through ``sr.run`` on cuda,
+   f32: artifacts, falling MSE, K1's launches against the count the solve's
+   structure implies, ``native_2x`` within +-1 of
    ``scipy.ndimage.zoom(order=3)``, ``SAA_IBP`` within +-1 of the same
-   solve with the plain row apply on the card; warm and cold solve times
+   solve with the plain versions on the card; warm and cold solve times
    and one profiled solve (device busy time and idle share).
-4. rgb_barcodes batched -- 4 corners x 4 reps of 1536x2048 RGGB mosaics
-   (768x1024 red planes) through ``sr.run``'s rep-tiled ``solve_batch``:
-   every rep's artifacts, the launch count, and every rep's ``SAA_IBP``
-   within +-1 of the batched solve with the plain row apply on the card.
+5. mono_bf16 -- the same session through ``sr.run --band-store bf16``
+   (auto: the fused kernels): artifacts, launches (K1-bf16 7, K2 80, K3
+   80, nothing else), ``SAA_IBP`` within +-2 of the plain-version solve on
+   the card and within +-3 of the f32 solve; one profiled bf16 solve.
+6. modes -- warm ``solve`` time, HR Mpix/s and launches of every band
+   store and engine: f32 (banded, and fused on), bf16 (fused, and fused
+   off), hybrid:16 (banded, and fused on); hybrid's ``saa`` bit-identical
+   to f32's and its ``SAA_IBP`` within +-1, f32 fused within +-1.
+7. rgb_barcodes batched -- 4 corners x 4 reps of 1536x2048 RGGB mosaics
+   (768x1024 red planes) through ``sr.run``'s rep-tiled ``solve_batch``,
+   f32 and then ``--band-store bf16``: every rep's artifacts, the launch
+   counts, and every rep's ``SAA_IBP`` within +-1 (f32) or +-2 (bf16) of
+   the batched solve with the plain versions on the card.
 
 Then the ``kernels`` summary line, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -48,7 +68,11 @@ REPO = Path(__file__).resolve().parent
 WORK = REPO / "_smoke_work"
 SEED = 0
 KERNEL_ATOL = 1e-3
+BF16_ATOL = 2.0
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+BF16_PEAK = 989e12         # H100 SXM dense bf16 tensor-core rate
+HR_MPIX = 3072 * 4096 / 1e6
+TAIL = 16                  # the hybrid store's default f32 tail
 
 
 def emit(obj) -> None:
@@ -81,6 +105,51 @@ def time_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _counters():
+    """Every kernel wrapper's launch counter, by kernel and band type."""
+    from enph459_super_resolution_tpu_torch.ops.banded_rows import \
+        banded_row_apply
+    from enph459_super_resolution_tpu_torch.ops.fused_ibp import (
+        fused_bwd_update, fused_fwd_err)
+
+    return {"k1_f32": (banded_row_apply, "launches"),
+            "k1_bf16": (banded_row_apply, "launches_bf16"),
+            "k2_f32": (fused_fwd_err, "launches"),
+            "k2_bf16": (fused_fwd_err, "launches_bf16"),
+            "k3_f32": (fused_bwd_update, "launches"),
+            "k3_bf16": (fused_bwd_update, "launches_bf16")}
+
+
+def reset_counts() -> None:
+    for fn, attr in _counters().values():
+        setattr(fn, attr, 0)
+
+
+def read_counts() -> dict:
+    return {k: getattr(fn, attr) for k, (fn, attr) in _counters().items()}
+
+
+def expected_launches(band_store: str, fused: bool, rank: int, n: int,
+                      n_iter: int) -> dict:
+    """Launches of one (batched) solve by kernel: the LR-mean zoom and the
+    stack zoom (one batched launch), one Shift-and-Add row apply per frame
+    (on the bf16 bands only for ``bf16``), then per IBP iteration either one
+    K2 and one K3 launch (fused engine) or, per frame and PSF rank term, one
+    forward and one back-projection row apply (banded engine).  ``hybrid``
+    runs its last ``TAIL`` iterations banded on the f32 bands."""
+    out = dict.fromkeys(_counters(), 0)
+    low = "bf16" if band_store in ("bf16", "hybrid") else "f32"
+    out["k1_bf16" if band_store == "bf16" else "k1_f32"] += 2 + n
+    n_lo = n_iter - TAIL if band_store == "hybrid" else n_iter
+    if fused:
+        out[f"k2_{low}"] += n_lo
+        out[f"k3_{low}"] += n_lo
+    else:
+        out[f"k1_{low}"] += n_lo * n * 2 * rank
+    out["k1_f32"] += (n_iter - n_lo) * n * 2 * rank
+    return out
+
+
 def phase_device(torch):
     from enph459_super_resolution_tpu_torch import _build
     from enph459_super_resolution_tpu_torch.data import io
@@ -90,7 +159,7 @@ def phase_device(torch):
     max_sm_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     t0 = time.perf_counter()
-    logs = {name: _build.build(name) for name in _build.kernel_names()}
+    logs = _build.build_all()
     build_s = time.perf_counter() - t0
     ptxas = {name: [ln.strip() for ln in log.splitlines()
                     if "registers" in ln or "spill" in ln]
@@ -117,42 +186,64 @@ def _dense(op) -> np.ndarray:
     return m
 
 
-def phase_kernel(torch, f32_peak):
+def _true_window(op) -> int:
+    """Band entries of an op's block decomposition (rows x block window)."""
+    return sum(b.shape[0] * (hi - lo)
+               for b, (lo, hi) in zip(op.blocks, op.col_ranges))
+
+
+def _bound(flops, nbytes, peak):
+    t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def host_operators():
+    """The host operator sets of the two runs: mono (LR 1536x2048, center+4)
+    and rgb (LR 768x1024, 4 corners, 4 reps tiled)."""
+    from enph459_super_resolution_tpu_torch.data.sessions import (
+        CENTER_SHIFT_FILES, CORNER_SHIFTS_LR)
+    from enph459_super_resolution_tpu_torch.sr.classical import (
+        _host_solve_matrices, make_gaussian_psf)
+
+    psf = make_gaussian_psf()
+    shifts = tuple(s for _, s in CENTER_SHIFT_FILES)
+    return {"mono": _host_solve_matrices(psf, shifts, 2, (1536, 2048)),
+            "rgb4": _host_solve_matrices(psf, CORNER_SHIFTS_LR, 2,
+                                         (768, 1024), reps=4)}
+
+
+def phase_kernel(torch, f32_peak, host):
     """K1 against its plain version at the main path's shapes."""
     from enph459_super_resolution_tpu_torch.ops.banded_rows import (
         banded_row_apply, banded_row_apply_reference)
-    from enph459_super_resolution_tpu_torch.sr.classical import (
-        _host_solve_matrices, make_gaussian_psf)
-    from enph459_super_resolution_tpu_torch.data.sessions import (
-        CENTER_SHIFT_FILES, CORNER_SHIFTS_LR)
 
     dev = torch.device("cuda")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    psf = make_gaussian_psf()
-    shifts = tuple(s for _, s in CENTER_SHIFT_FILES)
-    full = _host_solve_matrices(psf, shifts, 2, (1536, 2048))
-    tiled = _host_solve_matrices(psf, CORNER_SHIFTS_LR, 2, (768, 1024),
-                                 reps=4)
-    # frame 1 has a nonzero sub-pixel shift; (op, input batch, input width)
+    full, tiled = host["mono"], host["rgb4"]
+    f32, bf16 = torch.float32, torch.bfloat16
+    # frame 1 has a nonzero sub-pixel shift; (op, input batch, input width,
+    # band type)
     cases = {
         # the zoom runs on the 5-frame stack and on the LR mean
-        "zoom_r": (full["zoom_r"], 5, 2048),
-        "zoom_r_mean": (full["zoom_r"], 1, 2048),
-        "saa_r": (full["saa"][1][0], 1, 4096),
-        "fwd_r": (full["frames"][1][0][0], 1, 4096),
-        "bwd_r": (full["frames"][1][2][0], 1, 2048),
+        "zoom_r": (full["zoom_r"], 5, 2048, f32),
+        "zoom_r_mean": (full["zoom_r"], 1, 2048, f32),
+        "saa_r": (full["saa"][1][0], 1, 4096, f32),
+        "fwd_r": (full["frames"][1][0][0], 1, 4096, f32),
+        "bwd_r": (full["frames"][1][2][0], 1, 2048, f32),
         # the rgb_barcodes batched solve: 4 reps stacked along H
-        "zoom_r_tiled4": (tiled["zoom_r"], 4, 1024),
-        "zoom_r_tiled4_mean": (tiled["zoom_r"], 1, 1024),
-        "saa_r_tiled4": (tiled["saa"][1][0], 1, 2048),
-        "fwd_r_tiled4": (tiled["frames"][1][0][0], 1, 2048),
-        "bwd_r_tiled4": (tiled["frames"][1][2][0], 1, 1024),
+        "zoom_r_tiled4": (tiled["zoom_r"], 4, 1024, f32),
+        "zoom_r_tiled4_mean": (tiled["zoom_r"], 1, 1024, f32),
+        "saa_r_tiled4": (tiled["saa"][1][0], 1, 2048, f32),
+        "fwd_r_tiled4": (tiled["frames"][1][0][0], 1, 2048, f32),
+        "bwd_r_tiled4": (tiled["frames"][1][2][0], 1, 1024, f32),
+        # the bf16 band store: zoom under bf16, the bulk's forward rows
+        "zoom_r_bf16": (full["zoom_r"], 5, 2048, bf16),
+        "fwd_r_bf16": (full["frames"][1][0][0], 1, 4096, bf16),
     }
     rng = np.random.default_rng(SEED)
     rows = []
-    for name, (host_op, batch, width) in cases.items():
-        op = host_op.to(dev)
+    for name, (host_op, batch, width, dtype) in cases.items():
+        op = host_op.astype_band(dtype).to(dev)
         pack = op.row_pack
         x = torch.as_tensor(rng.uniform(0, 255, (batch, op.n_in, width)),
                             dtype=torch.float32, device=dev)
@@ -163,18 +254,19 @@ def phase_kernel(torch, f32_peak):
         check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
         check(err <= KERNEL_ATOL, f"{name}: max|kernel - plain| {err} > "
                                   f"{KERNEL_ATOL}")
-        dense = torch.as_tensor(_dense(host_op), device=dev)
+        # the library yardstick: one dense matmul of the same function (for
+        # bf16 bands, of the bf16-rounded operator and input, in f32)
+        dense = torch.as_tensor(_dense(host_op), device=dev).to(dtype).float()
+        x_lib = x.to(dtype).float()
         kernel_ms = time_ms(torch, lambda: banded_row_apply(pack, x), 20)
         plain_ms = time_ms(torch, lambda: banded_row_apply_reference(pack, x),
                            5)
-        library_ms = time_ms(torch, lambda: torch.matmul(dense, x), 5)
-        true_win = sum(b.shape[0] * (hi - lo) for b, (lo, hi)
-                       in zip(host_op.blocks, host_op.col_ranges))
-        flops = 2.0 * true_win * width * batch
-        nbytes = 4.0 * (x.numel() + batch * op.n_out * width
-                        + pack.bands.numel() + pack.meta.numel())
-        t_ops, t_bytes = flops / f32_peak, nbytes / HBM_BYTES_PER_S
-        row = {"phase": "kernel", "op": name,
+        library_ms = time_ms(torch, lambda: torch.matmul(dense, x_lib), 5)
+        flops = 2.0 * _true_window(host_op) * width * batch
+        nbytes = (4.0 * (x.numel() + batch * op.n_out * width
+                         + pack.meta.numel())
+                  + pack.bands.numel() * pack.bands.element_size())
+        row = {"phase": "kernel", "op": name, "bands": str(dtype)[6:],
                "x": [batch, op.n_in, width], "out_rows": op.n_out,
                "blocks": len(host_op.blocks),
                "true_window": max(hi - lo for lo, hi in host_op.col_ranges),
@@ -182,16 +274,128 @@ def phase_kernel(torch, f32_peak):
                "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
                "max_abs_err": err, "kernel_ms": kernel_ms,
                "plain_ms": plain_ms, "library_ms": library_ms,
-               "bound_ms": max(t_ops, t_bytes) * 1e3,
-               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+               **_bound(flops, nbytes, f32_peak if dtype == f32 else BF16_PEAK),
                "kernel_tflops": flops / kernel_ms / 1e9}
         emit(row)
         rows.append(row)
-        del dense, x, got, want
+        del dense, x, x_lib, got, want
     return rows
 
 
-def phase_profile(torch, run_solve):
+def _unfused_fwd(ops, hr, lr):
+    from enph459_super_resolution_tpu_torch.sr.classical import \
+        forward_model_mm
+
+    return [lr[i] - forward_model_mm(hr, ops[i]) for i in range(len(ops))]
+
+
+def _unfused_bwd(torch, ops, hr, err, step):
+    from enph459_super_resolution_tpu_torch.sr.classical import \
+        back_project_mm
+
+    corr = torch.zeros_like(hr)
+    for i in range(len(ops)):
+        corr += back_project_mm(err[i], ops[i])
+    return torch.clamp(hr + step * corr / len(ops), 0.0, 255.0)
+
+
+def _fused_work(frames, pack):
+    """True band FLOPs of K2 and K3 on this pack's shapes: K2 forms each
+    unique row operator's product of hr once and each term's column product;
+    K3 forms every term's row and column products of its frame's error."""
+    from enph459_super_resolution_tpu_torch.ops.fused_ibp import _dedup
+
+    h, w = pack.lr_shape
+    hh, hw = pack.hr_shape
+    rows_u, _ = _dedup([op for fr in frames for op in fr[0]])
+    k2 = (sum(2.0 * _true_window(op) * hw for op in rows_u)
+          + sum(2.0 * _true_window(op) * h for fr in frames for op in fr[1]))
+    k3 = sum(2.0 * _true_window(r) * w + 2.0 * _true_window(c) * hh
+             for fr in frames for r, c in zip(fr[2], fr[3]))
+    return k2, k3
+
+
+def phase_fused(torch, f32_peak, host):
+    """K2 and K3 against their plain versions, with the unfused yardstick."""
+    from enph459_super_resolution_tpu_torch.ops.fused_ibp import (
+        FusedIBP, fused_bwd_update, fused_bwd_update_reference, fused_fwd_err,
+        fused_fwd_err_reference)
+    from enph459_super_resolution_tpu_torch.sr.classical import (
+        _cast_bf16, _to_device)
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 3)
+    rows = []
+    for layout, mats in host.items():
+        frames = mats["frames"]
+        pack32 = FusedIBP.build(frames, dev)
+        k2_flops, k3_flops = _fused_work(frames, pack32)
+        n = pack32.n_frames
+        step = 0.5
+        hr = torch.as_tensor(rng.uniform(0, 255, pack32.hr_shape),
+                             dtype=torch.float32, device=dev)
+        lr32 = torch.as_tensor(rng.uniform(0, 255, (n,) + pack32.lr_shape),
+                               dtype=torch.float32, device=dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            low = dtype == torch.bfloat16
+            pack = pack32.astype_bands(dtype) if low else pack32
+            ops = _to_device(_cast_bf16(frames) if low else frames, dev)
+            lr = lr32.to(dtype)
+            tol, peak = (BF16_ATOL, BF16_PEAK) if low else (KERNEL_ATOL,
+                                                            f32_peak)
+            err = fused_fwd_err(pack, hr, lr)
+            want_err = fused_fwd_err_reference(pack, hr, lr)
+            # K3 from the plain version's err stack, so it is judged alone
+            out = fused_bwd_update(pack, hr, want_err, step / n, (0.0, 255.0))
+            want_out = fused_bwd_update_reference(pack, hr, want_err,
+                                                  step / n, (0.0, 255.0))
+            torch.cuda.synchronize()
+            band_bytes = {
+                k: sum(getattr(pack, f"{k}_band{a}").numel()
+                       * getattr(pack, f"{k}_band{a}").element_size()
+                       for a in "rc") for k in "fb"}
+            io_bytes = lr.numel() * lr.element_size()
+            hr_bytes = hr.numel() * 4
+            for kernel, got, want, flops, nbytes, fn, plain, unfused in (
+                    ("fused_fwd", err, want_err, k2_flops,
+                     hr_bytes + 2 * io_bytes + band_bytes["f"],
+                     lambda: fused_fwd_err(pack, hr, lr),
+                     lambda: fused_fwd_err_reference(pack, hr, lr),
+                     lambda: _unfused_fwd(ops, hr, lr32)),
+                    ("fused_bwd", out, want_out, k3_flops,
+                     2 * hr_bytes + io_bytes + band_bytes["b"],
+                     lambda: fused_bwd_update(pack, hr, want_err, step / n,
+                                              (0.0, 255.0)),
+                     lambda: fused_bwd_update_reference(
+                         pack, hr, want_err, step / n, (0.0, 255.0)),
+                     lambda: _unfused_bwd(torch, ops, hr, want_err.float(),
+                                          step))):
+                diff = (got.float() - want.float()).abs().max().item()
+                name = f"{kernel}_{layout}_{str(dtype)[6:]}"
+                check(bool(torch.isfinite(got.float()).all()),
+                      f"{name}: non-finite output")
+                check(got.dtype == want.dtype, f"{name}: dtype {got.dtype}")
+                check(diff <= tol, f"{name}: max|kernel - plain| {diff} > "
+                                   f"{tol}")
+                kernel_ms = time_ms(torch, fn, 20)
+                row = {"phase": "fused", "kernel": kernel, "pack": layout,
+                       "bands": str(dtype)[6:], "frames": n,
+                       "hr": list(pack.hr_shape), "lr": list(pack.lr_shape),
+                       "bandr": list(getattr(pack, kernel[6] + "_bandr").shape),
+                       "bandc": list(getattr(pack, kernel[6] + "_bandc").shape),
+                       "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
+                       "max_abs_err": diff, "kernel_ms": kernel_ms,
+                       "plain_ms": time_ms(torch, plain, 3),
+                       "unfused_ms": time_ms(torch, unfused, 5),
+                       "library_ms": None, **_bound(flops, nbytes, peak),
+                       "kernel_tflops": flops / kernel_ms / 1e9}
+                emit(row)
+                rows.append(row)
+        del pack32, hr, lr32
+    return rows
+
+
+def phase_profile(torch, run_solve, what: str):
     """Where one warm full-size solve spends the card's time: device time
     by kernel (torch.profiler) against the same solve's wall clock, whose
     ratio is the device's idle share (the profiler's own host overhead is
@@ -213,7 +417,7 @@ def phase_profile(torch, run_solve):
     busy_us = sum(t for _, t, _ in kernels)
     top = sorted(kernels, key=lambda k: -k[1])[:12]
     busy_s = busy_us / 1e6
-    emit({"phase": "profile", "what": "one warm mono_cal_target solve",
+    emit({"phase": "profile", "what": what,
           "profiled_wall_s": wall_s, "device_busy_s": busy_s,
           "device_idle_share": 1.0 - busy_s / wall_s,
           "top_kernels": [{"name": k[:90], "device_ms": t / 1e3, "count": c}
@@ -247,16 +451,34 @@ def _check_unit(out_dir: Path, lr_mean_name: str):
     return metrics
 
 
-def _expected_launches(psf, n_frames, n_iter):
-    """K1 launches of one (batched) solve: the LR-mean zoom, the stack zoom
-    (one batched launch), one Shift-and-Add row apply per frame, and per
-    IBP iteration and frame one forward and one back-projection row apply
-    per PSF rank term."""
+def _rank(psf) -> int:
     from enph459_super_resolution_tpu_torch.ops.opmatrix import \
         psf_separable_factors
 
-    rank = len(psf_separable_factors(psf)[0])
-    return 1 + 1 + n_frames + n_iter * n_frames * 2 * rank
+    return len(psf_separable_factors(psf)[0])
+
+
+def _u8_diff(a, b) -> int:
+    from enph459_super_resolution_tpu_torch.sr.classical import to_uint8
+
+    return int(np.abs(to_uint8(a).astype(np.int16)
+                      - to_uint8(b).astype(np.int16)).max())
+
+
+def _sr_run(workload: str, data_dir: Path, out: Path, *flags):
+    """``sr.run`` on cuda with every launch count zeroed just before it;
+    returns (seconds, launches)."""
+    from enph459_super_resolution_tpu_torch.sr import run
+
+    reset_counts()
+    t0 = time.perf_counter()
+    rc = run.main(["--workload", workload, "--data-dir", str(data_dir),
+                   "--output-dir", str(out), "--device", "cuda",
+                   "--no-figures", *flags])
+    run_s = time.perf_counter() - t0
+    launches = read_counts()
+    check(rc == 0, f"sr.run {' '.join(flags)} exited {rc}")
+    return run_s, launches
 
 
 def phase_mono(torch):
@@ -265,9 +487,7 @@ def phase_mono(torch):
     from enph459_super_resolution_tpu_torch.data.io import load_gray, save_png
     from enph459_super_resolution_tpu_torch.data.sessions import \
         load_center_shift_session
-    from enph459_super_resolution_tpu_torch.ops.banded_rows import \
-        banded_row_apply
-    from enph459_super_resolution_tpu_torch.sr import classical, run
+    from enph459_super_resolution_tpu_torch.sr import classical
     from enph459_super_resolution_tpu_torch.sr.classical import (
         make_gaussian_psf, solve, to_uint8)
     from enph459_super_resolution_tpu_torch.sr.config import WORKLOADS
@@ -281,18 +501,12 @@ def phase_mono(torch):
         save_png(_noisy_u8(rng, scene), str(sdir / fname))
     out = WORK / "mono" / "results"
 
-    banded_row_apply.launches = 0
-    t0 = time.perf_counter()
-    rc = run.main(["--workload", "mono_cal_target", "--data-dir",
-                   str(sdir.parent), "--output-dir", str(out), "--device",
-                   "cuda", "--no-figures"])
-    run_s = time.perf_counter() - t0
-    launches = banded_row_apply.launches
-    check(rc == 0, f"sr.run exited {rc}")
+    run_s, launches = _sr_run("mono_cal_target", sdir.parent, out)
     psf = make_gaussian_psf(cfg.psf_size, cfg.psf_sigma)
-    expected = _expected_launches(psf, 5, cfg.ibp_iterations)
+    expected = expected_launches("f32", False, _rank(psf), 5,
+                                 cfg.ibp_iterations)
     check(launches == expected,
-          f"K1 launches {launches}, solve structure implies {expected}")
+          f"launches {launches}, solve structure implies {expected}")
     unit = out / "session0"
     metrics = _check_unit(unit, cfg.lr_mean_name)
     check(metrics["hr_shape"] == [3072, 4096], f"hr {metrics['hr_shape']}")
@@ -306,8 +520,8 @@ def phase_mono(torch):
 
     # the same solve again: warm (operator tree kept in process since
     # sr.run), then cold (tree dropped: read back from the disk cache and
-    # every pack uploaded again), then profiled, then with the plain row
-    # apply on the card
+    # every pack uploaded again), then profiled, then with the plain
+    # versions on the card
     frames = torch.as_tensor(session.frames, device="cuda")
 
     def timed_solve():
@@ -324,18 +538,18 @@ def phase_mono(torch):
     classical._device_matrices.cache_clear()
     _, cold_solve_s = timed_solve()
     busy_s, profiled_s = phase_profile(
-        torch, lambda: solve(frames, psf, session.shifts, device="cuda"))
+        torch, lambda: solve(frames, psf, session.shifts, device="cuda"),
+        "one warm mono_cal_target solve, f32")
     t0 = time.perf_counter()
-    plain = solve(frames, psf, session.shifts, device="cuda", plain_rows=True)
+    plain = solve(frames, psf, session.shifts, device="cuda", plain=True)
     plain_solve_s = time.perf_counter() - t0
     ibp_png = load_gray(str(unit / "SAA_IBP.png")).astype(np.int16)
     ibp_diff = int(np.abs(ibp_png - to_uint8(plain["ibp"])).max())
-    check(ibp_diff <= 1, f"SAA_IBP kernel vs plain rows: {ibp_diff} > 1")
+    check(ibp_diff <= 1, f"SAA_IBP kernel vs plain: {ibp_diff} > 1")
     rerun_diff = int(np.abs(ibp_png - to_uint8(kern["ibp"])).max())
-    hr_mpix = 3072 * 4096 / 1e6
     emit({"phase": "mono_cal_target", "lr": [5, 1536, 2048],
           "hr": [3072, 4096], "ibp_iterations": cfg.ibp_iterations,
-          "k1_launches": launches, "k1_launches_expected": expected,
+          "launches": launches, "launches_expected": expected,
           "native_vs_scipy_max_diff": native_diff,
           "ibp_kernel_vs_plain_max_diff": ibp_diff,
           "ibp_rerun_max_diff": rerun_diff,
@@ -343,20 +557,109 @@ def phase_mono(torch):
           "mse_last": metrics["mse_history"][-1],
           "sr_run_s": run_s, "sr_run_solve_s": metrics["timings_s"]["solve"],
           "solve_s_runs": solve_runs, "solve_s": solve_s,
-          "hr_mpix_per_s": hr_mpix / solve_s,
+          "hr_mpix_per_s": HR_MPIX / solve_s,
           "cold_solve_s": cold_solve_s,
           "operator_prologue_s": cold_solve_s - solve_s,
           "profiled_solve_s": profiled_s, "device_busy_s": busy_s,
           "device_idle_share": 1.0 - busy_s / profiled_s,
-          "plain_rows_solve_s": plain_solve_s})
+          "plain_solve_s": plain_solve_s})
+    return {"frames": frames, "shifts": session.shifts, "psf": psf,
+            "f32": kern, "data": sdir.parent, "cfg": cfg,
+            "launches": launches}
+
+
+def phase_mono_bf16(torch, mono):
+    """The slice's main path: ``sr.run --band-store bf16``, which auto-routes
+    to the fused kernels at this shape."""
+    from enph459_super_resolution_tpu_torch.data.io import load_gray
+    from enph459_super_resolution_tpu_torch.sr.classical import solve
+
+    cfg = mono["cfg"]
+    out = WORK / "mono" / "results_bf16"
+    run_s, launches = _sr_run("mono_cal_target", mono["data"], out,
+                              "--band-store", "bf16")
+    expected = expected_launches("bf16", True, _rank(mono["psf"]), 5,
+                                 cfg.ibp_iterations)
+    check(launches == expected,
+          f"bf16 launches {launches}, solve structure implies {expected}")
+    unit = out / "session0"
+    metrics = _check_unit(unit, cfg.lr_mean_name)
+    frames, psf, shifts = mono["frames"], mono["psf"], mono["shifts"]
+    t0 = time.perf_counter()
+    plain = solve(frames, psf, shifts, device="cuda", band_store="bf16",
+                  plain=True)
+    plain_solve_s = time.perf_counter() - t0
+    ibp_png = load_gray(str(unit / "SAA_IBP.png")).astype(np.int16)
+    vs_plain = _u8_diff(ibp_png, plain["ibp"])
+    vs_f32 = _u8_diff(ibp_png, mono["f32"]["ibp"])
+    check(vs_plain <= 2, f"bf16 SAA_IBP kernels vs plain: {vs_plain} > 2")
+    check(vs_f32 <= 3, f"bf16 SAA_IBP vs the f32 solve: {vs_f32} > 3")
+    busy_s, profiled_s = phase_profile(
+        torch, lambda: solve(frames, psf, shifts, device="cuda",
+                             band_store="bf16"),
+        "one warm mono_cal_target solve, bf16 (fused)")
+    emit({"phase": "mono_bf16", "launches": launches,
+          "launches_expected": expected,
+          "ibp_kernels_vs_plain_max_diff": vs_plain,
+          "ibp_vs_f32_max_diff": vs_f32,
+          "mse_first": metrics["mse_history"][0],
+          "mse_last": metrics["mse_history"][-1],
+          "sr_run_s": run_s, "sr_run_solve_s": metrics["timings_s"]["solve"],
+          "plain_solve_s": plain_solve_s, "profiled_solve_s": profiled_s,
+          "device_busy_s": busy_s,
+          "device_idle_share": 1.0 - busy_s / profiled_s})
     return launches
+
+
+def phase_modes(torch, mono):
+    """Every band store and engine at full size: launches, parity with the
+    f32 banded solve, warm solve time."""
+    from enph459_super_resolution_tpu_torch.sr.classical import solve
+
+    frames, psf, shifts = mono["frames"], mono["psf"], mono["shifts"]
+    n_iter = mono["cfg"].ibp_iterations
+    f32 = mono["f32"]
+    modes = (("f32", "off", 1), ("f32", "on", 1), ("bf16", "auto", 3),
+             ("bf16", "off", 3), (f"hybrid:{TAIL}", "auto", 1),
+             (f"hybrid:{TAIL}", "on", 1))
+    out = {}
+    for store, fused, tol in modes:
+        kind = store.split(":")[0]
+        fused_on = fused == "on" or (fused == "auto" and kind == "bf16")
+        reset_counts()
+        res = solve(frames, psf, shifts, device="cuda", band_store=store,
+                    fused=fused)
+        launches = read_counts()
+        expected = expected_launches(kind, fused_on, _rank(psf), 5, n_iter)
+        name = f"{store} fused={fused}"
+        check(launches == expected,
+              f"{name}: launches {launches}, structure implies {expected}")
+        diff = _u8_diff(res["ibp"], f32["ibp"])
+        check(diff <= tol, f"{name}: SAA_IBP vs f32 banded {diff} > {tol}")
+        saa_equal = bool(np.array_equal(res["saa"], f32["saa"]))
+        if kind in ("f32", "hybrid"):
+            check(saa_equal, f"{name}: saa differs from the f32 solve's")
+        runs = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            solve(frames, psf, shifts, device="cuda", band_store=store,
+                  fused=fused)
+            runs.append(time.perf_counter() - t0)
+        solve_s = sorted(runs)[1]
+        row = {"phase": "mode", "band_store": store, "fused": fused,
+               "engine": "fused" if fused_on else "banded",
+               "launches": launches, "ibp_vs_f32_max_diff": diff,
+               "saa_equal_f32": saa_equal, "solve_s_runs": runs,
+               "solve_s": solve_s, "hr_mpix_per_s": HR_MPIX / solve_s,
+               "mse_last": float(res["mse_history"][-1])}
+        emit(row)
+        out[(store, fused)] = row
+    return out
 
 
 def phase_rgb(torch):
     from enph459_super_resolution_tpu_torch.data.io import load_gray, save_png
-    from enph459_super_resolution_tpu_torch.ops.banded_rows import \
-        banded_row_apply
-    from enph459_super_resolution_tpu_torch.sr import run
     from enph459_super_resolution_tpu_torch.sr.classical import (
         make_gaussian_psf, solve_batch, to_uint8)
     from enph459_super_resolution_tpu_torch.sr.config import WORKLOADS
@@ -370,47 +673,61 @@ def phase_rgb(torch):
         for ri in range(n_reps):
             save_png(_noisy_u8(rng, scene),
                      str(sdir / f"corner{ci}_rep{ri:02d}.png"))
-    out = WORK / "rgb" / "results"
-
-    banded_row_apply.launches = 0
-    t0 = time.perf_counter()
-    rc = run.main(["--workload", "rgb_barcodes", "--data-dir",
-                   str(sdir.parent), "--output-dir", str(out), "--device",
-                   "cuda", "--no-figures"])
-    run_s = time.perf_counter() - t0
-    launches = banded_row_apply.launches
-    check(rc == 0, f"sr.run exited {rc}")
     psf = make_gaussian_psf(cfg.psf_size, cfg.psf_sigma)
-    expected = _expected_launches(psf, 4, cfg.ibp_iterations)
-    check(launches == expected, f"K1 launches {launches} for one batched "
-                                f"solve, structure implies {expected}")
-    # the same batched solve with the plain row apply on the card
     units = cfg.load(str(sdir))
     check(len(units) == n_reps, f"{len(units)} units, expected {n_reps}")
-    t0 = time.perf_counter()
-    plain = solve_batch(np.stack([u.frames for u in units]), psf,
-                        units[0].shifts, factor=cfg.upsample_factor,
-                        n_iter=cfg.ibp_iterations, step=cfg.ibp_step,
-                        device="cuda", plain_rows=True)
-    plain_batch_s = time.perf_counter() - t0
-    batch_s, ibp_diffs = None, []
-    for ri, unit in enumerate(units):
-        unit_dir = out / "barcodes0" / f"rep{unit.rep}"
-        m = _check_unit(unit_dir, cfg.lr_mean_name)
-        check(m["hr_shape"] == [1536, 2048], f"rep{ri} hr {m['hr_shape']}")
-        batch_s = m["timings_s"]["solve_batch_total"]
-        ibp_png = load_gray(str(unit_dir / "SAA_IBP.png")).astype(np.int16)
-        ibp_diffs.append(int(np.abs(ibp_png
-                                    - to_uint8(plain["ibp"][ri])).max()))
-    check(max(ibp_diffs) <= 1,
-          f"SAA_IBP kernel vs plain rows, per rep: {ibp_diffs}")
-    emit({"phase": "rgb_barcodes", "reps": n_reps, "lr": [4, 768, 1024],
-          "hr": [1536, 2048], "k1_launches": launches,
-          "k1_launches_expected": expected,
-          "ibp_kernel_vs_plain_max_diff_per_rep": ibp_diffs,
-          "sr_run_s": run_s, "solve_batch_s": batch_s,
-          "hr_mpix_per_s": n_reps * 1536 * 2048 / 1e6 / batch_s,
-          "plain_rows_solve_batch_s": plain_batch_s})
+    stack = np.stack([u.frames for u in units])
+    result = {}
+    for store, tol in (("f32", 1), ("bf16", 2)):
+        out = WORK / "rgb" / f"results_{store}"
+        run_s, launches = _sr_run("rgb_barcodes", sdir.parent, out,
+                                  "--band-store", store)
+        expected = expected_launches(store, store == "bf16", _rank(psf), 4,
+                                     cfg.ibp_iterations)
+        check(launches == expected, f"{store}: launches {launches} for one "
+                                    f"batched solve, structure implies "
+                                    f"{expected}")
+        # the same batched solve with the plain versions on the card
+        t0 = time.perf_counter()
+        plain = solve_batch(stack, psf, units[0].shifts,
+                            factor=cfg.upsample_factor,
+                            n_iter=cfg.ibp_iterations, step=cfg.ibp_step,
+                            device="cuda", band_store=store, plain=True)
+        plain_batch_s = time.perf_counter() - t0
+        batch_s, ibp_diffs = None, []
+        for ri, unit in enumerate(units):
+            unit_dir = out / "barcodes0" / f"rep{unit.rep}"
+            m = _check_unit(unit_dir, cfg.lr_mean_name)
+            check(m["hr_shape"] == [1536, 2048],
+                  f"rep{ri} hr {m['hr_shape']}")
+            batch_s = m["timings_s"]["solve_batch_total"]
+            ibp_png = load_gray(str(unit_dir / "SAA_IBP.png")).astype(
+                np.int16)
+            ibp_diffs.append(int(np.abs(ibp_png
+                                        - to_uint8(plain["ibp"][ri])).max()))
+        check(max(ibp_diffs) <= tol,
+              f"{store}: SAA_IBP kernels vs plain, per rep: {ibp_diffs}")
+        emit({"phase": "rgb_barcodes", "band_store": store, "reps": n_reps,
+              "lr": [4, 768, 1024], "hr": [1536, 2048],
+              "launches": launches, "launches_expected": expected,
+              "ibp_kernels_vs_plain_max_diff_per_rep": ibp_diffs,
+              "sr_run_s": run_s, "solve_batch_s": batch_s,
+              "hr_mpix_per_s": n_reps * 1536 * 2048 / 1e6 / batch_s,
+              "plain_solve_batch_s": plain_batch_s})
+        result[store] = launches
+    return result
+
+
+def _summary(name, source, replaces, launches, rows, head, card):
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": head["kernel_ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"],
+            **({"unfused_ms": head["unfused_ms"]} if "unfused_ms" in head
+               else {}),
+            "at": head.get("op") or f"{head['pack']} pack", "card": card}
 
 
 def main() -> int:
@@ -424,23 +741,47 @@ def main() -> int:
     shutil.rmtree(WORK, ignore_errors=True)
     try:
         card, f32_peak = phase_device(torch)
-        rows = phase_kernel(torch, f32_peak)
-        launches = phase_mono(torch)
+        host = host_operators()
+        k1_rows = phase_kernel(torch, f32_peak, host)
+        fused_rows = phase_fused(torch, f32_peak, host)
+        del host
+        mono = phase_mono(torch)
+        bf16_launches = phase_mono_bf16(torch, mono)
+        modes = phase_modes(torch, mono)
         phase_rgb(torch)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 
-    head = next(r for r in rows if r["op"] == "fwd_r")
-    emit({"kernels": [{
-        "name": "banded_rows", "route": "cuda",
-        "source": "enph459_super_resolution_tpu_torch/csrc/banded_rows.cu",
-        "replaces": "enph459_super_resolution_tpu/ops/pallas_kernels.py:34",
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "ms": head["kernel_ms"], "plain_ms": head["plain_ms"],
-        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-        "library_ms": head["library_ms"],
-        "at": "fwd_r, LR 1536x2048 (x 3072x4096 f32)", "card": card}]})
+    k1_src = "enph459_super_resolution_tpu_torch/csrc/banded_rows.cu"
+    k1_tpu = "enph459_super_resolution_tpu/ops/pallas_kernels.py:34"
+    fused_src = "enph459_super_resolution_tpu_torch/csrc/fused_ibp.cu"
+    fused_tpu = "enph459_super_resolution_tpu/ops/pallas_fused_ibp.py"
+    f32_fused = modes[("f32", "on")]["launches"]
+
+    def k1(dtype):
+        return [r for r in k1_rows if r["bands"] == dtype]
+
+    def fused(kernel, dtype):
+        return [r for r in fused_rows
+                if r["kernel"] == kernel and r["bands"] == dtype]
+
+    entries = [
+        _summary("banded_rows", k1_src, k1_tpu, mono["launches"]["k1_f32"],
+                 k1("float32"), next(r for r in k1_rows if r["op"] == "fwd_r"),
+                 card),
+        _summary("banded_rows_bf16", k1_src, k1_tpu, bf16_launches["k1_bf16"],
+                 k1("bfloat16"),
+                 next(r for r in k1_rows if r["op"] == "fwd_r_bf16"), card)]
+    for kernel, line, key in (("fused_fwd", 237, "k2"),
+                              ("fused_bwd", 264, "k3")):
+        for dtype, launches in (("float32", f32_fused[f"{key}_f32"]),
+                                ("bfloat16", bf16_launches[f"{key}_bf16"])):
+            rows = fused(kernel, dtype)
+            entries.append(_summary(
+                kernel + ("_bf16" if dtype == "bfloat16" else ""), fused_src,
+                f"{fused_tpu}:{line}", launches, rows,
+                next(r for r in rows if r["pack"] == "mono"), card))
+    emit({"kernels": entries})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` exposes a plain C entry point and compiles on its
 own into ``_build_out/lib<name>_<hash>.so`` (``_build_out`` is git-ignored),
 where the hash covers the source and the flags, so an edited source never
-loads a stale library.  The build happens at first use.  ``-Xptxas -v``
+loads a stale library.  The build happens at first use, or for every
+source at once, in parallel, through :func:`build_all`.  ``-Xptxas -v``
 puts each kernel's registers, shared memory and spills into
 ``lib<name>_<hash>.log`` beside the library.
 """
@@ -58,25 +59,51 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{key}.so"
 
 
+def _tmp_path(target: Path) -> Path:
+    return target.with_name(f"{target.stem}.{os.getpid()}.tmp.so")
+
+
+def _start(name: str) -> subprocess.Popen:
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    return subprocess.Popen(
+        [nvcc_path(), *NVCC_FLAGS, "-o", str(_tmp_path(library_path(name))),
+         str(CSRC_DIR / f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def _finish(name: str, proc: subprocess.Popen) -> str:
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name} (exit {proc.returncode})"
+                           f":\n{log}")
+    target = library_path(name)
+    target.with_suffix(".log").write_text(log)
+    os.replace(_tmp_path(target), target)  # atomic against concurrent builds
+    return log
+
+
 def build(name: str) -> str:
     """Compile kernel ``name`` unless it is built already.  Returns the
     compiler's output ("" when there was nothing to build); raises if
     ``nvcc`` fails."""
-    target = library_path(name)
-    if target.exists():
-        return ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = target.with_name(f"{target.stem}.{os.getpid()}.tmp.so")
-    proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-                           str(CSRC_DIR / f"{name}.cu")],
-                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                          text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name} (exit {proc.returncode})"
-                           f":\n{proc.stdout}")
-    target.with_suffix(".log").write_text(proc.stdout)
-    os.replace(tmp, target)  # atomic against concurrent builds
-    return proc.stdout
+    return build_all([name])[name]
+
+
+def build_all(names=None) -> Dict[str, str]:
+    """Compile the kernels ``names`` (default: every source under
+    ``csrc/``) that are not built yet, one ``nvcc`` per source, all started
+    together.  Returns each name's compiler output ("" when it was built
+    already); raises if any ``nvcc`` fails, and leaves none running."""
+    names = kernel_names() if names is None else list(names)
+    procs = {n: _start(n) for n in names if not library_path(n).exists()}
+    try:
+        logs = {n: _finish(n, p) for n, p in procs.items()}
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return {n: logs.get(n, "") for n in names}
 
 
 def load_function(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:

@@ -1,9 +1,11 @@
 """Carry the JAX package's state into the port.
 
 The classical path has no learned weights; its state is the operator set.
-These functions take the contents of the JAX package's ``BandedOp``s as
-plain numpy arrays (so this module imports nothing of JAX) and return the
-port's :class:`~.ops.opmatrix.BandedOp`, packed on a device.
+These functions take the contents of the JAX package's ``BandedOp``s and
+``FusedIBP`` packs as plain numpy arrays (so this module imports nothing of
+JAX) and return the port's :class:`~.ops.opmatrix.BandedOp` or
+:class:`~.ops.fused_ibp.FusedIBP` on a device.  bf16 exists only on the
+device: bf16 arrays are handed over as float32 (exact) and cast back there.
 """
 
 from __future__ import annotations
@@ -11,27 +13,36 @@ from __future__ import annotations
 from typing import Mapping
 
 import numpy as np
+import torch
 
+from .ops.fused_ibp import FusedIBP
 from .ops.opmatrix import BandedOp
 
 
 def banded_op_from_arrays(blocks, col_ranges, n_out: int, n_in: int,
-                          device) -> BandedOp:
-    """The port's op from a JAX ``BandedOp``'s ``blocks`` (float32 arrays),
-    ``col_ranges``, ``n_out`` and ``n_in``."""
+                          device, band_dtype=torch.float32) -> BandedOp:
+    """The port's op from a JAX ``BandedOp``'s ``blocks`` (as float32
+    arrays), ``col_ranges``, ``n_out`` and ``n_in``, with ``band_dtype``
+    bands on ``device``."""
     return BandedOp([np.asarray(b, dtype=np.float32) for b in blocks],
-                    col_ranges, n_out, n_in).to(device)
+                    col_ranges, n_out, n_in, band_dtype).to(device)
 
 
 def solve_operators_from_arrays(mats: Mapping, device):
     """The port's operator set from the JAX ``_host_solve_matrices`` dict
-    (keys ``zoom_r``, ``zoom_c``, ``saa``, ``frames``, same nesting), where
-    each ``BandedOp`` is given as a mapping with keys ``blocks``,
-    ``col_ranges``, ``n_out`` and ``n_in``."""
+    (keys ``zoom_r``, ``zoom_c``, ``saa``, ``frames`` and, for the low band
+    stores, ``frames_lo``; same nesting), where each ``BandedOp`` is given
+    as a mapping with keys ``blocks``, ``col_ranges``, ``n_out``, ``n_in``
+    and optionally ``band_dtype`` (``"bfloat16"`` for the reference's bf16
+    copies, whose blocks come as float32)."""
     def conv(node):
         if isinstance(node, Mapping) and "blocks" in node:
+            dtype = (torch.bfloat16
+                     if node.get("band_dtype") == "bfloat16"
+                     else torch.float32)
             return banded_op_from_arrays(node["blocks"], node["col_ranges"],
-                                         node["n_out"], node["n_in"], device)
+                                         node["n_out"], node["n_in"], device,
+                                         dtype)
         if isinstance(node, Mapping):
             return {k: conv(v) for k, v in node.items()}
         if isinstance(node, (list, tuple)):
@@ -39,3 +50,23 @@ def solve_operators_from_arrays(mats: Mapping, device):
         raise TypeError(f"unexpected operator tree node {type(node)}")
 
     return conv(mats)
+
+
+def fused_ibp_from_arrays(arrays: Mapping, f_entries, f_groups, b_entries,
+                          n_frames: int, lr_shape, hr_shape, device,
+                          band_dtype=torch.float32) -> FusedIBP:
+    """The port's :class:`FusedIBP` from a JAX ``FusedIBP``: its eight
+    arrays (``f_sr``, ``f_sc``, ``f_bandr``, ``f_bandc``, ``b_sr``, ``b_sc``,
+    ``b_bandr``, ``b_bandc``; the bands as float32), entries, groups, frame
+    count and shapes.  The TPU's 128-row blocks, 256-column tiles and
+    aligned windows run on the port's kernels as they are."""
+    host = {name: np.asarray(arrays[name],
+                             np.int32 if name.endswith(("_sr", "_sc"))
+                             else np.float32)
+            for name in FusedIBP.ARRAY_FIELDS}
+    tensors = {name: torch.as_tensor(v, device=device)
+               for name, v in host.items()}
+    pack = FusedIBP(tensors, f_entries, f_groups, b_entries, n_frames,
+                    lr_shape, hr_shape)
+    return pack.astype_bands(band_dtype) if band_dtype != torch.float32 \
+        else pack

@@ -6,10 +6,17 @@ hand-written CUDA kernel ``csrc/banded_rows.cu``.  This module holds
 
 * :func:`pack_banded` -- the kernel's operand layout;
 * :func:`banded_row_apply` -- the wrapper: it launches the kernel for a
-  CUDA tensor (and counts the launch in ``banded_row_apply.launches``),
-  runs the plain version for a CPU tensor, and raises otherwise;
+  CUDA tensor, runs the plain version for a CPU tensor, and raises
+  otherwise.  It counts the launches of each instantiation apart:
+  ``banded_row_apply.launches`` (float32 bands) and
+  ``banded_row_apply.launches_bf16`` (bfloat16 bands);
 * :func:`banded_row_apply_reference` -- the plain PyTorch version, one
   ``bands[b] @ x[start_b : start_b + win]`` per block.
+
+Bands are float32 (the strict band store) or bfloat16 (the bf16 band
+store).  With bf16 bands x is rounded to bf16 and the exact bf16 x bf16
+products are summed in float32, as the reference's bf16 einsum with
+``preferred_element_type=float32`` does; the result is float32 either way.
 
 The pack differs from the TPU one: windows are padded only to the kernel's
 K-chunk (``K_CHUNK``), not to 128 lanes, and start at the block's first
@@ -27,10 +34,12 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-# C signature of banded_rows_launch in csrc/banded_rows.cu: six pointers
-# (bands, starts, out_row0, rows, x, out), six ints (n_blk, win, n_in,
-# n_out, W, batch) and the stream.
+# C signature of banded_rows_launch and banded_rows_bf16_launch in
+# csrc/banded_rows.cu: six pointers (bands, starts, out_row0, rows, x, out),
+# six ints (n_blk, win, n_in, n_out, W, batch) and the stream.
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_ENTRY = {torch.float32: ("banded_rows_launch", "launches"),
+          torch.bfloat16: ("banded_rows_bf16_launch", "launches_bf16")}
 
 # Rows of one band block (the kernel's tile height) and the window padding
 # unit (the kernel's K-chunk); both are compile-time constants of
@@ -42,21 +51,24 @@ K_CHUNK = 16
 class RowPack(NamedTuple):
     """Operands of one banded row apply, on one device."""
 
-    bands: torch.Tensor    # f32 [n_blk, ROWS, win], zero-padded
+    bands: torch.Tensor    # f32 or bf16 [n_blk, ROWS, win], zero-padded
     meta: torch.Tensor     # i32 [3, n_blk]: window start, first out row, rows
     meta_host: np.ndarray  # the same on the host (the plain version's slices)
     n_out: int
     n_in: int
 
 
-def pack_banded(blocks, col_ranges, n_out: int, n_in: int,
-                device) -> RowPack:
-    """Stack a block decomposition into the kernel's layout on ``device``.
+def pack_banded(blocks, col_ranges, n_out: int, n_in: int, device,
+                dtype=torch.float32) -> RowPack:
+    """Stack a block decomposition into the kernel's layout on ``device``,
+    with the bands cast to ``dtype`` (float32 or bfloat16) there.
 
     ``blocks[b]`` covers output rows ``sum(rows of blocks < b)`` onward and
     input columns ``col_ranges[b]``; the shared window is the widest block
     window rounded up to ``K_CHUNK``.
     """
+    if dtype not in _ENTRY:
+        raise TypeError(f"band dtype {dtype} is neither float32 nor bfloat16")
     n_blk = len(blocks)
     rows = np.asarray([b.shape[0] for b in blocks], dtype=np.int32)
     if rows.max() > ROWS:
@@ -72,7 +84,7 @@ def pack_banded(blocks, col_ranges, n_out: int, n_in: int,
     meta[2] = rows
     for i, (b, (lo, hi)) in enumerate(zip(blocks, col_ranges)):
         bands[i, : b.shape[0], : hi - lo] = b
-    return RowPack(torch.as_tensor(bands, device=device),
+    return RowPack(torch.as_tensor(bands, device=device).to(dtype),
                    torch.as_tensor(meta, device=device), meta,
                    int(n_out), int(n_in))
 
@@ -89,22 +101,27 @@ def _check(pack: RowPack, x: torch.Tensor) -> None:
 
 def banded_row_apply_reference(pack: RowPack, x: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version: per block, ``bands[b] @ x[start_b : start_b +
-    win]`` into the block's output rows (any device)."""
+    win]`` into the block's output rows (any device); with bf16 bands, x
+    rounded to bf16 and the products summed in float32."""
     _check(pack, x)
-    win = pack.bands.shape[-1]
+    bands = pack.bands.float()
+    if pack.bands.dtype == torch.bfloat16:
+        x = x.to(torch.bfloat16).float()
+    win = bands.shape[-1]
     out = x.new_empty(x.shape[:-2] + (pack.n_out, x.shape[-1]))
     for b, (start, row0, nrow) in enumerate(pack.meta_host.T.tolist()):
         xs = x[..., start:start + win, :]   # short at the bottom edge
         out[..., row0:row0 + nrow, :] = torch.matmul(
-            pack.bands[b, :nrow, : xs.shape[-2]], xs)
+            bands[b, :nrow, : xs.shape[-2]], xs)
     return out
 
 
 def banded_row_apply(pack: RowPack, x: torch.Tensor) -> torch.Tensor:
     """``op @ x`` along x's row (-2) axis; x is ``[..., n_in, W]`` float32.
 
-    A CUDA tensor goes through the CUDA kernel, always: there is no shape
-    gate and no fallback.  A CPU tensor goes through the plain version.
+    A CUDA tensor goes through the CUDA kernel's instantiation for the
+    pack's band type, always: there is no shape gate and no fallback.  A
+    CPU tensor goes through the plain version.
     """
     if x.device.type == "cpu":
         return banded_row_apply_reference(pack, x)
@@ -113,7 +130,8 @@ def banded_row_apply(pack: RowPack, x: torch.Tensor) -> torch.Tensor:
     _check(pack, x)
     from .._build import load_function
 
-    launch = load_function("banded_rows", "banded_rows_launch", _ARGTYPES)
+    symbol, counter = _ENTRY[pack.bands.dtype]
+    launch = load_function("banded_rows", symbol, _ARGTYPES)
     x = x.contiguous()
     lead = x.shape[:-2]
     width = x.shape[-1]
@@ -132,8 +150,9 @@ def banded_row_apply(pack: RowPack, x: torch.Tensor) -> torch.Tensor:
         torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"banded_rows kernel launch failed: CUDA error {rc}")
-    banded_row_apply.launches += 1
+    setattr(banded_row_apply, counter, getattr(banded_row_apply, counter) + 1)
     return out
 
 
 banded_row_apply.launches = 0
+banded_row_apply.launches_bf16 = 0

@@ -17,6 +17,12 @@ and, after :meth:`BandedOp.to`, two device packs of it:
 * the column pack (gathered column windows + transposed blocks) feeds one
   batched ``torch.matmul`` per column apply -- the reference computes the
   column applies outside any kernel too.
+
+:meth:`BandedOp.astype_band` gives the bf16 band store's copy of an op.
+Its host blocks stay float32 (numpy has no bf16, and the disk cache holds
+float32); the bands become bf16 where the op is bound to the device, and
+both applies then follow the reference's bf16 einsums: the operand rounded
+to bf16, exact bf16 x bf16 products summed in float32, a float32 result.
 """
 
 from __future__ import annotations
@@ -311,7 +317,7 @@ class ColPack(NamedTuple):
     """
 
     idx: torch.Tensor      # int64 [n_blk, win]
-    bands_t: torch.Tensor  # f32 [n_blk, win, BLOCK]
+    bands_t: torch.Tensor  # f32 [n_blk, win, BLOCK] (bf16-rounded for bf16)
     n_out: int
 
 
@@ -324,14 +330,22 @@ class BandedOp:
     what the disk cache pickles); :meth:`to` binds a copy to a device, and
     the device pack that :meth:`row_apply` or :meth:`col_apply` needs is
     built there on its first use (an op of a solve is only ever applied
-    along one axis, so the other pack is never built).
+    along one axis, so the other pack is never built).  ``band_dtype`` is
+    the bands' type on the device: float32, or bfloat16 after
+    :meth:`astype_band`.
     """
 
-    def __init__(self, blocks, col_ranges, n_out: int, n_in: int):
+    # the default also for ops pickled before the field existed: the host
+    # disk cache holds float32 ops only
+    band_dtype: torch.dtype = torch.float32
+
+    def __init__(self, blocks, col_ranges, n_out: int, n_in: int,
+                 band_dtype: torch.dtype = torch.float32):
         self.blocks = [np.asarray(b, dtype=np.float32) for b in blocks]
         self.col_ranges = tuple((int(lo), int(hi)) for lo, hi in col_ranges)
         self.n_out = int(n_out)
         self.n_in = int(n_in)
+        self.band_dtype = band_dtype
         self.device: Optional[torch.device] = None
         self._row_pack: Optional[RowPack] = None
         self._col_pack: Optional[ColPack] = None
@@ -376,11 +390,24 @@ class BandedOp:
         blocks = [b for _ in range(r) for b in op.blocks]
         ranges = [(lo + k * op.n_in, hi + k * op.n_in)
                   for k in range(r) for lo, hi in op.col_ranges]
-        return cls(blocks, ranges, op.n_out * r, op.n_in * r)
+        return cls(blocks, ranges, op.n_out * r, op.n_in * r, op.band_dtype)
+
+    def astype_band(self, dtype: torch.dtype) -> "BandedOp":
+        """A copy whose bands are ``dtype`` (float32 or bfloat16) on the
+        device, unbound (the reference's ``astype_band``).  The cast happens
+        where the copy's packs are built; torch rounds to nearest even, as
+        ``ml_dtypes`` does, so the device bands equal the reference's bf16
+        blocks bit for bit."""
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"band dtype {dtype} is neither float32 nor "
+                            "bfloat16")
+        return BandedOp(self.blocks, self.col_ranges, self.n_out, self.n_in,
+                        dtype)
 
     def to(self, device) -> "BandedOp":
         """A copy of this op bound to ``device`` (no pack built yet)."""
-        out = BandedOp(self.blocks, self.col_ranges, self.n_out, self.n_in)
+        out = BandedOp(self.blocks, self.col_ranges, self.n_out, self.n_in,
+                       self.band_dtype)
         out.device = torch.device(device)
         return out
 
@@ -396,13 +423,15 @@ class BandedOp:
         if self._row_pack is None:
             self._row_pack = pack_banded(self.blocks, self.col_ranges,
                                          self.n_out, self.n_in,
-                                         self._bound_device())
+                                         self._bound_device(),
+                                         self.band_dtype)
         return self._row_pack
 
     @property
     def col_pack(self) -> ColPack:
         """The column apply's gather indices and transposed bands on this
-        op's device."""
+        op's device (for bf16 bands: rounded to bf16, kept as float32 so
+        that the float32 matmul sums their exact products)."""
         if self._col_pack is None:
             device = self._bound_device()
             n_blk = len(self.blocks)
@@ -413,9 +442,11 @@ class BandedOp:
                                                   self.col_ranges)):
                 idx[i] = np.minimum(lo + np.arange(win), self.n_in - 1)
                 bands_t[i, : hi - lo, : b.shape[0]] = b.T
+            bands_t = torch.as_tensor(bands_t, device=device)
+            if self.band_dtype == torch.bfloat16:
+                bands_t = bands_t.to(torch.bfloat16).float()
             self._col_pack = ColPack(torch.as_tensor(idx, device=device),
-                                     torch.as_tensor(bands_t, device=device),
-                                     self.n_out)
+                                     bands_t, self.n_out)
         return self._col_pack
 
     def row_apply(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
@@ -432,8 +463,12 @@ class BandedOp:
 
     def col_apply(self, x: torch.Tensor) -> torch.Tensor:
         """``x @ self^T`` along x's column (-1) axis: gather every block's
-        input-column window, one batched matmul over blocks, interleave."""
+        input-column window, one batched matmul over blocks, interleave.
+        With bf16 bands x is rounded to bf16 first (the reference's bf16
+        einsum); the products are exact and summed in float32."""
         idx, bands_t, n_out = self.col_pack
+        if self.band_dtype == torch.bfloat16:
+            x = x.to(torch.bfloat16).float()
         xg = x[..., idx]                                  # [..., H, nb, win]
         y = torch.matmul(xg.transpose(-3, -2), bands_t)   # [..., nb, H, B]
         y = y.transpose(-3, -2).reshape(*x.shape[:-1], -1)

@@ -1,8 +1,9 @@
 """Classical multi-frame super-resolution: Shift-and-Add + Iterative
-Back-Projection on the banded-matmul engine, strict float32.
+Back-Projection on the banded-matmul engine.
 
 Counterpart of ``enph459_super_resolution_tpu/sr/classical.py`` (its
-``mm`` engine, ``ibp`` solver and ``f32`` band store).  Reference
+``mm`` engine and ``ibp`` solver, with the ``f32``, ``bf16`` and
+``hybrid[:tail]`` band stores and the fused-iteration engine).  Reference
 behavior: ``mono_barcodes/run_sr.py:188-240``:
 
   * forward model   = PSF blur -> sub-pixel shift -> decimate
@@ -14,8 +15,30 @@ behavior: ``mono_barcodes/run_sr.py:188-240``:
 Every 1-D stage is a banded matrix built on the host (``ops.opmatrix``);
 each row apply runs the banded-row CUDA kernel on the card
 (``csrc/banded_rows.cu``), each column apply one batched ``torch.matmul``.
-There is no ``jit`` here: the IBP loop is a Python loop whose MSE history
-stays on the device, and a solve ends in one device-to-host copy.
+The fused engine (``ops.fused_ibp``, ``csrc/fused_ibp.cu``) runs a whole
+IBP iteration as two kernels instead.  There is no ``jit`` here: the IBP
+loop is a Python loop whose MSE history stays on the device, and a solve
+ends in one device-to-host copy.
+
+Band stores (``band_store``; the reference's ``SRTPU_BAND_STORE``):
+
+* ``"f32"`` -- strict float32, the contract default (+-1 uint8 of the
+  reference).
+* ``"bf16"`` -- every operator (zoom and Shift-and-Add too) with bf16
+  bands: operands rounded to bf16, exact products summed in float32.
+  Parity loosens to +-2.
+* ``"hybrid[:tail]"`` -- the first ``n_iter - tail`` IBP iterations on
+  bf16 copies of the frame operators, the last ``tail`` (default 16) on
+  the float32 ones: the fixed-point iteration contracts the bf16 deviation
+  back onto the f32 trajectory (+-1 of f32).  Zoom and Shift-and-Add stay
+  float32.
+
+Engine (``fused``; the reference's ``SRTPU_FUSED_IBP``): ``"auto"`` routes
+as the reference does on its chip -- the fused kernels for ``bf16`` at
+shapes that qualify (:func:`~..ops.fused_ibp.fused_eligible`), the banded
+engine for ``f32`` and ``hybrid``.  ``"on"`` takes the fused kernels for
+every store (``hybrid``'s f32 tail stays banded, as in the reference) and
+raises for a shape they cannot take; ``"off"`` never takes them.
 """
 
 from __future__ import annotations
@@ -25,12 +48,13 @@ import hashlib
 import os
 import pickle
 import tempfile
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..ops.fused_ibp import FusedIBP, fused_eligible
 from ..ops.opmatrix import (
     BLOCK,
     BandedOp,
@@ -49,8 +73,45 @@ PSF_HALFWIDTH = 3
 IBP_STEP_SIZE = 0.5
 
 # Strict f32 is the contract: operators are cast to float32 and the spline
-# prefilter is truncated at float32 epsilon.
+# prefilter is truncated at float32 epsilon.  The bf16 band stores cast
+# these float32 bands on the device.
 _DTYPE_NAME = "float32"
+FUSED_MODES = ("auto", "on", "off")
+_DEFAULT_TAIL = 16
+
+
+def parse_band_store(band_store: str) -> Tuple[str, int]:
+    """``"f32"``, ``"bf16"`` or ``"hybrid[:tail]"`` as (kind, f32 tail
+    length); the tail defaults to 16 (the reference's strict setting)."""
+    if band_store in ("f32", "bf16"):
+        return band_store, 0
+    if band_store == "hybrid":
+        return "hybrid", _DEFAULT_TAIL
+    if band_store.startswith("hybrid:"):
+        try:
+            return "hybrid", max(0, int(band_store.split(":", 1)[1]))
+        except ValueError:
+            pass
+    raise ValueError(f"band_store {band_store!r}: use 'f32', 'bf16' or "
+                     "'hybrid[:tail]'")
+
+
+def fused_engine_on(fused: str, band_store: str, lr_shape,
+                    hr_shape) -> bool:
+    """Whether a solve runs the fused kernels (see the module docstring):
+    the reference's ``_fused_engine_on`` as it routes on its chip, except
+    that ``fused="on"`` raises for a shape the kernels cannot take."""
+    if fused not in FUSED_MODES:
+        raise ValueError(f"fused {fused!r}: use one of {FUSED_MODES}")
+    kind, _ = parse_band_store(band_store)
+    eligible = fused_eligible(lr_shape, hr_shape)
+    if fused == "on" and not eligible:
+        raise ValueError(f"fused='on': LR {tuple(lr_shape)} -> HR "
+                         f"{tuple(hr_shape)} does not qualify for the fused "
+                         "kernels (rows a multiple of 128, columns of 256)")
+    if fused == "auto":
+        return kind == "bf16" and eligible
+    return fused == "on"
 
 
 def make_gaussian_psf(size: int = PSF_SIZE, sigma: float = PSF_SIGMA) -> np.ndarray:
@@ -205,34 +266,71 @@ def _to_device(tree, device):
     raise TypeError(f"unexpected operator tree node {type(tree)}")
 
 
+def _cast_bf16(tree):
+    """Every :class:`BandedOp` of an operator tree with bf16 bands."""
+    if isinstance(tree, BandedOp):
+        return tree.astype_band(torch.bfloat16)
+    return type(tree)(_cast_bf16(v) for v in tree)
+
+
 @functools.lru_cache(maxsize=64)
 def _device_matrices(psf_bytes, psf_shape, shifts_yx, factor, lr_shape, reps,
-                     device):
+                     device, band_store="f32", fused_on=False):
     """One solve config's operator tree on ``device``, kept in process (as
     the JAX package keeps ``_compiled_solve``), so a run of many units reads
-    the disk cache and uploads each op's pack once per config."""
+    the disk cache and uploads each op's pack once per config.
+
+    The tree holds the float32 operators (``zoom_r``, ``zoom_c``, ``saa``,
+    ``frames``) and, by band store and engine, as the reference's
+    ``_solve_matrices``: ``fused`` (the f32 fused pack) for ``f32`` with the
+    fused engine; ``fused_lo`` (the bf16 pack) for ``bf16``/``hybrid`` with
+    it; ``frames_lo`` (bf16 frame operators) for ``hybrid`` without it; and
+    for ``bf16`` every banded operator cast to bf16.  The host disk cache
+    stays float32."""
     psf = np.frombuffer(psf_bytes, dtype=np.float64).reshape(psf_shape)
-    return _to_device(
-        _cached_host_matrices(psf, shifts_yx, factor, lr_shape, reps), device)
+    host = _cached_host_matrices(psf, shifts_yx, factor, lr_shape, reps)
+    kind, _ = parse_band_store(band_store)
+    if kind == "bf16":
+        host = {k: _cast_bf16(v) for k, v in host.items()}
+    elif kind == "hybrid" and not fused_on:
+        host = dict(host, frames_lo=_cast_bf16(host["frames"]))
+    mats = _to_device(host, device)
+    if fused_on:
+        pack = FusedIBP.build(host["frames"], device)
+        if kind == "f32":
+            mats["fused"] = pack
+        else:
+            mats["fused_lo"] = pack.astype_bands(torch.bfloat16)
+    return mats
 
 
-def _solve_matrices(psf, shifts_yx, factor, lr_shape, reps, device):
+def _solve_matrices(psf, shifts_yx, factor, lr_shape, reps, device,
+                    band_store="f32", fused="off"):
     psf = np.ascontiguousarray(psf, dtype=np.float64)
+    h, w = lr_shape
+    # one rep's shape decides, as in the reference
+    fused_on = fused_engine_on(fused, band_store, (h, w),
+                               (h * factor, w * factor))
     return _device_matrices(psf.tobytes(), psf.shape, shifts_yx, factor,
-                            lr_shape, reps, device)
+                            lr_shape, reps, device, band_store, fused_on)
 
 
 def _solve_body(lr_stack: torch.Tensor, mats, n_iter: int, step: float,
-                clip_max: float, reps: int, plain: bool) -> Dict:
+                clip_max: float, reps: int, band_store: str,
+                plain: bool) -> Dict:
     """LR mean, native 2x zoom, Shift-and-Add and SAA-seeded IBP on
     ``f32[N, reps*h, w]`` (reps stacked along H); every result stays on
-    the device."""
+    the device.  The IBP loop follows the reference's lo/hi schedule:
+    ``bf16`` runs every iteration on the low operators, ``hybrid`` the
+    first ``n_iter - tail`` and then the float32 ones."""
     n = lr_stack.shape[0]
+    clip = (0.0, clip_max)
 
     def rows(op, x):
         return op.row_apply(x, plain=plain)
 
     def rep_mse(err):
+        err = err.float()  # bf16 err (fused low path): f32 MSE
         if reps == 1:
             return torch.mean(err * err)
         per = err.reshape((reps, err.shape[-2] // reps) + err.shape[-1:])
@@ -244,20 +342,49 @@ def _solve_body(lr_stack: torch.Tensor, mats, n_iter: int, step: float,
     saa = sum(c.col_apply(rows(r, up[i]))
               for i, (r, c) in enumerate(mats["saa"])) / n
 
-    frames = mats["frames"]
     errs = torch.zeros((n_iter,) + ((reps,) if reps > 1 else ()),
                        dtype=saa.dtype, device=saa.device)
-    hr = saa
-    for it in range(n_iter):
-        total = torch.zeros(errs.shape[1:], dtype=hr.dtype, device=hr.device)
-        correction = torch.zeros_like(hr)
-        for i in range(n):
-            err = lr_stack[i] - forward_model_mm(hr, frames[i], plain)
-            total += rep_mse(err)
-            # in place: saves one HR-sized allocation per frame
-            correction += back_project_mm(err, frames[i], plain)
-        hr = torch.clamp(hr + step * correction / n, 0.0, clip_max)
-        errs[it] = total / n
+    # the low fused pack takes a bf16 lr stack (its err stack is bf16 too);
+    # cast once, outside the loop
+    lr_lo = (lr_stack.to(torch.bfloat16) if "fused_lo" in mats else None)
+
+    def iterate(kind, obj, hr, its):
+        # 'fused': the two whole-iteration kernels over the given pack;
+        # 'banded': the banded engine over the given per-frame operators
+        for it in its:
+            total = torch.zeros(errs.shape[1:], dtype=hr.dtype,
+                                device=hr.device)
+            if kind == "fused":
+                low = obj.band_dtype == torch.bfloat16
+                err = obj.fwd_err(hr, lr_lo if low else lr_stack, plain)
+                for i in range(n):
+                    total += rep_mse(err[i])
+                hr = obj.bwd_update(hr, err, step / n, clip, plain)
+            else:
+                correction = torch.zeros_like(hr)
+                for i in range(n):
+                    err = lr_stack[i] - forward_model_mm(hr, obj[i], plain)
+                    total += rep_mse(err)
+                    # in place: saves one HR-sized allocation per frame
+                    correction += back_project_mm(err, obj[i], plain)
+                hr = torch.clamp(hr + step * correction / n, *clip)
+            errs[it] = total / n
+        return hr
+
+    lo_spec = (("fused", mats["fused_lo"]) if "fused_lo" in mats
+               else ("banded", mats["frames_lo"]) if "frames_lo" in mats
+               else None)
+    hi_spec = (("fused", mats["fused"]) if "fused" in mats
+               else ("banded", mats["frames"]))
+    kind, tail = parse_band_store(band_store)
+    if lo_spec is not None and kind == "hybrid":
+        n_lo = n_iter - min(tail, n_iter)
+        hr = iterate(*lo_spec, saa, range(n_lo))
+        hr = iterate(*hi_spec, hr, range(n_lo, n_iter))
+    elif lo_spec is not None:  # 'bf16' on the fused engine: all low
+        hr = iterate(*lo_spec, saa, range(n_iter))
+    else:
+        hr = iterate(*hi_spec, saa, range(n_iter))
     return {"lr_mean": lr_mean, "native": native, "saa": saa, "ibp": hr,
             "mse_history": errs}
 
@@ -288,8 +415,8 @@ def _prepare(lr, psf, shifts_yx, device):
 
 def solve(lr_stack, psf, shifts_yx, factor: int = UPSAMPLE_FACTOR,
           n_iter: int = 80, step: float = IBP_STEP_SIZE,
-          clip_max: float = 255.0, device="cuda",
-          plain_rows: bool = False) -> Dict[str, np.ndarray]:
+          clip_max: float = 255.0, device="cuda", band_store: str = "f32",
+          fused: str = "auto", plain: bool = False) -> Dict[str, np.ndarray]:
     """Full classical SR solve of one unit.
 
     Computes everything a reference ``process_session`` rep computes
@@ -301,37 +428,43 @@ def solve(lr_stack, psf, shifts_yx, factor: int = UPSAMPLE_FACTOR,
       psf: ``(k, k)`` blur kernel.
       shifts_yx: N ``(dy, dx)`` LR-pixel shifts.
       device: ``"cuda"`` (default) or ``"cpu"``, or a ``torch.device``.
-      plain_rows: run every row apply through the kernel's plain PyTorch
-        version (the on-card parity check of the kernel).
+      band_store: ``"f32"`` (default), ``"bf16"`` or ``"hybrid[:tail]"``.
+      fused: ``"auto"`` (default), ``"on"`` or ``"off"`` (the engine).
+      plain: run every kernel's plain PyTorch version instead of the kernel
+        (the on-card parity check of the kernels).
 
     Returns a dict of numpy arrays ``lr_mean, native, saa, ibp,
     mse_history``.
     """
     lr, psf, shifts_key, device = _prepare(lr_stack, psf, shifts_yx, device)
     lr_shape = tuple(int(v) for v in lr.shape[-2:])
-    mats = _solve_matrices(psf, shifts_key, int(factor), lr_shape, 1, device)
+    mats = _solve_matrices(psf, shifts_key, int(factor), lr_shape, 1, device,
+                           band_store, fused)
     return _to_host(_solve_body(lr, mats, int(n_iter), float(step),
-                                float(clip_max), 1, plain_rows))
+                                float(clip_max), 1, band_store, plain))
 
 
 def solve_batch(lr_stacks, psf, shifts_yx, factor: int = UPSAMPLE_FACTOR,
                 n_iter: int = 80, step: float = IBP_STEP_SIZE,
                 clip_max: float = 255.0, device="cuda",
-                plain_rows: bool = False) -> Dict[str, np.ndarray]:
+                band_store: str = "f32", fused: str = "auto",
+                plain: bool = False) -> Dict[str, np.ndarray]:
     """Batched solve over R same-shaped units ``f32[R, N, h, w]``; returns
     the :func:`solve` dict with a leading R axis.
 
     Reps are concatenated along the image ROW axis and every row operator
     is block-diagonally rep-tiled (:meth:`BandedOp.tiled`), so the batch
     runs as the same few large applies as one solve, with per-rep-exact
-    boundaries.  ``plain_rows`` is :func:`solve`'s.
+    boundaries; the fused pack rep-tiles its row operators the same way.
+    ``band_store``, ``fused`` and ``plain`` are :func:`solve`'s.
     """
     lr, psf, shifts_key, device = _prepare(lr_stacks, psf, shifts_yx, device)
     r, n, h, w = (int(v) for v in lr.shape)
-    mats = _solve_matrices(psf, shifts_key, int(factor), (h, w), r, device)
+    mats = _solve_matrices(psf, shifts_key, int(factor), (h, w), r, device,
+                           band_store, fused)
     stacked = lr.transpose(0, 1).reshape(n, r * h, w)
     out = _solve_body(stacked, mats, int(n_iter), float(step),
-                      float(clip_max), r, plain_rows)
+                      float(clip_max), r, band_store, plain)
     fh = factor * h
     return _to_host({
         "lr_mean": out["lr_mean"].reshape(r, h, w),

@@ -78,8 +78,10 @@ def save_figures(hr_images: Dict[str, np.ndarray], lr_mean: np.ndarray,
 
 def process_unit(session: SessionData, psf: np.ndarray, cfg: WorkloadConfig,
                  output_base: str, figures: bool = True,
-                 force: bool = False, device="cuda") -> Optional[str]:
-    """Run one SR unit (a session or one rep) end to end.
+                 force: bool = False, device="cuda", band_store: str = "f32",
+                 fused: str = "auto") -> Optional[str]:
+    """Run one SR unit (a session or one rep) end to end; ``band_store``
+    and ``fused`` are :func:`~.classical.solve`'s.
 
     Returns the output dir, or None when skipped via ``done.flag``
     (idempotent resume, ``mono_barcodes/run_sr.py:306-308``).
@@ -98,7 +100,7 @@ def process_unit(session: SessionData, psf: np.ndarray, cfg: WorkloadConfig,
         result = solve(frames, psf, session.shifts,
                        factor=cfg.upsample_factor,
                        n_iter=cfg.ibp_iterations, step=cfg.ibp_step,
-                       device=device)
+                       device=device, band_store=band_store, fused=fused)
     return _write_unit_artifacts(session, result, cfg, output_base, figures,
                                  timer)
 
@@ -160,7 +162,8 @@ def _write_unit_artifacts(session: SessionData, result: Dict,
 def process_session_dir(session_dir: str, psf: np.ndarray, cfg: WorkloadConfig,
                         output_base: str, figures: bool = True,
                         force: bool = False, batch_reps: bool = True,
-                        device="cuda") -> int:
+                        device="cuda", band_store: str = "f32",
+                        fused: str = "auto") -> int:
     """Load all units in a session directory and process them; with
     ``batch_reps`` (default) same-shaped pending units solve as ONE
     batched device call (:func:`~.classical.solve_batch`)."""
@@ -181,18 +184,19 @@ def process_session_dir(session_dir: str, psf: np.ndarray, cfg: WorkloadConfig,
     same_shifts = len({u.shifts for u in pending}) == 1
     if batch_reps and len(pending) > 1 and same_shape and same_shifts:
         return _solve_units_batched(pending, psf, cfg, output_base, figures,
-                                    device)
+                                    device, band_store, fused)
 
     n = 0
     for unit in pending:
-        if process_unit(unit, psf, cfg, output_base, figures,
-                        force=True, device=device) is not None:
+        if process_unit(unit, psf, cfg, output_base, figures, force=True,
+                        device=device, band_store=band_store,
+                        fused=fused) is not None:
             n += 1
     return n
 
 
 def _solve_units_batched(pending, psf, cfg, output_base, figures,
-                         device) -> int:
+                         device, band_store="f32", fused="auto") -> int:
     """Solve same-shaped units as ONE device call and write per-unit
     artifacts.  Returns the number of units whose artifacts were written."""
     timer = StageTimer()
@@ -201,7 +205,8 @@ def _solve_units_batched(pending, psf, cfg, output_base, figures,
                               pending[0].shifts,
                               factor=cfg.upsample_factor,
                               n_iter=cfg.ibp_iterations,
-                              step=cfg.ibp_step, device=device)
+                              step=cfg.ibp_step, device=device,
+                              band_store=band_store, fused=fused)
     t_batch = timer.as_dict()["solve_batch"]
     print(f"  batched solve of {len(pending)} unit(s): {t_batch:.2f}s")
     n_written = 0
@@ -220,11 +225,13 @@ def _solve_units_batched(pending, psf, cfg, output_base, figures,
 
 def process_workload(session_dirs, psf, cfg, output_base, figures=True,
                      force=False, batch_reps=True, max_batch: int = 4,
-                     device="cuda") -> int:
+                     device="cuda", band_store: str = "f32",
+                     fused: str = "auto") -> int:
     """Process many sessions with CROSS-SESSION unit batching: every
     pending unit across the workload joins one stream, and runs of
     consecutive units with identical (shape, shifts) solve as single
-    batched device calls of up to ``max_batch``."""
+    batched device calls of up to ``max_batch``.  ``band_store`` and
+    ``fused`` are :func:`~.classical.solve`'s."""
     buffer: list = []
     n_done = 0
 
@@ -235,11 +242,14 @@ def process_workload(session_dirs, psf, cfg, output_base, figures=True,
         if len(buffer) == 1 or not batch_reps:
             for u in buffer:
                 if process_unit(u, psf, cfg, output_base, figures,
-                                force=True, device=device) is not None:
+                                force=True, device=device,
+                                band_store=band_store,
+                                fused=fused) is not None:
                     n_done += 1
         else:
             n_done += _solve_units_batched(buffer, psf, cfg, output_base,
-                                           figures, device)
+                                           figures, device, band_store,
+                                           fused)
         buffer = []
 
     for sdir in session_dirs:

@@ -9,7 +9,9 @@ Runs on CUDA unless ``--device cpu`` is given; asking for CUDA without a
 card is an error, never a quiet CPU run.  Flags mirror the reference CLI
 (``mono_barcodes/run_sr.py:356-367``): ``--psf {gaussian,measured}``,
 ``--psf-dir``, ``--data-dir``, ``--output-dir``; plus ``--no-figures`` /
-``--force`` / ``--session``, rep batching and the IBP overrides.
+``--force`` / ``--session``, rep batching, the IBP overrides, the band
+store (``--band-store {f32,bf16,hybrid[:tail]}``) and the engine
+(``--fused-ibp {auto,on,off}``).
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ def main(argv=None) -> int:
     from ..data.sessions import discover_sessions
     from ..device import DEVICES, resolve_device
     from ..psf.kernels import load_measured_psf, make_gaussian_psf
+    from .classical import FUSED_MODES, parse_band_store
     from .config import WORKLOADS
     from .pipeline import process_workload
 
@@ -52,9 +55,25 @@ def main(argv=None) -> int:
                    help="override the workload's iteration count")
     p.add_argument("--ibp-step", type=float, default=None,
                    help="override the update step size")
+    p.add_argument("--band-store", default="f32",
+                   metavar="{f32,bf16,hybrid[:tail]}",
+                   help="banded-operator storage: f32 = strict default "
+                        "(+-1 uint8 of the reference); hybrid = bf16 "
+                        "operators for the bulk of the IBP loop and an f32 "
+                        "finishing tail (default 16), +-1 of f32; bf16 = "
+                        "every operator bf16, +-2 of f32")
+    p.add_argument("--fused-ibp", default="auto", choices=FUSED_MODES,
+                   help="fused whole-iteration kernels: auto = on for bf16 "
+                        "at shapes that qualify, else the banded engine; "
+                        "on = always (an error for a shape that does not "
+                        "qualify); off = never")
     p.add_argument("--device", default="cuda", choices=DEVICES,
                    help="where the solve runs (default cuda; no fallback)")
     args = p.parse_args(argv)
+    try:
+        parse_band_store(args.band_store)
+    except ValueError as exc:
+        p.error(str(exc))
     try:
         device = resolve_device(args.device)
     except RuntimeError as exc:
@@ -85,7 +104,9 @@ def main(argv=None) -> int:
     total = process_workload(sessions, psf, cfg, args.output_dir,
                              figures=not args.no_figures, force=args.force,
                              batch_reps=args.batch_reps,
-                             max_batch=args.max_batch, device=device)
+                             max_batch=args.max_batch, device=device,
+                             band_store=args.band_store,
+                             fused=args.fused_ibp)
     print(f"{total} unit(s) processed in {time.time() - t0:.1f}s")
     return 0
 

@@ -1,0 +1,266 @@
+"""The port's fused IBP pack and the plain versions of its kernels (K2
+``fwd_err``, K3 ``bwd_update``) against the JAX package's ``FusedIBP`` in
+interpret mode, on the CPU: the same operators (LR 128x256, factor 2, the
+Gaussian PSF) and the same inputs, made with numpy from a seed.
+
+Tolerances: with float32 bands the two differ only in the order of their
+f32 sums (<= 1e-3 on 0..255 images).  With bfloat16 bands both round the
+window, each row product and the error to bf16 at the same points; a row
+product whose f32 sum lands on the other side of a bf16 rounding boundary
+moves by one ulp, 1.0 at 128..255, so a few entries may differ by up to
+2.0, while the mean stays below 1e-2."""
+
+import types
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from enph459_super_resolution_tpu.ops import pallas_fused_ibp as JF
+from enph459_super_resolution_tpu.sr import classical as JC
+from enph459_super_resolution_tpu_torch import convert
+from enph459_super_resolution_tpu_torch.ops import fused_ibp as TF
+from enph459_super_resolution_tpu_torch.sr import classical as TC
+
+SHIFTS = ((0.0, 0.0), (0.5, -0.5), (-0.5, 0.5))
+H, W, FACTOR = 128, 256, 2
+STEP, CLIP = 0.5 / len(SHIFTS), (0.0, 255.0)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite runs in several worker processes at once; torch's own
+    intra-op pool on top of them oversubscribes the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _packs(reps):
+    psf = JC.make_gaussian_psf()
+    frame_mats = [JC._frame_operator_matrices(psf, s, FACTOR, (H, W),
+                                              "float32") for s in SHIFTS]
+    jax_pack = JF.FusedIBP.build(frame_mats, (H, W), (H * FACTOR, W * FACTOR),
+                                 reps=reps, interpret=True)
+    frames = TC._host_solve_matrices(psf, SHIFTS, FACTOR, (H, W),
+                                     reps=reps)["frames"]
+    return jax_pack, TF.FusedIBP.build(frames, "cpu")
+
+
+def _inputs(reps, seed):
+    rng = np.random.default_rng(seed)
+    hr = rng.uniform(0, 255, (reps * H * FACTOR, W * FACTOR)).astype(
+        np.float32)
+    lr = rng.uniform(0, 255, (len(SHIFTS), reps * H, W)).astype(np.float32)
+    return hr, lr
+
+
+def _f32(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.array(x, np.float32)  # a writable copy, for torch.from_numpy
+
+
+@pytest.mark.parametrize("reps", [1, 2])
+def test_f32_pack_matches_jax(reps):
+    jax_pack, pack = _packs(reps)
+    hr, lr = _inputs(reps, 0)
+    assert pack.lr_shape == jax_pack.lr_shape
+    assert pack.hr_shape == jax_pack.hr_shape
+    want_err = _f32(jax_pack.fwd_err(jnp.asarray(hr), jnp.asarray(lr)))
+    err = pack.fwd_err(torch.from_numpy(hr), torch.from_numpy(lr))
+    assert err.dtype == torch.float32 and err.shape == lr.shape
+    assert np.abs(_f32(err) - want_err).max() <= 1e-3
+    # K3 from the same err stack, so it is judged alone
+    want = _f32(jax_pack.bwd_update(jnp.asarray(hr), jnp.asarray(want_err),
+                                    STEP, CLIP))
+    got = pack.bwd_update(torch.from_numpy(hr), torch.from_numpy(want_err),
+                          STEP, CLIP)
+    assert got.dtype == torch.float32 and got.shape == hr.shape
+    assert np.abs(_f32(got) - want).max() <= 1e-3
+
+
+@pytest.mark.parametrize("reps", [1, 2])
+def test_bf16_pack_matches_jax(reps):
+    jax_pack, pack = _packs(reps)
+    jax_lo = jax_pack.astype_bands(jnp.bfloat16)
+    lo = pack.astype_bands(torch.bfloat16)
+    assert lo.f_bandr.dtype == lo.b_bandc.dtype == torch.bfloat16
+    assert lo.f_sr.dtype == torch.int32  # starts stay int32
+    hr, lr = _inputs(reps, 1)
+    lr16 = torch.from_numpy(lr).to(torch.bfloat16)
+    want_err = jax_lo.fwd_err(jnp.asarray(hr), jnp.asarray(lr, jnp.bfloat16))
+    err = lo.fwd_err(torch.from_numpy(hr), lr16)
+    assert err.dtype == torch.bfloat16 and err.shape == lr.shape
+    d = np.abs(_f32(err) - _f32(want_err))
+    assert d.max() <= 2.0 and d.mean() <= 1e-2
+    err16 = torch.from_numpy(_f32(want_err)).to(torch.bfloat16)
+    want = _f32(jax_lo.bwd_update(jnp.asarray(hr), want_err, STEP, CLIP))
+    got = lo.bwd_update(torch.from_numpy(hr), err16, STEP, CLIP)
+    assert got.dtype == torch.float32  # the HR state stays f32
+    d = np.abs(_f32(got) - want)
+    assert d.max() <= 2.0 and d.mean() <= 1e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("reps", [1, 2])
+def test_converted_tpu_pack_matches_port_pack(reps, dtype):
+    """The JAX pack (128-row blocks, 256-column tiles, 8/128-aligned
+    windows) carried over by ``convert.fused_ibp_from_arrays`` computes
+    what the port's own pack does."""
+    jax_pack, pack = _packs(reps)
+    arrays = {name: np.asarray(getattr(jax_pack, name))
+              for name in TF.FusedIBP.ARRAY_FIELDS}
+    conv = convert.fused_ibp_from_arrays(
+        arrays, jax_pack.f_entries, jax_pack.f_groups, jax_pack.b_entries,
+        jax_pack.n_frames, jax_pack.lr_shape, jax_pack.hr_shape, "cpu",
+        band_dtype=dtype)
+    assert tuple(conv.f_bandr.shape) == tuple(jax_pack.f_bandr.shape)
+    assert conv.band_dtype == dtype
+    pack = pack.astype_bands(dtype)
+    hr, lr = _inputs(reps, 2)
+    hr_t, lr_t = torch.from_numpy(hr), torch.from_numpy(lr).to(dtype)
+    tol = 1e-3 if dtype == torch.float32 else 2.0
+    err_c = conv.fwd_err(hr_t, lr_t)
+    err_p = pack.fwd_err(hr_t, lr_t)
+    assert np.abs(_f32(err_c) - _f32(err_p)).max() <= tol
+    got_c = conv.bwd_update(hr_t, err_p, STEP, CLIP)
+    got_p = pack.bwd_update(hr_t, err_p, STEP, CLIP)
+    assert np.abs(_f32(got_c) - _f32(got_p)).max() <= tol
+
+
+@pytest.mark.parametrize("layout, lr_shape, block, tile", [
+    ("port", (H, W), 64, 64),
+    ("wide", (H, W), 128, 256),       # the TPU's row block and column tile
+    ("ragged", (96, 200), 64, 64),    # short last row block and tile
+])
+def test_pack_matches_banded_engine(layout, lr_shape, block, tile):
+    """One fused iteration equals the banded engine's over the same
+    operators, whatever the pack's block and tile, ragged edges included."""
+    psf = JC.make_gaussian_psf()
+    frames = TC._host_solve_matrices(psf, SHIFTS, FACTOR, lr_shape)["frames"]
+    pack = TF.FusedIBP.build(frames, "cpu", block=block, tile=tile)
+    ops = TC._to_device(frames, "cpu")
+    rng = np.random.default_rng(4)
+    h, w = lr_shape
+    hr = torch.as_tensor(rng.uniform(0, 255, (h * FACTOR, w * FACTOR)),
+                         dtype=torch.float32)
+    lr = torch.as_tensor(rng.uniform(0, 255, (len(SHIFTS), h, w)),
+                         dtype=torch.float32)
+    err = pack.fwd_err(hr, lr)
+    want_err = torch.stack([lr[i] - TC.forward_model_mm(hr, ops[i])
+                            for i in range(len(SHIFTS))])
+    assert (err - want_err).abs().max().item() <= 1e-3
+    corr = sum(TC.back_project_mm(want_err[i], ops[i])
+               for i in range(len(SHIFTS)))
+    want = torch.clamp(hr + 0.5 * corr / len(SHIFTS), *CLIP)
+    got = pack.bwd_update(hr, want_err, STEP, CLIP)
+    assert (got - want).abs().max().item() <= 1e-3
+
+
+def test_dedup_matches_jax_terms():
+    """Operators equal by content pack once: the center+4 shifts need three
+    row and three column operators, as in the JAX pack."""
+    from enph459_super_resolution_tpu_torch.data.sessions import \
+        CENTER_SHIFT_FILES
+
+    shifts = tuple(s for _, s in CENTER_SHIFT_FILES)
+    psf = JC.make_gaussian_psf()
+    frame_mats = [JC._frame_operator_matrices(psf, s, FACTOR, (H, W),
+                                              "float32") for s in shifts]
+    jax_pack = JF.FusedIBP.build(frame_mats, (H, W), (H * FACTOR, W * FACTOR),
+                                 interpret=True)
+    frames = TC._host_solve_matrices(psf, shifts, FACTOR, (H, W))["frames"]
+    pack = TF.FusedIBP.build(frames, "cpu")
+    assert pack.f_entries == jax_pack.f_entries
+    assert pack.b_entries == jax_pack.b_entries
+    assert pack.f_groups == jax_pack.f_groups
+    assert pack.f_bandr.shape[1] == pack.f_bandc.shape[1] == 3
+    uniq, idx = TF._dedup([fr[0][0] for fr in frames])
+    assert len(uniq) == 3 and idx == [0, 1, 1, 2, 2]
+
+
+def test_cpu_wrappers_run_the_plain_versions():
+    """On a CPU tensor the wrappers give the plain version's result and
+    launch nothing; mixed band and lr types are refused."""
+    _, pack = _packs(1)
+    hr, lr = _inputs(1, 3)
+    hr_t, lr_t = torch.from_numpy(hr), torch.from_numpy(lr)
+    before = [getattr(fn, c) for fn in (TF.fused_fwd_err, TF.fused_bwd_update)
+              for c in ("launches", "launches_bf16")]
+    err = TF.fused_fwd_err(pack, hr_t, lr_t)
+    torch.testing.assert_close(err, TF.fused_fwd_err_reference(pack, hr_t,
+                                                               lr_t),
+                               rtol=0, atol=0)
+    out = TF.fused_bwd_update(pack, hr_t, err, STEP, CLIP)
+    torch.testing.assert_close(
+        out, TF.fused_bwd_update_reference(pack, hr_t, err, STEP, CLIP),
+        rtol=0, atol=0)
+    assert before == [getattr(fn, c)
+                      for fn in (TF.fused_fwd_err, TF.fused_bwd_update)
+                      for c in ("launches", "launches_bf16")]
+    lo = pack.astype_bands(torch.bfloat16)
+    with pytest.raises(TypeError):
+        lo.fwd_err(hr_t, lr_t)            # bf16 bands take a bf16 lr stack
+    with pytest.raises(TypeError):
+        pack.fwd_err(hr_t, lr_t.to(torch.bfloat16))
+    with pytest.raises(ValueError):
+        pack.fwd_err(hr_t[:-2], lr_t)
+    with pytest.raises(ValueError):
+        TF.fused_fwd_err(pack, hr_t.to("meta"), lr_t.to("meta"))
+
+
+def test_eligibility_matches_jax():
+    for lr_shape, hr_shape in (((1536, 2048), (3072, 4096)),
+                               ((768, 1024), (1536, 2048)),
+                               ((100, 256), (200, 512)),
+                               ((128, 200), (256, 400)),
+                               ((128, 256), (256, 512))):
+        assert TF.fused_eligible(lr_shape, hr_shape) == JF.fused_eligible(
+            lr_shape, hr_shape, "float32")
+    assert not TF.fused_eligible((128, 256), (256, 512), "float64")
+
+
+@pytest.mark.parametrize("shapes", [((1536, 2048), (3072, 4096)),
+                                    ((768, 1024), (1536, 2048)),
+                                    ((100, 256), (200, 512))],
+                         ids=["mono", "rgb", "ragged"])
+def test_route_table_matches_jax_on_its_chip(monkeypatch, shapes):
+    """``fused`` x ``band_store`` routes as the JAX ``_fused_engine_on``
+    does where it runs on its chip (``auto``: fused for bf16 at shapes that
+    qualify, banded for f32 and hybrid), except that ``fused="on"`` raises
+    for a shape the kernels cannot take where JAX drops to banded."""
+    monkeypatch.setattr(jax, "devices",
+                        lambda *a: [types.SimpleNamespace(platform="tpu")])
+    eligible = TF.fused_eligible(*shapes)
+    for store in ("f32", "bf16", "hybrid:16", "hybrid"):
+        for port_mode, jax_mode in (("auto", "auto"), ("on", "1"),
+                                    ("off", "0")):
+            want = JC._fused_engine_on(jax_mode, store, *shapes, "float32")
+            if port_mode == "on" and not eligible:
+                with pytest.raises(ValueError, match="does not qualify"):
+                    TC.fused_engine_on(port_mode, store, *shapes)
+                continue
+            assert TC.fused_engine_on(port_mode, store, *shapes) == want, (
+                store, port_mode)
+    if shapes[0] == (1536, 2048):
+        assert TC.fused_engine_on("auto", "bf16", *shapes)
+        assert not TC.fused_engine_on("auto", "hybrid:16", *shapes)
+        assert not TC.fused_engine_on("auto", "f32", *shapes)
+
+
+def test_modes_are_validated():
+    assert TC.parse_band_store("f32") == ("f32", 0)
+    assert TC.parse_band_store("bf16") == ("bf16", 0)
+    assert TC.parse_band_store("hybrid") == ("hybrid", 16)
+    assert TC.parse_band_store("hybrid:8") == ("hybrid", 8)
+    assert TC.parse_band_store("hybrid:0") == ("hybrid", 0)
+    for bad in ("fp32", "hybrid:x", "bf16:4", ""):
+        with pytest.raises(ValueError):
+            TC.parse_band_store(bad)
+    with pytest.raises(ValueError):
+        TC.fused_engine_on("1", "f32", (128, 256), (256, 512))

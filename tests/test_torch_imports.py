@@ -14,7 +14,8 @@ from enph459_super_resolution_tpu_torch.device import resolve_device
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "enph459_super_resolution_tpu_torch"
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "enph459_super_resolution_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "ml_dtypes",
+           "enph459_super_resolution_tpu")
 
 
 def _blocked(name: str) -> bool:
@@ -61,7 +62,7 @@ def test_every_port_module_imports_with_jax_blocked():
     res = subprocess.run([sys.executable, "-c", script], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 15  # every module was walked
+    assert int(res.stdout.split()[-1]) >= 16  # every module was walked
 
 
 @pytest.mark.parametrize("path", sorted(
@@ -106,3 +107,36 @@ def test_sr_run_without_device_fails_on_a_box_without_cuda(tmp_path):
                   "--no-figures"])
     assert exc.value.code != 0
     assert not out.exists()
+
+
+def test_every_kernel_entry_point_is_in_its_source():
+    """Each symbol a wrapper binds with ctypes is an ``extern "C"`` function
+    of the CUDA source it names, and every source under ``csrc/`` is bound:
+    the card is the first place a missing one would show otherwise."""
+    import re
+
+    from enph459_super_resolution_tpu_torch import _build
+    from enph459_super_resolution_tpu_torch.ops import banded_rows, fused_ibp
+
+    bound = {"banded_rows": [s for s, _ in banded_rows._ENTRY.values()],
+             "fused_ibp": ["fused_fwd_launch", "fused_bwd_launch"]}
+    assert sorted(bound) == _build.kernel_names()
+    for name, symbols in bound.items():
+        src = (_build.CSRC_DIR / f"{name}.cu").read_text()
+        exported = set(re.findall(r'extern "C" int (\w+)\(', src))
+        assert set(symbols) == exported, name
+        for symbol in symbols:
+            assert re.search(rf"\b{symbol}\b", (
+                PORT / "ops" / f"{name}.py").read_text()), symbol
+
+    def const(name, var):
+        src = (_build.CSRC_DIR / f"{name}.cu").read_text()
+        return int(re.search(rf"constexpr int {var} = (\d+);", src).group(1))
+
+    # the wrappers' tile constants are the kernels'
+    assert banded_rows.ROWS == const("banded_rows", "BM")
+    assert banded_rows.K_CHUNK == const("banded_rows", "BK")
+    assert fused_ibp.ROWS == const("fused_ibp", "BM")
+    assert fused_ibp.COLS == const("fused_ibp", "TN")
+    assert fused_ibp.MAX_FRAMES == const("fused_ibp", "MAX_OUT")
+    assert fused_ibp.SMEM_LIMIT == const("fused_ibp", "MAX_SMEM")
