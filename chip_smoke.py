@@ -47,6 +47,27 @@ or of the JAX package.  Phases, one JSON line each:
    f32 and then ``--band-store bf16``: every rep's artifacts, the launch
    counts, and every rep's ``SAA_IBP`` within +-1 (f32) or +-2 (bf16) of
    the batched solve with the plain versions on the card.
+8. trunk -- the residual-trunk kernel K4 against its plain version at the
+   EDSR shape [8, 256, 256, 64] and the BurstFusionLR shape
+   [1, 1536, 2048, 64]: one residual block (the relu launch, then the skip
+   launch from the plain version's output, so each is judged alone) in
+   float32 and bfloat16, and one ``relu_only`` launch; inputs N(0, 1),
+   weights 0.05 N(0, 1).  float32 max|diff| <= 1e-4; bfloat16 within one
+   bf16 ulp of the larger magnitude plus 1e-4 (plus two ulps for the
+   residual launch's inner rounding).  With the kernel's, the plain
+   version's and one cuDNN ``F.conv2d``'s times and the bound.
+9. edsr -- EDSR-baseline x4 (16 x 64, RGB, seeded default init) served
+   through ``make_edsr_fused_apply``: 4 requests of 8 x 256x256x3 each, in
+   bfloat16 and in float32; 32 K4 launches per request; output
+   [8, 1024, 1024, 3], finite, against the plain ``EDSR`` module on the
+   card; seconds per request, images/s, output Mpix/s; one profiled bf16
+   request.
+10. burst_lr -- ``make_burst_lr_fused_apply`` (bf16) on BurstFusionLR (4
+   frames, x2, 8 x 64, random head) at phases [1, 1536, 2048, 16]: 16 K4
+   launches per request, against the plain module; time and HR Mpix/s.
+11. tiled -- one 4K frame, LR 540x960x3 -> 2160x3840, through
+   ``tiled_infer`` on the EDSR-16 module, against its whole-image forward
+   (<= 5e-3).  It runs no hand-written kernel.
 
 Then the ``kernels`` summary line, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -73,6 +94,13 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_PEAK = 989e12         # H100 SXM dense bf16 tensor-core rate
 HR_MPIX = 3072 * 4096 / 1e6
 TAIL = 16                  # the hybrid store's default f32 tail
+TRUNK_F32_ATOL = 1e-4
+EDSR_BATCH, EDSR_LR, EDSR_REQUESTS = 8, 256, 4
+# fused serving against the f32 module, as shares of the output's span
+# max|y - mean| (PERF.md gives the reasons)
+EDSR_F32_SHARE = 2e-5
+EDSR_BF16_SHARE = 0.05
+BURST_PHASES = (1, 1536, 2048, 16)
 
 
 def emit(obj) -> None:
@@ -111,13 +139,16 @@ def _counters():
         banded_row_apply
     from enph459_super_resolution_tpu_torch.ops.fused_ibp import (
         fused_bwd_update, fused_fwd_err)
+    from enph459_super_resolution_tpu_torch.ops.trunk import trunk_conv
 
     return {"k1_f32": (banded_row_apply, "launches"),
             "k1_bf16": (banded_row_apply, "launches_bf16"),
             "k2_f32": (fused_fwd_err, "launches"),
             "k2_bf16": (fused_fwd_err, "launches_bf16"),
             "k3_f32": (fused_bwd_update, "launches"),
-            "k3_bf16": (fused_bwd_update, "launches_bf16")}
+            "k3_bf16": (fused_bwd_update, "launches_bf16"),
+            "k4_f32": (trunk_conv, "launches"),
+            "k4_bf16": (trunk_conv, "launches_bf16")}
 
 
 def reset_counts() -> None:
@@ -718,6 +749,258 @@ def phase_rgb(torch):
     return result
 
 
+def _ulp_bf16(torch, v):
+    m = v.abs().float().clamp_min(2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(m)) - 7)
+
+
+def _trunk_diff(torch, got, want, skip=None):
+    """(max|diff|, max|diff| in bf16 ulps of the larger magnitude, share of
+    elements beyond one such ulp, whether every element is within the
+    stated bound)."""
+    d = (got.float() - want.float()).abs()
+    if got.dtype == torch.float32:
+        err = d.max().item()
+        return err, None, None, err <= TRUNK_F32_ATOL
+    big = torch.maximum(got.float().abs(), want.float().abs())
+    ulp = _ulp_bf16(torch, big)
+    bound = TRUNK_F32_ATOL + ulp
+    if skip is not None:
+        bound = bound + 2 * _ulp_bf16(torch, torch.maximum(big,
+                                                           skip.float().abs()))
+    return (d.max().item(), (d / ulp).max().item(),
+            (d > ulp).float().mean().item(), bool((d <= bound).all()))
+
+
+def phase_trunk(torch, f32_peak):
+    """K4 against its plain version at the two serving shapes."""
+    import torch.nn.functional as F
+
+    from enph459_super_resolution_tpu_torch.ops import trunk
+
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 4)
+    convs = [(rng.standard_normal((3, 3, 64, 64)).astype(np.float32) * 0.05,
+              rng.standard_normal(64).astype(np.float32) * 0.1)
+             for _ in range(2)]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    rows = []
+    for name, shape in (("edsr", (EDSR_BATCH, EDSR_LR, EDSR_LR)),
+                        ("burst_lr", BURST_PHASES[:3])):
+        x32 = torch.randn(shape + (64,), generator=gen, device=dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            pack = trunk.pack_trunk(convs, dtype, dev)
+            peak = f32_peak if dtype == torch.float32 else BF16_PEAK
+            x = x32.to(dtype)
+            # (epilogue, pack, conv, input, skip): the residual launch takes
+            # the plain version's relu output, so each launch is judged alone
+            cases = [("relu", pack, 0, x, None),
+                     ("skip", pack, 1, trunk.trunk_conv_reference(x, pack, 0),
+                      x)]
+            if name == "edsr":
+                cases.append(("relu_only",
+                              trunk.TrunkPack(pack.w[:1], pack.b[:1]), 0, x,
+                              None))
+            for epi, p, i, inp, skip in cases:
+                if epi == "relu_only":
+                    def fn():
+                        return trunk.fused_resblocks_packed(inp, p,
+                                                            relu_only=True)
+                else:
+                    def fn():
+                        return trunk.trunk_conv(inp, p, i, skip=skip)
+
+                def plain():
+                    return trunk.trunk_conv_reference(inp, p, i, skip=skip)
+
+                got, want = fn(), plain()
+                torch.cuda.synchronize()
+                err, ulps, share, ok = _trunk_diff(torch, got, want, skip)
+                label = f"trunk {name} {epi} {str(dtype)[6:]}"
+                check(bool(torch.isfinite(got.float()).all()),
+                      f"{label}: non-finite output")
+                check(ok, f"{label}: max|kernel - plain| {err} "
+                          f"({ulps} bf16 ulps) beyond the bound")
+                del got, want
+                # the library yardstick: one cuDNN conv with bias, same type
+                w = (p.w[i].reshape(3, 3, 64, 64).permute(3, 2, 0, 1)
+                     .contiguous())
+                b = p.b[i].to(dtype)
+                x_cl = inp.permute(0, 3, 1, 2)
+                flops = 2.0 * 9 * 64 * 64 * x.numel() / 64
+                nbytes = (x.element_size() * x.numel() * (3 if skip is not None
+                                                         else 2)
+                          + p.w[i].numel() * p.w[i].element_size() + 4 * 64)
+                reps = 20 if name == "edsr" else 5
+                kernel_ms = time_ms(torch, fn, reps)
+                row = {"phase": "trunk", "shape": name,
+                       "x": list(x.shape), "dtype": str(dtype)[6:],
+                       "epilogue": epi, "gflop": flops / 1e9,
+                       "mbytes": nbytes / 1e6, "max_abs_err": err,
+                       "max_bf16_ulps": ulps, "share_beyond_1ulp": share,
+                       "kernel_ms": kernel_ms,
+                       "plain_ms": time_ms(torch, plain, 3),
+                       "library_ms": time_ms(
+                           torch, lambda: F.conv2d(x_cl, w, b, padding=1),
+                           reps),
+                       **_bound(flops, nbytes, peak),
+                       "kernel_tflops": flops / kernel_ms / 1e9}
+                emit(row)
+                rows.append(row)
+            del cases, x
+        del x32
+    return rows
+
+
+def _serve(torch, fn, inputs):
+    """Each request through ``fn`` on the host clock, ending in a
+    synchronize; returns (outputs of the last request, seconds per
+    request)."""
+    times = []
+    for x in inputs:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(x)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return out, times
+
+
+def phase_edsr(torch):
+    """EDSR-baseline x4 served through the fused trunk, bf16 and f32."""
+    from enph459_super_resolution_tpu_torch.models import EDSR
+    from enph459_super_resolution_tpu_torch.models.fused import \
+        make_edsr_fused_apply
+
+    model = EDSR(scale=4, channels=3, n_resblocks=16, n_feats=64,
+                 device="cuda", generator=torch.Generator().manual_seed(SEED))
+    rng = np.random.default_rng(SEED + 5)
+    inputs = [torch.as_tensor(
+        rng.uniform(0, 255, (EDSR_BATCH, EDSR_LR, EDSR_LR, 3)),
+        dtype=torch.float32, device="cuda") for _ in range(EDSR_REQUESTS)]
+    with torch.no_grad():
+        model(inputs[0])  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = model(inputs[-1])
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+    mean = torch.tensor([0.4488, 0.4371, 0.4040], device="cuda") * 255.0
+    span = (want - mean).abs().max().item()
+    out_mpix = EDSR_BATCH * (4 * EDSR_LR) ** 2 / 1e6
+    result = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        key = "k4_bf16" if dtype == torch.bfloat16 else "k4_f32"
+        fn = make_edsr_fused_apply(model, dtype=dtype)
+        fn(inputs[0])  # warm-up: cuDNN's first calls at these shapes
+        reset_counts()
+        got, times = _serve(torch, fn, inputs)
+        launches = read_counts()
+        expected = dict.fromkeys(launches, 0)
+        expected[key] = 32 * EDSR_REQUESTS
+        check(launches == expected, f"edsr {dtype}: launches {launches}, "
+                                    f"expected {expected}")
+        check(tuple(got.shape) == (EDSR_BATCH, 4 * EDSR_LR, 4 * EDSR_LR, 3),
+              f"edsr output {tuple(got.shape)}")
+        check(bool(torch.isfinite(got).all()), "edsr: non-finite output")
+        err = (got - want).abs().max().item()
+        bound = (EDSR_F32_SHARE if dtype == torch.float32
+                 else EDSR_BF16_SHARE) * span
+        check(err <= bound, f"edsr {dtype}: max|fused - module| {err} > "
+                            f"{bound}")
+        s = sorted(times)[len(times) // 2]
+        row = {"phase": "edsr", "dtype": str(dtype)[6:],
+               "lr": [EDSR_BATCH, EDSR_LR, EDSR_LR, 3],
+               "hr": list(got.shape), "requests": EDSR_REQUESTS,
+               "launches": launches, "max_abs_vs_module": err,
+               "bound": bound, "output_span": span,
+               "request_s_runs": times, "request_s": s,
+               "images_per_s": EDSR_BATCH / s,
+               "output_mpix_per_s": out_mpix / s, "module_f32_s": plain_s}
+        if dtype == torch.bfloat16:
+            busy_s, wall_s = phase_profile(
+                torch, lambda: (fn(inputs[0]), torch.cuda.synchronize()),
+                "one EDSR x4 request, batch 8 x 256x256, bf16 fused trunk")
+            row.update(profiled_s=wall_s, device_busy_s=busy_s,
+                       device_idle_share=1.0 - busy_s / wall_s)
+        emit(row)
+        result[key] = row
+    return model, result
+
+
+def phase_burst_lr(torch):
+    """BurstFusionLR served through the fused trunk at the classical
+    headline geometry, bf16, with a random head so the trunk shows."""
+    from enph459_super_resolution_tpu_torch.models import BurstFusionLR
+    from enph459_super_resolution_tpu_torch.models.fused import \
+        make_burst_lr_fused_apply
+
+    g = torch.Generator().manual_seed(SEED + 6)
+    model = BurstFusionLR(n_frames=4, factor=2, n_feats=64, n_resblocks=8,
+                          device="cuda", generator=g)
+    with torch.no_grad():
+        model.Conv_1.weight.copy_(torch.randn(model.Conv_1.weight.shape,
+                                              generator=g) * 0.05)
+        model.Conv_1.bias.copy_(torch.randn(4, generator=g) * 0.1)
+    rng = np.random.default_rng(SEED + 6)
+    x = torch.as_tensor(rng.uniform(0, 255, BURST_PHASES),
+                        dtype=torch.float32, device="cuda")
+    with torch.no_grad():
+        want = model(x)
+        base = model.shift_and_add(x)
+    span = (want - base).abs().max().item()
+    fn = make_burst_lr_fused_apply(model)
+    fn(x)  # warm-up
+    reset_counts()
+    got, times = _serve(torch, fn, [x] * 3)
+    launches = read_counts()
+    expected = dict.fromkeys(launches, 0)
+    expected["k4_bf16"] = 16 * 3
+    check(launches == expected, f"burst_lr launches {launches}, expected "
+                                f"{expected}")
+    check(tuple(got.shape) == (1, 3072, 4096, 1), f"burst {got.shape}")
+    check(bool(torch.isfinite(got).all()), "burst_lr: non-finite output")
+    err = (got - want).abs().max().item()
+    check(span > 1.0, f"burst_lr: the trunk does not show ({span})")
+    check(err <= EDSR_BF16_SHARE * span,
+          f"burst_lr: max|fused - module| {err} > {EDSR_BF16_SHARE * span}")
+    s = sorted(times)[1]
+    row = {"phase": "burst_lr", "dtype": "bfloat16",
+           "phases": list(BURST_PHASES), "hr": list(got.shape),
+           "launches": launches, "max_abs_vs_module": err,
+           "residual_span": span, "request_s_runs": times, "request_s": s,
+           "hr_mpix_per_s": HR_MPIX / s}
+    emit(row)
+    return row
+
+
+def phase_tiled(torch, model):
+    """One 4K frame through tiled_infer on the EDSR-16 module, against the
+    whole-image forward."""
+    from enph459_super_resolution_tpu_torch.models.infer import tiled_infer
+
+    lr = np.random.default_rng(SEED + 7).uniform(
+        0, 255, (540, 960, 3)).astype(np.float32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = tiled_infer(model, lr)
+    tiled_s = time.perf_counter() - t0
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        whole = model(torch.as_tensor(lr, device="cuda")[None])[0]
+        whole = whole.cpu().numpy()
+        whole_s = time.perf_counter() - t0
+    check(got.shape == (2160, 3840, 3), f"tiled {got.shape}")
+    err = float(np.abs(got - whole).max())
+    check(err <= 5e-3, f"tiled vs whole image: {err} > 5e-3")
+    row = {"phase": "tiled", "lr": [540, 960, 3], "hr": list(got.shape),
+           "max_abs_vs_whole": err, "tiled_s": tiled_s, "whole_s": whole_s,
+           "hr_mpix_per_s": 2160 * 3840 / 1e6 / tiled_s}
+    emit(row)
+    return row
+
+
 def _summary(name, source, replaces, launches, rows, head, card):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -749,6 +1032,10 @@ def main() -> int:
         bf16_launches = phase_mono_bf16(torch, mono)
         modes = phase_modes(torch, mono)
         phase_rgb(torch)
+        trunk_rows = phase_trunk(torch, f32_peak)
+        edsr_model, edsr = phase_edsr(torch)
+        phase_burst_lr(torch)
+        phase_tiled(torch, edsr_model)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 
@@ -781,6 +1068,19 @@ def main() -> int:
                 kernel + ("_bf16" if dtype == "bfloat16" else ""), fused_src,
                 f"{fused_tpu}:{line}", launches, rows,
                 next(r for r in rows if r["pack"] == "mono"), card))
+    trunk_src = "enph459_super_resolution_tpu_torch/csrc/trunk.cu"
+    trunk_tpu = "enph459_super_resolution_tpu/ops/pallas_trunk.py:118"
+    for dtype, key in (("float32", "k4_f32"), ("bfloat16", "k4_bf16")):
+        rows = [r for r in trunk_rows if r["dtype"] == dtype]
+        block = [r for r in rows if r["shape"] == "edsr"
+                 and r["epilogue"] in ("relu", "skip")]
+        # per launch over one residual block (relu + skip) at the EDSR shape
+        head = {k: sum(r[k] for r in block) / 2
+                for k in ("kernel_ms", "plain_ms", "library_ms", "bound_ms")}
+        head.update(op="edsr block, per launch", bound_by=block[0]["bound_by"])
+        entries.append(_summary(
+            "trunk" + ("_bf16" if dtype == "bfloat16" else ""), trunk_src,
+            trunk_tpu, edsr[key]["launches"][key], rows, head, card))
     emit({"kernels": entries})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

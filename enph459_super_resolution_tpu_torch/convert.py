@@ -6,14 +6,20 @@ These functions take the contents of the JAX package's ``BandedOp``s and
 JAX) and return the port's :class:`~.ops.opmatrix.BandedOp` or
 :class:`~.ops.fused_ibp.FusedIBP` on a device.  bf16 exists only on the
 device: bf16 arrays are handed over as float32 (exact) and cast back there.
+
+The neural models' state is a flax parameter tree, handed over as nested
+dicts of numpy arrays with flax's automatic names; :func:`flax_state_dict`
+turns it into a ``state_dict`` of the port's models, whose modules carry
+the same names.
 """
 
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Dict, Mapping
 
 import numpy as np
 import torch
+from torch import nn
 
 from .ops.fused_ibp import FusedIBP
 from .ops.opmatrix import BandedOp
@@ -70,3 +76,47 @@ def fused_ibp_from_arrays(arrays: Mapping, f_entries, f_groups, b_entries,
                     lr_shape, hr_shape)
     return pack.astype_bands(band_dtype) if band_dtype != torch.float32 \
         else pack
+
+
+def flax_state_dict(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """A flax parameter tree (``{"params": ...}`` or its contents) as a
+    ``state_dict`` of the port's model of the same architecture.
+
+    ``a/b/kernel`` (HWIO ``[kh, kw, in, out]``) becomes ``a.b.weight``
+    (OIHW, as ``F.conv2d`` takes it), ``a/b/bias`` stays ``a.b.bias`` and a
+    PReLU's ``negative_slope`` keeps its name.  Raises for a scan-layout
+    EDSR tree (``head``/``trunk``/...): the port has the unrolled layout only.
+    """
+    tree = tree.get("params", tree)
+    if "trunk" in tree or "head" in tree:
+        raise ValueError("scan-layout EDSR tree (head/trunk/tail_conv/...): "
+                         "the port takes the unrolled trunk layout "
+                         "(ResBlock_0 .. ResBlock_{n-1}) only")
+    out: Dict[str, torch.Tensor] = {}
+
+    def walk(node: Mapping, prefix: str) -> None:
+        for key, value in node.items():
+            if isinstance(value, Mapping):
+                walk(value, f"{prefix}{key}.")
+                continue
+            a = np.asarray(value, dtype=np.float32)
+            if key == "kernel":
+                if a.ndim != 4:
+                    raise ValueError(f"{prefix}kernel: expected HWIO, got "
+                                     f"shape {a.shape}")
+                out[prefix + "weight"] = torch.from_numpy(
+                    np.ascontiguousarray(a.transpose(3, 2, 0, 1)))
+            elif key in ("bias", "negative_slope"):
+                out[prefix + key] = torch.from_numpy(a.copy())
+            else:
+                raise ValueError(f"unexpected flax parameter {prefix}{key}")
+
+    walk(tree, "")
+    return out
+
+
+def load_flax_params(model: nn.Module, tree: Mapping) -> nn.Module:
+    """Copy a flax parameter tree into ``model`` (on its device), strictly:
+    a missing or extra parameter, or a shape that differs, raises."""
+    model.load_state_dict(flax_state_dict(tree), strict=True)
+    return model

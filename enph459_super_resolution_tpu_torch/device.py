@@ -22,3 +22,10 @@ def resolve_device(name: str = "cuda") -> torch.device:
         raise RuntimeError("device 'cuda' requested but torch.cuda.is_available() "
                            "is False (pass device='cpu' to run on the CPU)")
     return torch.device(name)
+
+
+def no_tf32(x: torch.Tensor) -> None:
+    """float32 convolutions on the card in full float32 (``x`` on cuda):
+    cuDNN's default is TF32, unlike matmul's."""
+    if x.is_cuda:
+        torch.backends.cudnn.allow_tf32 = False

@@ -62,7 +62,7 @@ def test_every_port_module_imports_with_jax_blocked():
     res = subprocess.run([sys.executable, "-c", script], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 16  # every module was walked
+    assert int(res.stdout.split()[-1]) >= 27  # every module was walked
 
 
 @pytest.mark.parametrize("path", sorted(
@@ -116,10 +116,12 @@ def test_every_kernel_entry_point_is_in_its_source():
     import re
 
     from enph459_super_resolution_tpu_torch import _build
-    from enph459_super_resolution_tpu_torch.ops import banded_rows, fused_ibp
+    from enph459_super_resolution_tpu_torch.ops import (banded_rows,
+                                                        fused_ibp, trunk)
 
     bound = {"banded_rows": [s for s, _ in banded_rows._ENTRY.values()],
-             "fused_ibp": ["fused_fwd_launch", "fused_bwd_launch"]}
+             "fused_ibp": ["fused_fwd_launch", "fused_bwd_launch"],
+             "trunk": [s for s, _ in trunk._ENTRY.values()]}
     assert sorted(bound) == _build.kernel_names()
     for name, symbols in bound.items():
         src = (_build.CSRC_DIR / f"{name}.cu").read_text()
@@ -140,3 +142,6 @@ def test_every_kernel_entry_point_is_in_its_source():
     assert fused_ibp.COLS == const("fused_ibp", "TN")
     assert fused_ibp.MAX_FRAMES == const("fused_ibp", "MAX_OUT")
     assert fused_ibp.SMEM_LIMIT == const("fused_ibp", "MAX_SMEM")
+    assert trunk.FEATURES == const("trunk", "C")
+    assert trunk.TILE_H == const("trunk", "TH")
+    assert trunk.TILE_W == const("trunk", "TW")
