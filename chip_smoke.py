@@ -14,11 +14,16 @@ or of the JAX package.  Phases, one JSON line each:
    the card at every shape the runs below give it (``zoom_r``, ``saa_r``,
    ``fwd_r``, ``bwd_r`` at LR 1536x2048, and the 4-rep tiled ``zoom_r``,
    ``saa_r``, ``fwd_r``, ``bwd_r`` at LR 768x1024), float32 bands, and its
-   bfloat16-band instantiation at the full-size ``zoom_r`` and ``fwd_r``;
+   bfloat16-band instantiation at the full-size ``zoom_r``, ``saa_r``,
+   ``fwd_r`` and ``bwd_r``;
    inputs uniform in [0, 255), max|diff| <= 1e-3 (bf16 bands: the products
    are exact and x rounds in both, so only the summation order differs);
    with the kernel's, the plain version's and a dense ``torch.matmul``'s
-   times and the card's bound for the same work.
+   times and the card's bound for the same work.  The kernel's time is
+   taken twice (CUDA events both): per call over calls launched one after
+   another, and on the device alone over calls queued behind a device
+   sleep, which leaves out the host's launch cost where a call takes longer
+   to enqueue than to run (also for K4 below).
 3. fused -- the fused IBP kernels K2 (forward error of every frame) and K3
    (back-projection update) against their plain versions at the full-size
    mono pack and the 4-rep rgb pack, float32 and bfloat16 bands;
@@ -71,7 +76,9 @@ or of the JAX package.  Phases, one JSON line each:
 
 Then the ``kernels`` summary line, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
-Any failure raises and exits non-zero with no result line.
+Any failure raises and exits non-zero with no result line; so does a run
+without a card (exit 2) or of this script alone, without the port's package
+beside it (exit 2, with a message on stderr).
 """
 
 from __future__ import annotations
@@ -131,6 +138,33 @@ def time_ms(torch, fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(torch, fn, reps: int) -> float:
+    """Mean device time of ``fn`` over ``reps`` calls queued behind a device
+    sleep (CUDA events, after one warm-up call): the host enqueues every
+    call while the card still sleeps, so the calls run back to back and the
+    host's launch cost, which ``time_ms`` includes where a call takes longer
+    to enqueue than to run, drops out.  The sleep grows until it outlasts
+    the enqueueing."""
+    fn()
+    torch.cuda.synchronize()
+    cycles = 20_000_000  # ~10 ms at the H100's clock
+    for _ in range(4):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        queued = not start.query()  # the card still slept: all were queued
+        torch.cuda.synchronize()
+        if queued:
+            return start.elapsed_time(end) / reps
+        cycles *= 4
+    raise RuntimeError("check failed: the host did not enqueue the calls "
+                       "within the device sleep")
 
 
 def _counters():
@@ -267,9 +301,13 @@ def phase_kernel(torch, f32_peak, host):
         "saa_r_tiled4": (tiled["saa"][1][0], 1, 2048, f32),
         "fwd_r_tiled4": (tiled["frames"][1][0][0], 1, 2048, f32),
         "bwd_r_tiled4": (tiled["frames"][1][2][0], 1, 1024, f32),
-        # the bf16 band store: zoom under bf16, the bulk's forward rows
+        # the bf16 band store: zoom and Shift-and-Add under bf16, the
+        # bulk's forward and back-projection rows (the banded hybrid:16
+        # solve runs 320 of each)
         "zoom_r_bf16": (full["zoom_r"], 5, 2048, bf16),
+        "saa_r_bf16": (full["saa"][1][0], 1, 4096, bf16),
         "fwd_r_bf16": (full["frames"][1][0][0], 1, 4096, bf16),
+        "bwd_r_bf16": (full["frames"][1][2][0], 1, 2048, bf16),
     }
     rng = np.random.default_rng(SEED)
     rows = []
@@ -290,6 +328,8 @@ def phase_kernel(torch, f32_peak, host):
         dense = torch.as_tensor(_dense(host_op), device=dev).to(dtype).float()
         x_lib = x.to(dtype).float()
         kernel_ms = time_ms(torch, lambda: banded_row_apply(pack, x), 20)
+        kernel_device_ms = device_ms(
+            torch, lambda: banded_row_apply(pack, x), 20)
         plain_ms = time_ms(torch, lambda: banded_row_apply_reference(pack, x),
                            5)
         library_ms = time_ms(torch, lambda: torch.matmul(dense, x_lib), 5)
@@ -301,9 +341,10 @@ def phase_kernel(torch, f32_peak, host):
                "x": [batch, op.n_in, width], "out_rows": op.n_out,
                "blocks": len(host_op.blocks),
                "true_window": max(hi - lo for lo, hi in host_op.col_ranges),
-               "packed_window": int(pack.bands.shape[-1]),
+               "packed_window": int(pack.bands.shape[1]),
                "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
                "max_abs_err": err, "kernel_ms": kernel_ms,
+               "kernel_device_ms": kernel_device_ms,
                "plain_ms": plain_ms, "library_ms": library_ms,
                **_bound(flops, nbytes, f32_peak if dtype == f32 else BF16_PEAK),
                "kernel_tflops": flops / kernel_ms / 1e9}
@@ -840,6 +881,7 @@ def phase_trunk(torch, f32_peak):
                        "mbytes": nbytes / 1e6, "max_abs_err": err,
                        "max_bf16_ulps": ulps, "share_beyond_1ulp": share,
                        "kernel_ms": kernel_ms,
+                       "kernel_device_ms": device_ms(torch, fn, reps),
                        "plain_ms": time_ms(torch, plain, 3),
                        "library_ms": time_ms(
                            torch, lambda: F.conv2d(x_cl, w, b, padding=1),
@@ -1010,12 +1052,18 @@ def _summary(name, source, replaces, launches, rows, head, card):
             "library_ms": head["library_ms"],
             **({"unfused_ms": head["unfused_ms"]} if "unfused_ms" in head
                else {}),
+            **({"device_ms": head["kernel_device_ms"]}
+               if "kernel_device_ms" in head else {}),
             "at": head.get("op") or f"{head['pack']} pack", "card": card}
 
 
 def main() -> int:
     import torch
 
+    if not (REPO / "enph459_super_resolution_tpu_torch").is_dir():
+        print("chip_smoke: the port's package enph459_super_resolution_tpu_"
+              f"torch is not beside this script in {REPO}", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is False)",
               file=sys.stderr)
@@ -1076,7 +1124,8 @@ def main() -> int:
                  and r["epilogue"] in ("relu", "skip")]
         # per launch over one residual block (relu + skip) at the EDSR shape
         head = {k: sum(r[k] for r in block) / 2
-                for k in ("kernel_ms", "plain_ms", "library_ms", "bound_ms")}
+                for k in ("kernel_ms", "kernel_device_ms", "plain_ms",
+                          "library_ms", "bound_ms")}
         head.update(op="edsr block, per launch", bound_by=block[0]["bound_by"])
         entries.append(_summary(
             "trunk" + ("_bf16" if dtype == "bfloat16" else ""), trunk_src,

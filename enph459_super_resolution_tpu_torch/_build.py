@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C entry point and compiles on its
 own into ``_build_out/lib<name>_<hash>.so`` (``_build_out`` is git-ignored),
-where the hash covers the source and the flags, so an edited source never
-loads a stale library.  The build happens at first use, or for every
-source at once, in parallel, through :func:`build_all`.  ``-Xptxas -v``
+where the hash covers the source, every shared header ``csrc/*.cuh`` and
+the flags, so an edited source or header never loads a stale library.  The
+build happens at first use, or for every source at once, in parallel,
+through :func:`build_all`.  ``-Xptxas -v``
 puts each kernel's registers, shared memory and spills into
 ``lib<name>_<hash>.log`` beside the library.
 """
@@ -53,8 +54,9 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    key = hashlib.sha256(src.read_bytes()
+    parts = [(CSRC_DIR / f"{name}.cu").read_bytes()]
+    parts += [h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh"))]
+    key = hashlib.sha256(b"".join(parts)
                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{key}.so"
 

@@ -18,7 +18,9 @@ store).  With bf16 bands x is rounded to bf16 and the exact bf16 x bf16
 products are summed in float32, as the reference's bf16 einsum with
 ``preferred_element_type=float32`` does; the result is float32 either way.
 
-The pack differs from the TPU one: windows are padded only to the kernel's
+The pack differs from the TPU one: each block is stored k-major,
+``bands[b, k, r]`` (window row ``k``, output row ``r``), so the kernel's
+window chunks are contiguous copies; windows are padded only to the kernel's
 K-chunk (``K_CHUNK``), not to 128 lanes, and start at the block's first
 nonzero column (no 8-row alignment).  Each block carries its own first
 output row and row count, so rep-tiled operators whose base op has a short
@@ -51,7 +53,7 @@ K_CHUNK = 16
 class RowPack(NamedTuple):
     """Operands of one banded row apply, on one device."""
 
-    bands: torch.Tensor    # f32 or bf16 [n_blk, ROWS, win], zero-padded
+    bands: torch.Tensor    # f32 or bf16 [n_blk, win, ROWS]: k-major, 0-padded
     meta: torch.Tensor     # i32 [3, n_blk]: window start, first out row, rows
     meta_host: np.ndarray  # the same on the host (the plain version's slices)
     n_out: int
@@ -65,7 +67,8 @@ def pack_banded(blocks, col_ranges, n_out: int, n_in: int, device,
 
     ``blocks[b]`` covers output rows ``sum(rows of blocks < b)`` onward and
     input columns ``col_ranges[b]``; the shared window is the widest block
-    window rounded up to ``K_CHUNK``.
+    window rounded up to ``K_CHUNK``; each block is stored transposed,
+    window row by window row.
     """
     if dtype not in _ENTRY:
         raise TypeError(f"band dtype {dtype} is neither float32 nor bfloat16")
@@ -77,13 +80,13 @@ def pack_banded(blocks, col_ranges, n_out: int, n_in: int, device,
         raise ValueError(f"blocks cover {rows.sum()} rows, op has {n_out}")
     win = max(hi - lo for lo, hi in col_ranges)
     win = -(-win // K_CHUNK) * K_CHUNK
-    bands = np.zeros((n_blk, ROWS, win), dtype=np.float32)
+    bands = np.zeros((n_blk, win, ROWS), dtype=np.float32)
     meta = np.zeros((3, n_blk), dtype=np.int32)
     meta[0] = [lo for lo, _ in col_ranges]
     meta[1] = np.concatenate([[0], np.cumsum(rows)[:-1]])
     meta[2] = rows
     for i, (b, (lo, hi)) in enumerate(zip(blocks, col_ranges)):
-        bands[i, : b.shape[0], : hi - lo] = b
+        bands[i, : hi - lo, : b.shape[0]] = b.T
     return RowPack(torch.as_tensor(bands, device=device).to(dtype),
                    torch.as_tensor(meta, device=device), meta,
                    int(n_out), int(n_in))
@@ -100,19 +103,19 @@ def _check(pack: RowPack, x: torch.Tensor) -> None:
 
 
 def banded_row_apply_reference(pack: RowPack, x: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version: per block, ``bands[b] @ x[start_b : start_b +
+    """Plain PyTorch version: per block, ``bands[b].T @ x[start_b : start_b +
     win]`` into the block's output rows (any device); with bf16 bands, x
     rounded to bf16 and the products summed in float32."""
     _check(pack, x)
     bands = pack.bands.float()
     if pack.bands.dtype == torch.bfloat16:
         x = x.to(torch.bfloat16).float()
-    win = bands.shape[-1]
+    win = bands.shape[1]
     out = x.new_empty(x.shape[:-2] + (pack.n_out, x.shape[-1]))
     for b, (start, row0, nrow) in enumerate(pack.meta_host.T.tolist()):
         xs = x[..., start:start + win, :]   # short at the bottom edge
         out[..., row0:row0 + nrow, :] = torch.matmul(
-            bands[b, :nrow, : xs.shape[-2]], xs)
+            bands[b, : xs.shape[-2], :nrow].T, xs)
     return out
 
 
@@ -140,7 +143,7 @@ def banded_row_apply(pack: RowPack, x: torch.Tensor) -> torch.Tensor:
                       dtype=torch.float32)
     if out.numel() == 0:
         return out
-    n_blk, _, win = pack.bands.shape
+    n_blk, win, _ = pack.bands.shape
     meta = pack.meta
     step = meta.stride(0) * meta.element_size()
     rc = launch(

@@ -133,6 +133,13 @@ def trunk_conv_reference(x: torch.Tensor, pack: TrunkPack, i: int,
     return ((y * res_scale).to(x.dtype) + skip).contiguous()
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and 16-byte aligned, as the kernels' vector loads
+    need (a fresh allocation is; a view at an odd offset is copied)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def trunk_conv(x: torch.Tensor, pack: TrunkPack, i: int,
                skip: torch.Tensor | None = None,
                res_scale: float = 1.0) -> torch.Tensor:
@@ -152,8 +159,8 @@ def trunk_conv(x: torch.Tensor, pack: TrunkPack, i: int,
 
     symbol, counter = _ENTRY[x.dtype]
     launch = load_function("trunk", symbol, _ARGTYPES)
-    x = x.contiguous()
-    skip = skip.contiguous() if skip is not None else None
+    x = _aligned(x)
+    skip = _aligned(skip) if skip is not None else None
     out = torch.empty_like(x)
     if out.numel() == 0:
         return out

@@ -109,11 +109,11 @@ def test_bf16_bands_bit_equal_jax():
 def _assert_bands_equal(top, jlo, name):
     pack = top.row_pack
     assert pack.bands.dtype == torch.bfloat16
-    bands = pack.bands.float().numpy()
+    bands = pack.bands.float().numpy()  # k-major: [n_blk, win, ROWS]
     for b, (blk, (lo, hi)) in enumerate(zip(jlo.blocks, jlo.col_ranges)):
         want = np.asarray(blk, np.float32)
         np.testing.assert_array_equal(
-            bands[b, :want.shape[0], :hi - lo], want, err_msg=name)
+            bands[b, :hi - lo, :want.shape[0]].T, want, err_msg=name)
 
 
 def test_convert_carries_the_bf16_frame_copies():

@@ -4,7 +4,9 @@ Needs an NVIDIA card with the CUDA toolkit (``nvcc``); skips without one.
 Run on the card with ``python -m pytest tests/test_torch_banded_rows_cuda.py
 -q``.  Edge cases the solve meets at small sizes: widths that are no
 multiple of the 128-column tile, windows that overhang the input's last
-row, short blocks inside rep-tiled operators, and a batch axis.
+row, short blocks inside rep-tiled operators, and a batch axis; and, for
+both band types, windows of one chunk and of chunk counts no 32-row step
+divides, and unaligned inputs.
 """
 
 import numpy as np
@@ -12,7 +14,7 @@ import pytest
 import torch
 
 from enph459_super_resolution_tpu_torch.ops.banded_rows import (
-    banded_row_apply, banded_row_apply_reference)
+    banded_row_apply, banded_row_apply_reference, pack_banded)
 from enph459_super_resolution_tpu_torch.ops.opmatrix import (
     BandedOp, shift_op_banded, stuff_shift_op_banded, zoom_op_banded)
 
@@ -70,3 +72,53 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
                          torch.zeros(64, 8, dtype=torch.float64, device=cuda))
     with pytest.raises(ValueError):
         banded_row_apply(op.row_pack, torch.zeros(65, 8, device=cuda))
+
+
+def _random_pack(true_win, dtype, device, seed=0):
+    """A pack of 4 blocks of 128, 37, 128 and 1 rows whose windows are
+    ``true_win`` wide (padded to the 16-row chunk), the last one overhanging
+    nothing and the third ending at the input's last row; entries in
+    [0, 1 / true_win), so the outputs stay within the inputs' range, as the
+    solve's operators keep them."""
+    rng = np.random.default_rng(seed)
+    rows = [128, 37, 128, 1]
+    n_in = 3 * true_win + 11
+    lo = [0, true_win // 2, n_in - true_win, 5]
+    blocks = [rng.uniform(0, 1.0 / true_win, (r, true_win)) for r in rows]
+    return pack_banded(blocks, [(a, a + true_win) for a in lo], sum(rows),
+                       n_in, device, dtype)
+
+
+# Windows of one chunk (5 and 16 rows), and of 3 and 19 chunks, which no
+# 32-row step divides; widths below, across and off the 128-column tile,
+# odd ones taking the 4-byte copies.
+@pytest.mark.parametrize("width", [1, 130, 257, 384])
+@pytest.mark.parametrize("true_win", [5, 16, 40, 300])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_ring_and_tensor_cores_at_ragged_shapes(cuda, dtype, true_win,
+                                                width):
+    """f32 bands through the cp.async ring (f32 FMA), bf16 bands on the
+    tensor cores, each against the plain version.  Outputs lie in [0, 255):
+    both versions sum the same products (exact for bf16) in f32 in another
+    order, so they differ by a few f32 ulps of 255 (1.5e-5 each), within
+    ``ATOL``."""
+    pack = _random_pack(true_win, dtype, cuda)
+    assert pack.bands.shape[1] == -(-true_win // 16) * 16
+    x = torch.as_tensor(
+        np.random.default_rng(true_win).uniform(0, 255,
+                                                (2, pack.n_in, width)),
+        dtype=torch.float32, device=cuda)
+    counter = "launches_bf16" if dtype == torch.bfloat16 else "launches"
+    before = getattr(banded_row_apply, counter)
+    got = banded_row_apply(pack, x)
+    assert getattr(banded_row_apply, counter) == before + 1
+    want = banded_row_apply_reference(pack, x)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (2, pack.n_out, width)
+    assert (got - want).abs().max().item() <= ATOL
+    # an input view at an offset of one float: the unaligned copy path
+    flat = torch.empty(x.numel() + 1, device=cuda)
+    view = flat[1:].view(x.shape)
+    view.copy_(x)
+    assert (banded_row_apply(pack, view) - want).abs().max().item() <= ATOL

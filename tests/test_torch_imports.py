@@ -145,3 +145,24 @@ def test_every_kernel_entry_point_is_in_its_source():
     assert trunk.FEATURES == const("trunk", "C")
     assert trunk.TILE_H == const("trunk", "TH")
     assert trunk.TILE_W == const("trunk", "TW")
+
+
+def test_a_shared_header_edit_rebuilds_every_kernel(tmp_path, monkeypatch):
+    """The build key of each kernel covers the headers under ``csrc/``
+    (``mma_bf16.cuh`` is included by trunk.cu and banded_rows.cu): an edited
+    header never loads a library built from the old one."""
+    import shutil
+
+    from enph459_super_resolution_tpu_torch import _build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC_DIR, csrc)
+    monkeypatch.setattr(_build, "CSRC_DIR", csrc)
+    names = _build.kernel_names()
+    before = {n: _build.library_path(n) for n in names}
+    assert (csrc / "mma_bf16.cuh").exists()
+    for user in ("trunk", "banded_rows"):
+        assert '#include "mma_bf16.cuh"' in (csrc / f"{user}.cu").read_text()
+    header = csrc / "mma_bf16.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    assert all(_build.library_path(n) != before[n] for n in names)

@@ -137,7 +137,7 @@ def test_row_apply_matches_pallas_interpret(case):
         hb = J.shift_op_banded(512, 0.37)
     j_op = J.BandedOp.from_banded(hb, pack_pallas=False)
     t_op = T.BandedOp.from_banded(hb).to("cpu")
-    assert t_op.row_pack.bands.shape[-1] % K_CHUNK == 0
+    assert t_op.row_pack.bands.shape[1] % K_CHUNK == 0  # k-major window
     x = _x(np.random.default_rng(3), hb.n_in, 256)
     want_pallas = np.asarray(jax_banded_row_apply(j_op, jnp.asarray(x),
                                                   interpret=True))
@@ -153,6 +153,36 @@ def test_row_apply_matches_pallas_interpret(case):
         banded_row_apply_reference(t_op.row_pack,
                                    torch.from_numpy(x)).numpy())
     assert banded_row_apply.launches == before
+
+
+@pytest.mark.parametrize("reps", [1, 3])
+@pytest.mark.parametrize("band", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", sorted(BUILDS))
+def test_kmajor_pack_plain_apply_matches_jax(name, band, reps):
+    """The k-major row pack (``bands[b, k, r]``, window row by window row)
+    holds each block transposed and zero elsewhere, and its plain apply
+    equals the JAX ``BandedOp.row_apply`` in the same band type: f32 sums of
+    exact products in another order, within ``ATOL`` (bf16 bands: x rounds
+    to bf16 in both)."""
+    j_op = J.BandedOp.tiled(J.BandedOp.from_banded(BUILDS[name](J),
+                                                   pack_pallas=False), reps)
+    t_op = T.BandedOp.tiled(T.BandedOp.from_banded(BUILDS[name](T)), reps)
+    if band == "bfloat16":
+        j_op = j_op.astype_band(jnp.bfloat16)
+        t_op = t_op.astype_band(torch.bfloat16)
+    t_op = t_op.to("cpu")
+    pack = t_op.row_pack
+    bands = pack.bands.float().numpy()
+    assert bands.shape[1:] == (pack.bands.shape[1], 128)
+    for b, (blk, (lo, hi)) in enumerate(zip(j_op.blocks, j_op.col_ranges)):
+        want = np.zeros(bands.shape[1:], np.float32)
+        want[:hi - lo, :blk.shape[0]] = np.asarray(blk, np.float32).T
+        np.testing.assert_array_equal(bands[b], want)
+    x = _x(np.random.default_rng(12), t_op.n_in, 40, batch=(2,))
+    want = np.asarray(j_op.row_apply(jnp.asarray(x)))
+    got = banded_row_apply_reference(pack, torch.from_numpy(x)).numpy()
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, atol=ATOL)
 
 
 def test_packs_are_built_on_first_use_only():

@@ -5,7 +5,9 @@ Needs an NVIDIA card with the CUDA toolkit (``nvcc``); skips without one.
 Run on the card with ``python -m pytest --noconftest
 tests/test_torch_trunk_cuda.py -q``.  Shapes the 16 x 16 tile does not
 divide, 1-pixel-wide and 1-pixel-high images, a batch axis, both
-epilogues, ``res_scale`` 0.1, ``relu_only`` chains and a 16-block chain.
+epilogues, ``res_scale`` 0.1, 0.5 and 2, ``relu_only`` chains and a
+16-block chain; for the bf16 tensor-core kernel also tile counts that its
+persistent grid does not divide and an input view at an odd offset.
 
 Tolerances.  float32: the two differ only in the order of their f32 sums,
 ``<= 1e-4`` on values of order 1.  bfloat16: the same f32 sums, then a
@@ -150,3 +152,65 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     trunk.trunk_conv(_x((1, 4, 4), torch.bfloat16, "cpu"),
                      _pack(2, torch.bfloat16, "cpu"), 0)
     assert trunk.trunk_conv.launches_bf16 == before  # the plain version
+
+
+# The bf16 kernel's tiles (16 x 16 pixels) are walked by a persistent grid
+# of one CTA per SM: shapes whose rows and columns the tile does not divide,
+# 1-pixel rows and columns, batches of 1 and 9.
+RAGGED = [(1, 1, 255), (9, 17, 1), (1, 255, 17), (9, 17, 255), (1, 1, 1),
+          (9, 255, 1)]
+
+
+@pytest.mark.parametrize("res_scale", [0.5, 2.0])
+@pytest.mark.parametrize("shape", RAGGED, ids=lambda s: "x".join(map(str, s)))
+def test_bf16_tensor_cores_at_ragged_shapes(cuda, shape, res_scale):
+    """Both epilogues, each judged alone, within one bf16 ulp of the larger
+    magnitude plus 1e-4 (two more ulps on the residual launch): the kernel
+    and the plain version sum the same exact products in f32 in another
+    order, then round to bf16."""
+    pack = _pack(2, torch.bfloat16, cuda, seed=6)
+    x = _x(shape, torch.bfloat16, cuda, seed=7)
+    t = trunk.trunk_conv(x, pack, 0)
+    t_want = trunk.trunk_conv_reference(x, pack, 0)
+    y = trunk.trunk_conv(t_want, pack, 1, skip=x, res_scale=res_scale)
+    y_want = trunk.trunk_conv_reference(t_want, pack, 1, skip=x,
+                                        res_scale=res_scale)
+    torch.cuda.synchronize()
+    assert t.shape == y.shape == x.shape
+    assert _within(t, t_want)
+    assert _within(y, y_want, skip=x)
+
+
+@pytest.mark.parametrize("extra", [1, 5])
+def test_bf16_tile_count_not_a_multiple_of_the_grid(cuda, extra):
+    """sms + extra and 2 * sms + extra tiles: some CTAs of the persistent
+    grid take one tile more than others, and stage a next tile that other
+    CTAs never have."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    pack = _pack(2, torch.bfloat16, cuda, seed=8)
+    for tiles in (sms + extra, 2 * sms + extra):
+        x = _x((1, 16, 16 * tiles - 3), torch.bfloat16, cuda, seed=tiles)
+        for skip in (None, x):
+            inp = trunk.trunk_conv_reference(x, pack, 0) if skip is not None \
+                else x
+            got = trunk.trunk_conv(inp, pack, int(skip is not None),
+                                   skip=skip, res_scale=0.25)
+            want = trunk.trunk_conv_reference(inp, pack,
+                                              int(skip is not None),
+                                              skip=skip, res_scale=0.25)
+            torch.cuda.synchronize()
+            assert _within(got, want, skip=skip)
+
+
+def test_bf16_input_at_an_odd_offset_is_realigned(cuda):
+    """A view that starts 2 bytes into its storage is copied to an aligned
+    buffer before the kernel's 16-byte loads; the result is the same."""
+    pack = _pack(2, torch.bfloat16, cuda, seed=9)
+    x = _x((1, 9, 11), torch.bfloat16, cuda, seed=10)
+    flat = torch.empty(x.numel() + 1, dtype=torch.bfloat16, device=cuda)
+    view = flat[1:].view(x.shape)
+    view.copy_(x)
+    assert view.data_ptr() % 16 != 0
+    got = trunk.trunk_conv(view, pack, 0)
+    torch.cuda.synchronize()
+    assert torch.equal(got, trunk.trunk_conv(x, pack, 0))
