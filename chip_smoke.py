@@ -28,10 +28,12 @@ or of the JAX package.  Phases, one JSON line each:
    (back-projection update) against their plain versions at the full-size
    mono pack and the 4-rep rgb pack, float32 and bfloat16 bands;
    max|diff| <= 1e-3 for f32 and <= 2.0 for bf16 (a bf16 row product that
-   rounds the other way moves by one ulp, 1.0 at 128..255); with the
-   kernel's, the plain version's and the unfused step's (K1 + the column
-   applies) times and the bound.  No single PyTorch call computes K2 or
-   K3, so they have no library time.
+   rounds the other way moves by one ulp, 1.0 at 128..255), and the share
+   of elements that differ from the plain version at all; with the
+   kernel's time (per call, and on the device alone as for K1), the plain
+   version's and the unfused step's (K1 + the column applies) times and the
+   bound.  No single PyTorch call computes K2 or K3, so they have no
+   library time.
 4. mono_cal_target at full size -- a synthetic center+4 session (5 x
    1536x2048 -> 3072x4096, 80 IBP iterations) through ``sr.run`` on cuda,
    f32: artifacts, falling MSE, K1's launches against the count the solve's
@@ -442,7 +444,8 @@ def phase_fused(torch, f32_peak, host):
                          pack, hr, want_err, step / n, (0.0, 255.0)),
                      lambda: _unfused_bwd(torch, ops, hr, want_err.float(),
                                           step))):
-                diff = (got.float() - want.float()).abs().max().item()
+                d = (got.float() - want.float()).abs()
+                diff = d.max().item()
                 name = f"{kernel}_{layout}_{str(dtype)[6:]}"
                 check(bool(torch.isfinite(got.float()).all()),
                       f"{name}: non-finite output")
@@ -456,7 +459,10 @@ def phase_fused(torch, f32_peak, host):
                        "bandr": list(getattr(pack, kernel[6] + "_bandr").shape),
                        "bandc": list(getattr(pack, kernel[6] + "_bandc").shape),
                        "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
-                       "max_abs_err": diff, "kernel_ms": kernel_ms,
+                       "max_abs_err": diff,
+                       "share_differing": (d > 0).float().mean().item(),
+                       "kernel_ms": kernel_ms,
+                       "kernel_device_ms": device_ms(torch, fn, 20),
                        "plain_ms": time_ms(torch, plain, 3),
                        "unfused_ms": time_ms(torch, unfused, 5),
                        "library_ms": None, **_bound(flops, nbytes, peak),

@@ -1,5 +1,6 @@
 // Device helpers shared by the hand-written Hopper kernels (sm_90a) that run
-// bfloat16 products on the tensor cores (trunk.cu, banded_rows.cu):
+// bfloat16 products on the tensor cores (trunk.cu, banded_rows.cu,
+// fused_ibp.cu):
 // asynchronous global -> shared copies (cp.async), ldmatrix fragment loads
 // and the warp-wide mma.sync m16n8k16 product, bf16 x bf16 summed in f32.
 //

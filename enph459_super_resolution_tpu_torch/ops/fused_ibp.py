@@ -9,7 +9,9 @@ kernels of ``csrc/fused_ibp.cu``.  This module holds
   pack straight from the :class:`~.opmatrix.BandedOp` block decompositions
   (no dense frame matrices): uniform row blocks and column tiles of
   ``ROWS`` / ``COLS`` outputs, each with its own input window, trimmed to
-  the nonzero columns and padded to ``WIN_ALIGN``;
+  the nonzero columns and padded to ``WIN_ALIGN``; column windows start at
+  multiples of ``WIN_ALIGN`` (16 bytes of bf16) wherever the input's width
+  allows, so the kernels stage them with 16-byte copies;
 * :class:`FusedIBP` (``build``, ``fwd_err``, ``bwd_update``,
   ``astype_bands``) and :func:`fused_eligible`;
 * the wrappers :func:`fused_fwd_err` / :func:`fused_bwd_update`, which
@@ -55,7 +57,7 @@ SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _PACK = [_I, _P, _P, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I, _P, _I, _P]
 _FWD_ARGTYPES = _PACK + [_P, _I, _I, _P, _P, _I, _I, _I, _P]
-_BWD_ARGTYPES = _PACK + [_P, _I, _I, _P, _P, _I, _I, _F, _F, _F, _P]
+_BWD_ARGTYPES = _PACK + [_P, _I, _I, _I, _P, _P, _I, _I, _F, _F, _F, _P]
 
 
 def _round_up(x: int, m: int) -> int:
@@ -115,17 +117,20 @@ def _sub_blocks(op, size: int):
     return out
 
 
-def _pack_group(ops: Sequence, size: int) -> Tuple[np.ndarray, np.ndarray]:
+def _pack_group(ops: Sequence, size: int,
+                start_align: int = 1) -> Tuple[np.ndarray, np.ndarray]:
     """Pack same-shaped operators onto one window grid of ``size``-output
     blocks: ``(starts[n] int32, bands[n, n_ops, size, win] float32)`` with
     ``op_k @ x`` block ``i`` = ``bands[i, k] @ x[starts[i]:starts[i]+win]``.
     The window is the widest union of the ops' nonzero columns over the
-    blocks, padded to ``WIN_ALIGN``; a start is moved back where the window
-    would run past the input."""
+    blocks, each union first moved back to a multiple of ``start_align``,
+    padded to ``WIN_ALIGN``; a start is moved back where the window would
+    run past the input."""
     subs = [_sub_blocks(op, size) for op in ops]
     n_in = ops[0].n_in
     n = len(subs[0])
-    los = [min(s[i][0] for s in subs) for i in range(n)]
+    los = [min(s[i][0] for s in subs) // start_align * start_align
+           for i in range(n)]
     his = [max(s[i][1] for s in subs) for i in range(n)]
     win = _round_up(max(h - lo for h, lo in zip(his, los)), WIN_ALIGN)
     starts = np.asarray([max(0, min(lo, n_in - win)) for lo in los],
@@ -205,9 +210,9 @@ class FusedIBP:
         f_groups = sorted({u for _, u, _ in f_entries})
 
         f_sr, f_bandr = _pack_group(fr_u, block)
-        f_sc, f_bandc = _pack_group(fc_u, tile)
+        f_sc, f_bandc = _pack_group(fc_u, tile, WIN_ALIGN)
         b_sr, b_bandr = _pack_group(br_u, block)
-        b_sc, b_bandc = _pack_group(bc_u, tile)
+        b_sc, b_bandc = _pack_group(bc_u, tile, WIN_ALIGN)
         host = {"f_sr": f_sr, "f_sc": f_sc, "f_bandr": f_bandr,
                 "f_bandc": f_bandc.transpose(0, 1, 3, 2),
                 "b_sr": b_sr, "b_sc": b_sc, "b_bandr": b_bandr,
@@ -355,6 +360,27 @@ def fused_bwd_update_reference(pack: FusedIBP, hr: torch.Tensor,
     return torch.clamp(out, float(clip[0]), float(clip[1]))
 
 
+def _smem_bytes(band_dtype: torch.dtype, win_r: int, n_c: int, n_src: int,
+                f32_src: bool) -> int:
+    """The least dynamic shared memory one CUDA block needs (``smem_bytes``
+    and ``layout`` in csrc/fused_ibp.cu).  float32 bands: the row operator's
+    block, an input chunk, a row-product chunk and a column-operator chunk,
+    all f32.  bfloat16 bands: one row operator's block resident (the kernel
+    keeps as many as fit and walks the window once per set), rows padded to
+    16 plus 8 elements, and a ring of stages, each an input chunk and a
+    column-operator chunk: K2 two stages, its f32 hr chunk rounded into one
+    more bf16 buffer; K3 three, one bf16 chunk per frame, each stage at
+    least the 16 KB through which its two warp sets add their sums."""
+    if band_dtype == torch.float32:
+        return 4 * (win_r * (ROWS + 4) + win_r * 32 + 32 * (ROWS + 4)
+                    + 32 * COLS)
+    kr = _round_up(win_r, 16)
+    bc = 2 * n_c * 16 * (COLS + 8)
+    if f32_src:
+        return 2 * ROWS * (kr + 8) + 2 * kr * 24 + 2 * (4 * kr * 16 + bc)
+    return 2 * ROWS * (kr + 8) + 3 * max(2 * n_src * kr * 24 + bc, 16384)
+
+
 def _pack_args(pack: FusedIBP, prefix: str, kind: str) -> list:
     sr, sc = getattr(pack, prefix + "_sr"), getattr(pack, prefix + "_sc")
     bandr = getattr(pack, prefix + "_bandr")
@@ -364,7 +390,8 @@ def _pack_args(pack: FusedIBP, prefix: str, kind: str) -> list:
     if blk % ROWS or tile % COLS:
         raise ValueError(f"row block {blk} / column tile {tile} is no "
                          f"multiple of {ROWS} / {COLS}")
-    smem = 4 * (win_r * (ROWS + 4) + win_r * 32 + 32 * (ROWS + 4) + 32 * COLS)
+    smem = _smem_bytes(bandr.dtype, win_r, n_c,
+                       1 if kind == "fwd" else pack.n_frames, kind == "fwd")
     if smem > SMEM_LIMIT:
         raise ValueError(f"row window {win_r} needs {smem} B of shared "
                          f"memory, more than {SMEM_LIMIT}")
@@ -435,7 +462,8 @@ def fused_bwd_update(pack: FusedIBP, hr: torch.Tensor,
     hr, err_stack = hr.contiguous(), err_stack.contiguous()
     out = torch.empty_like(hr)
     h, w = pack.lr_shape
-    rc = launch(*_pack_args(pack, "b", "bwd"), err_stack.data_ptr(), h, w,
+    rc = launch(*_pack_args(pack, "b", "bwd"), err_stack.data_ptr(),
+                pack.n_frames, h, w,
                 hr.data_ptr(), out.data_ptr(), pack.hr_shape[0],
                 pack.hr_shape[1], float(scale), float(clip[0]),
                 float(clip[1]),

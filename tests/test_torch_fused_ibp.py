@@ -162,6 +162,55 @@ def test_pack_matches_banded_engine(layout, lr_shape, block, tile):
     assert (got - want).abs().max().item() <= 1e-3
 
 
+@pytest.mark.parametrize("lr_shape, reps", [((128, 256), 1), ((96, 200), 1),
+                                             ((64, 128), 3)])
+def test_pack_columns_start_aligned(lr_shape, reps):
+    """The port's pack starts every column window at a multiple of
+    ``WIN_ALIGN`` elements (16 bytes of bf16, so the kernels stage rows with
+    16-byte copies), pads every window to ``WIN_ALIGN`` and keeps it inside
+    the input, and still holds every band entry of the operators."""
+    psf = JC.make_gaussian_psf()
+    frames = TC._host_solve_matrices(psf, SHIFTS, FACTOR, lr_shape,
+                                     reps=reps)["frames"]
+    pack = TF.FusedIBP.build(frames, "cpu")
+    h, w = lr_shape
+    for starts, bandc, n_in, ops in (
+            (pack.f_sc, pack.f_bandc, w * FACTOR, [fr[1][0] for fr in frames]),
+            (pack.b_sc, pack.b_bandc, w, [fr[3][0] for fr in frames])):
+        win = bandc.shape[-2]
+        assert win % TF.WIN_ALIGN == 0
+        assert bool((starts % TF.WIN_ALIGN == 0).all())
+        assert bool((starts >= 0).all()) and int(starts.max()) + win <= n_in
+        # the packed column operators sum to the operators' own band mass
+        uniq, _ = TF._dedup(ops)
+        mass = sum(float(np.abs(b).sum()) for op in uniq for b in op.blocks)
+        assert float(bandc.abs().sum()) == pytest.approx(mass, rel=1e-5)
+
+
+def test_bf16_kernels_fit_two_blocks_per_sm_at_the_solve_packs():
+    """The shared memory the bf16 kernels need at the mono and 4-rep rgb
+    packs, with every row operator resident, leaves room for two CUDA
+    blocks per SM (228 KB, 1 KB reserved per block)."""
+    from enph459_super_resolution_tpu_torch.data.sessions import (
+        CENTER_SHIFT_FILES, CORNER_SHIFTS_LR)
+
+    psf = JC.make_gaussian_psf()
+    mono = tuple(s for _, s in CENTER_SHIFT_FILES)
+    for shifts, lr_shape, reps in ((mono, (1536, 2048), 1),
+                                   (CORNER_SHIFTS_LR, (768, 1024), 4)):
+        frames = TC._host_solve_matrices(psf, shifts, FACTOR, lr_shape,
+                                         reps=reps)["frames"]
+        pack = TF.FusedIBP.build(frames, "cpu")
+        for prefix, n_src in (("f", 1), ("b", pack.n_frames)):
+            _, n_u, _, win_r = getattr(pack, prefix + "_bandr").shape
+            n_c = getattr(pack, prefix + "_bandc").shape[1]
+            one = TF._smem_bytes(torch.bfloat16, win_r, n_c, n_src,
+                                 prefix == "f")
+            every = one + (n_u - 1) * 2 * TF.ROWS * (
+                -(-win_r // 16) * 16 + 8)
+            assert every + 1024 <= 228 * 1024 // 2, (prefix, every)
+
+
 def test_dedup_matches_jax_terms():
     """Operators equal by content pack once: the center+4 shifts need three
     row and three column operators, as in the JAX pack."""

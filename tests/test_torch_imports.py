@@ -149,7 +149,8 @@ def test_every_kernel_entry_point_is_in_its_source():
 
 def test_a_shared_header_edit_rebuilds_every_kernel(tmp_path, monkeypatch):
     """The build key of each kernel covers the headers under ``csrc/``
-    (``mma_bf16.cuh`` is included by trunk.cu and banded_rows.cu): an edited
+    (``mma_bf16.cuh`` is included by trunk.cu, banded_rows.cu and
+    fused_ibp.cu): an edited
     header never loads a library built from the old one."""
     import shutil
 
@@ -161,7 +162,7 @@ def test_a_shared_header_edit_rebuilds_every_kernel(tmp_path, monkeypatch):
     names = _build.kernel_names()
     before = {n: _build.library_path(n) for n in names}
     assert (csrc / "mma_bf16.cuh").exists()
-    for user in ("trunk", "banded_rows"):
+    for user in ("trunk", "banded_rows", "fused_ibp"):
         assert '#include "mma_bf16.cuh"' in (csrc / f"{user}.cu").read_text()
     header = csrc / "mma_bf16.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
