@@ -14,10 +14,13 @@ or of the JAX package.  Phases, one JSON line each:
    the card at every shape the runs below give it (``zoom_r``, ``saa_r``,
    ``fwd_r``, ``bwd_r`` at LR 1536x2048, and the 4-rep tiled ``zoom_r``,
    ``saa_r``, ``fwd_r``, ``bwd_r`` at LR 768x1024), float32 bands, and its
-   bfloat16-band instantiation at the full-size ``zoom_r``, ``saa_r``,
-   ``fwd_r`` and ``bwd_r``;
-   inputs uniform in [0, 255), max|diff| <= 1e-3 (bf16 bands: the products
-   are exact and x rounds in both, so only the summation order differs);
+   bfloat16-band and split (X3: ``mm_precision`` BF16_BF16_F32_X3)
+   instantiations at the full-size ``zoom_r``, ``saa_r``, ``fwd_r`` and
+   ``bwd_r``;
+   inputs uniform in [0, 255), max|diff| <= 1e-3 (bf16 and split bands: the
+   products are exact and x rounds or splits alike in both, so only the
+   summation order differs; the split's max|diff| is also given as a share
+   of sum_k |b_k| |x_k|);
    with the kernel's, the plain version's and a dense ``torch.matmul``'s
    times and the card's bound for the same work.  The kernel's time is
    taken twice (CUDA events both): per call over calls launched one after
@@ -75,6 +78,27 @@ or of the JAX package.  Phases, one JSON line each:
 11. tiled -- one 4K frame, LR 540x960x3 -> 2160x3840, through
    ``tiled_infer`` on the EDSR-16 module, against its whole-image forward
    (<= 5e-3).  It runs no hand-written kernel.
+12. precision -- warm mono solves at ``mm_precision`` BF16_BF16_F32_X3 and
+   DEFAULT (f32 store) and hybrid:16 at X3: launches (X3: K1-x3 807, K1-f32
+   0; DEFAULT: K1-bf16 807; hybrid:16 X3: K1-bf16 640 + K1-x3 167),
+   ``SAA_IBP`` within +-1 (X3) and +-3 (DEFAULT) of HIGHEST's, solve time
+   and HR Mpix/s beside HIGHEST's; one profiled X3 solve.
+13. adjoint -- ``sr.run --solver adjoint`` on the mono session (20
+   iterations, step 2.0): K1-f32 207 launches, a descending MSE history
+   whose last value is <= 1.02 x the IBP-80 solve's, and its warm solve
+   time; ``landweber_refine`` from the SAA seed (20 iterations: K1-f32 205
+   launches, a falling fit, within +-1 of its plain-rows run); then
+   ``solve`` with a
+   rank-2 PSF, adjoint (407 launches, within +-1 of the plain-rows solve),
+   and ibp on the fused bf16 engine (within +-2 of its plain version).
+14. conv -- ``solve(engine="conv")`` of the mono session (80 iterations):
+   ``SAA_IBP`` within +-1 of the banded engine's, no K1/K2/K3 launch, its
+   time.
+15. prewarm and watch -- ``sr.prewarm --workloads mono_cal_target --reps 1``
+   in a subprocess, into a fresh op cache, exits 0; ``sr.run`` with the
+   process's operator trees dropped and the host build forbidden then reads
+   that cache; ``sr.run --watch 0.1 --watch-polls 2`` serves the session
+   on the first poll and nothing on the second.
 
 Then the ``kernels`` summary line, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -179,6 +203,7 @@ def _counters():
 
     return {"k1_f32": (banded_row_apply, "launches"),
             "k1_bf16": (banded_row_apply, "launches_bf16"),
+            "k1_x3": (banded_row_apply, "launches_x3"),
             "k2_f32": (fused_fwd_err, "launches"),
             "k2_bf16": (fused_fwd_err, "launches_bf16"),
             "k3_f32": (fused_bwd_update, "launches"),
@@ -197,13 +222,16 @@ def read_counts() -> dict:
 
 
 def expected_launches(band_store: str, fused: bool, rank: int, n: int,
-                      n_iter: int) -> dict:
+                      n_iter: int, precision: str = "k1_f32") -> dict:
     """Launches of one (batched) solve by kernel: the LR-mean zoom and the
     stack zoom (one batched launch), one Shift-and-Add row apply per frame
     (on the bf16 bands only for ``bf16``), then per IBP iteration either one
     K2 and one K3 launch (fused engine) or, per frame and PSF rank term, one
-    forward and one back-projection row apply (banded engine).  ``hybrid``
-    runs its last ``TAIL`` iterations banded on the f32 bands."""
+    forward and one back-projection row apply (banded engine; the same for
+    the adjoint solver).  ``hybrid`` runs its last ``TAIL`` iterations
+    banded on the f32 bands.  ``precision`` is the K1 instantiation the f32
+    bands' applies take: ``k1_f32`` (HIGHEST), ``k1_x3`` (X3) or
+    ``k1_bf16`` (DEFAULT)."""
     out = dict.fromkeys(_counters(), 0)
     low = "bf16" if band_store in ("bf16", "hybrid") else "f32"
     out["k1_bf16" if band_store == "bf16" else "k1_f32"] += 2 + n
@@ -214,6 +242,9 @@ def expected_launches(band_store: str, fused: bool, rank: int, n: int,
     else:
         out[f"k1_{low}"] += n_lo * n * 2 * rank
     out["k1_f32"] += (n_iter - n_lo) * n * 2 * rank
+    if precision != "k1_f32":
+        out[precision] += out.pop("k1_f32")
+        out["k1_f32"] = 0
     return out
 
 
@@ -280,10 +311,14 @@ def host_operators():
                                          (768, 1024), reps=4)}
 
 
+def _band_name(dtype) -> str:
+    return dtype if isinstance(dtype, str) else str(dtype)[6:]
+
+
 def phase_kernel(torch, f32_peak, host):
     """K1 against its plain version at the main path's shapes."""
     from enph459_super_resolution_tpu_torch.ops.banded_rows import (
-        banded_row_apply, banded_row_apply_reference)
+        X3, banded_row_apply, banded_row_apply_reference, pack_banded)
 
     dev = torch.device("cuda")
     full, tiled = host["mono"], host["rgb4"]
@@ -310,6 +345,11 @@ def phase_kernel(torch, f32_peak, host):
         "saa_r_bf16": (full["saa"][1][0], 1, 4096, bf16),
         "fwd_r_bf16": (full["frames"][1][0][0], 1, 4096, bf16),
         "bwd_r_bf16": (full["frames"][1][2][0], 1, 2048, bf16),
+        # mm_precision BF16_BF16_F32_X3: every f32-band row apply split
+        "zoom_r_x3": (full["zoom_r"], 5, 2048, X3),
+        "saa_r_x3": (full["saa"][1][0], 1, 4096, X3),
+        "fwd_r_x3": (full["frames"][1][0][0], 1, 4096, X3),
+        "bwd_r_x3": (full["frames"][1][2][0], 1, 2048, X3),
     }
     rng = np.random.default_rng(SEED)
     rows = []
@@ -325,10 +365,19 @@ def phase_kernel(torch, f32_peak, host):
         check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
         check(err <= KERNEL_ATOL, f"{name}: max|kernel - plain| {err} > "
                                   f"{KERNEL_ATOL}")
+        # the error as a share of sum_k |b_k| |x_k| per output
+        absolute = pack_banded([np.abs(b) for b in host_op.blocks],
+                               host_op.col_ranges, op.n_out, op.n_in, dev)
+        scale = banded_row_apply_reference(absolute, x)
+        rel_err = ((got - want).abs() / scale.clamp_min(1e-30)).max().item()
+        del absolute, scale
         # the library yardstick: one dense matmul of the same function (for
-        # bf16 bands, of the bf16-rounded operator and input, in f32)
-        dense = torch.as_tensor(_dense(host_op), device=dev).to(dtype).float()
-        x_lib = x.to(dtype).float()
+        # bf16 bands, of the bf16-rounded operator and input, in f32; for
+        # the split, of the f32 operator, TF32 off)
+        lib_dtype = f32 if dtype == X3 else dtype
+        dense = torch.as_tensor(_dense(host_op), device=dev).to(
+            lib_dtype).float()
+        x_lib = x.to(lib_dtype).float()
         kernel_ms = time_ms(torch, lambda: banded_row_apply(pack, x), 20)
         kernel_device_ms = device_ms(
             torch, lambda: banded_row_apply(pack, x), 20)
@@ -338,18 +387,21 @@ def phase_kernel(torch, f32_peak, host):
         flops = 2.0 * _true_window(host_op) * width * batch
         nbytes = (4.0 * (x.numel() + batch * op.n_out * width
                          + pack.meta.numel())
-                  + pack.bands.numel() * pack.bands.element_size())
-        row = {"phase": "kernel", "op": name, "bands": str(dtype)[6:],
+                  + pack.bands.numel() * pack.bands.element_size()
+                  * (2 if dtype == X3 else 1))
+        # the split does three bf16 products of the f32 apply's work
+        ops = flops * (3 if dtype == X3 else 1)
+        row = {"phase": "kernel", "op": name, "bands": _band_name(dtype),
                "x": [batch, op.n_in, width], "out_rows": op.n_out,
                "blocks": len(host_op.blocks),
                "true_window": max(hi - lo for lo, hi in host_op.col_ranges),
                "packed_window": int(pack.bands.shape[1]),
-               "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
-               "max_abs_err": err, "kernel_ms": kernel_ms,
-               "kernel_device_ms": kernel_device_ms,
+               "gflop": ops / 1e9, "mbytes": nbytes / 1e6,
+               "max_abs_err": err, "max_rel_err": rel_err,
+               "kernel_ms": kernel_ms, "kernel_device_ms": kernel_device_ms,
                "plain_ms": plain_ms, "library_ms": library_ms,
-               **_bound(flops, nbytes, f32_peak if dtype == f32 else BF16_PEAK),
-               "kernel_tflops": flops / kernel_ms / 1e9}
+               **_bound(ops, nbytes, f32_peak if dtype == f32 else BF16_PEAK),
+               "kernel_tflops": ops / kernel_ms / 1e9}
         emit(row)
         rows.append(row)
         del dense, x, x_lib, got, want
@@ -1049,6 +1101,283 @@ def phase_tiled(torch, model):
     return row
 
 
+def _warm_solve(torch, **kw):
+    """Launch counts of one solve (counts zeroed just before it), then the
+    median wall time of three more warm runs: (result, launches, runs,
+    median seconds)."""
+    from enph459_super_resolution_tpu_torch.sr.classical import solve
+
+    reset_counts()
+    res = solve(device="cuda", **kw)
+    launches = read_counts()
+    runs = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solve(device="cuda", **kw)
+        runs.append(time.perf_counter() - t0)
+    return res, launches, runs, sorted(runs)[1]
+
+
+def phase_precision(torch, mono, modes):
+    """Warm mono solves at the split and one-pass bf16 precisions."""
+    from enph459_super_resolution_tpu_torch.sr.classical import solve
+
+    frames, psf, shifts = mono["frames"], mono["psf"], mono["shifts"]
+    n_iter = mono["cfg"].ibp_iterations
+    f32 = mono["f32"]
+    highest = modes[("f32", "off")]
+    cases = (("f32", "BF16_BF16_F32_X3", "k1_x3", 1),
+             ("f32", "DEFAULT", "k1_bf16", 3),
+             (f"hybrid:{TAIL}", "BF16_BF16_F32_X3", "k1_x3", 1))
+    out = {}
+    for store, precision, k1, tol in cases:
+        res, launches, runs, solve_s = _warm_solve(
+            torch, lr_stack=frames, psf=psf, shifts_yx=shifts,
+            band_store=store, mm_precision=precision)
+        expected = expected_launches(store.split(":")[0], False, _rank(psf),
+                                     5, n_iter, precision=k1)
+        name = f"{store} {precision}"
+        check(launches == expected,
+              f"{name}: launches {launches}, structure implies {expected}")
+        diff = _u8_diff(res["ibp"], f32["ibp"])
+        check(diff <= tol, f"{name}: SAA_IBP vs HIGHEST {diff} > {tol}")
+        row = {"phase": "precision", "band_store": store,
+               "mm_precision": precision, "launches": launches,
+               "launches_expected": expected,
+               "ibp_vs_highest_max_diff": diff,
+               "saa_vs_highest_max_diff": _u8_diff(res["saa"], f32["saa"]),
+               "mse_last": float(res["mse_history"][-1]),
+               "mse_last_highest": float(f32["mse_history"][-1]),
+               "solve_s_runs": runs, "solve_s": solve_s,
+               "hr_mpix_per_s": HR_MPIX / solve_s,
+               "highest_solve_s": highest["solve_s"],
+               "highest_hr_mpix_per_s": highest["hr_mpix_per_s"]}
+        if (store, precision) == ("f32", "BF16_BF16_F32_X3"):
+            busy_s, profiled_s = phase_profile(
+                torch, lambda: solve(frames, psf, shifts, device="cuda",
+                                     mm_precision=precision),
+                "one warm mono_cal_target solve, f32 store, "
+                "BF16_BF16_F32_X3")
+            row.update(profiled_solve_s=profiled_s, device_busy_s=busy_s,
+                       device_idle_share=1.0 - busy_s / profiled_s)
+        emit(row)
+        out[name] = row
+    return out
+
+
+def _rank2_psf():
+    """A 7x7 PSF of exactly two separable terms, as a measured PSF's SVD
+    keeps: a round Gaussian core plus an anisotropic halo."""
+    t = np.arange(-3, 4, dtype=np.float64)
+
+    def g(sigma):
+        return np.exp(-t * t / (2.0 * sigma * sigma))
+
+    psf = np.outer(g(1.0), g(1.0)) + 0.3 * np.outer(g(0.6), g(2.0))
+    return psf / psf.sum()
+
+
+def phase_adjoint(torch, mono):
+    """``sr.run --solver adjoint``, ``landweber_refine``, then rank-2 PSF
+    solves."""
+    from enph459_super_resolution_tpu_torch.data.io import load_gray
+    from enph459_super_resolution_tpu_torch.sr.classical import (
+        landweber_refine, solve)
+
+    cfg = mono["cfg"]
+    n_iter = max(1, round(cfg.ibp_iterations / 4))
+    out = WORK / "mono" / "results_adjoint"
+    run_s, launches = _sr_run("mono_cal_target", mono["data"], out,
+                              "--solver", "adjoint")
+    expected = expected_launches("f32", False, _rank(mono["psf"]), 5, n_iter)
+    check(launches == expected,
+          f"adjoint launches {launches}, structure implies {expected}")
+    metrics = _check_unit(out / "session0", cfg.lr_mean_name)
+    mse = np.asarray(metrics["mse_history"])
+    check(len(mse) == n_iter and bool((np.diff(mse) < 0).all()),
+          f"adjoint MSE history of {len(mse)} does not descend")
+    ibp80 = float(mono["f32"]["mse_history"][-1])
+    check(mse[-1] <= 1.02 * ibp80,
+          f"adjoint final MSE {mse[-1]} > 1.02 x IBP-80's {ibp80}")
+    ibp_png = load_gray(str(out / "session0" / "SAA_IBP.png"))
+    row = {"phase": "adjoint", "iterations": n_iter, "step": 2.0,
+           "launches": launches, "launches_expected": expected,
+           "mse_first": float(mse[0]), "mse_last": float(mse[-1]),
+           "mse_last_ibp80": ibp80, "sr_run_s": run_s,
+           "sr_run_solve_s": metrics["timings_s"]["solve"],
+           "ibp_vs_ibp80_max_diff": _u8_diff(ibp_png, mono["f32"]["ibp"])}
+
+    frames, shifts = mono["frames"], mono["shifts"]
+    res, launches, runs, solve_s = _warm_solve(
+        torch, lr_stack=frames, psf=mono["psf"], shifts_yx=shifts,
+        n_iter=n_iter, step=2.0, solver="adjoint")
+    check(launches == expected,
+          f"warm adjoint launches {launches}, implies {expected}")
+    row.update(solve_s_runs=runs, solve_s=solve_s,
+               hr_mpix_per_s=HR_MPIX / solve_s)
+
+    # landweber_refine from the SAA seed: per iteration a forward and a
+    # back-projection row apply per frame, then one forward per frame
+    seed = mono["f32"]["saa"]
+    reset_counts()
+    t0 = time.perf_counter()
+    hr, hist, final = landweber_refine(seed, frames, mono["psf"], shifts,
+                                       n_iter=n_iter, device="cuda")
+    refine_s = time.perf_counter() - t0
+    launches = read_counts()
+    expected = expected_launches("f32", False, _rank(mono["psf"]), 5, n_iter)
+    expected["k1_f32"] -= 2  # no zoom of the LR mean or of the stack
+    check(launches == expected,
+          f"landweber_refine launches {launches}, implies {expected}")
+    check(hr.shape == seed.shape and bool(np.isfinite(hr).all()),
+          f"landweber_refine: shape {hr.shape} or non-finite values")
+    check(len(hist) == n_iter and final < hist[0],
+          f"landweber_refine MSE {hist[0]} -> {final} does not fall")
+    hr_plain, _, final_plain = landweber_refine(
+        seed, frames, mono["psf"], shifts, n_iter=n_iter, device="cuda",
+        plain=True)
+    diff = _u8_diff(hr, hr_plain)
+    check(diff <= 1, f"landweber_refine kernels vs plain {diff} > 1")
+    row.update(refine_launches=launches, refine_launches_expected=expected,
+               refine_mse_first=float(hist[0]), refine_final_mse=final,
+               refine_final_mse_plain=final_plain,
+               refine_vs_plain_max_diff=diff, refine_s=refine_s)
+
+    psf2 = _rank2_psf()
+    check(_rank(psf2) == 2, f"rank-2 PSF has rank {_rank(psf2)}")
+    res, launches, runs, solve_s = _warm_solve(
+        torch, lr_stack=frames, psf=psf2, shifts_yx=shifts, n_iter=n_iter,
+        step=2.0, solver="adjoint")
+    expected = expected_launches("f32", False, 2, 5, n_iter)
+    check(launches == expected,
+          f"rank-2 adjoint launches {launches}, implies {expected}")
+    hist = res["mse_history"]
+    check(bool((np.diff(hist) < 0).all()), "rank-2 adjoint does not descend")
+    plain = solve(frames, psf2, shifts, n_iter=n_iter, step=2.0,
+                  device="cuda", solver="adjoint", plain=True)
+    diff = _u8_diff(res["ibp"], plain["ibp"])
+    check(diff <= 1, f"rank-2 adjoint SAA_IBP kernels vs plain {diff} > 1")
+    row.update(rank2_adjoint_launches=launches,
+               rank2_adjoint_launches_expected=expected,
+               rank2_adjoint_vs_plain_max_diff=diff,
+               rank2_adjoint_mse_first=float(hist[0]),
+               rank2_adjoint_mse_last=float(hist[-1]),
+               rank2_adjoint_solve_s=solve_s)
+
+    res, launches, runs, solve_s = _warm_solve(
+        torch, lr_stack=frames, psf=psf2, shifts_yx=shifts,
+        band_store="bf16")
+    expected = expected_launches("bf16", True, 2, 5, cfg.ibp_iterations)
+    check(launches == expected,
+          f"rank-2 bf16 fused launches {launches}, implies {expected}")
+    plain = solve(frames, psf2, shifts, device="cuda", band_store="bf16",
+                  plain=True)
+    diff = _u8_diff(res["ibp"], plain["ibp"])
+    check(diff <= 2, f"rank-2 bf16 fused SAA_IBP kernels vs plain {diff} > 2")
+    row.update(rank2_fused_bf16_launches=launches,
+               rank2_fused_bf16_vs_plain_max_diff=diff,
+               rank2_fused_bf16_solve_s=solve_s)
+    emit(row)
+    return row
+
+
+def phase_conv(torch, mono):
+    """The conv engine at full size against the banded engine."""
+    frames, psf, shifts = mono["frames"], mono["psf"], mono["shifts"]
+    res, launches, runs, solve_s = _warm_solve(
+        torch, lr_stack=frames, psf=psf, shifts_yx=shifts, engine="conv")
+    check(all(v == 0 for v in launches.values()),
+          f"conv engine launched hand-written kernels: {launches}")
+    for k in ("lr_mean", "native", "saa", "ibp"):
+        check(bool(np.isfinite(res[k]).all()), f"conv {k}: non-finite")
+    diffs = {k: _u8_diff(res[k], mono["f32"][k])
+             for k in ("native", "saa", "ibp")}
+    check(diffs["ibp"] <= 1, f"conv SAA_IBP vs mm {diffs['ibp']} > 1")
+    row = {"phase": "conv", "ibp_iterations": mono["cfg"].ibp_iterations,
+           "launches": launches, "vs_mm_max_diff": diffs,
+           "mse_last": float(res["mse_history"][-1]),
+           "mse_last_mm": float(mono["f32"]["mse_history"][-1]),
+           "solve_s_runs": runs, "solve_s": solve_s,
+           "hr_mpix_per_s": HR_MPIX / solve_s}
+    emit(row)
+    return row
+
+
+def phase_prewarm_watch(torch, mono):
+    """``sr.prewarm`` in a subprocess fills a fresh op cache that ``sr.run``
+    then reads with the process's operator trees dropped and the host build
+    forbidden; ``sr.run --watch`` serves the session once over two
+    polls."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    from enph459_super_resolution_tpu_torch.data.io import load_gray
+    from enph459_super_resolution_tpu_torch.sr import classical
+
+    tmp = WORK / "prewarm_tmp"
+    tmp.mkdir(parents=True)
+    env = dict(os.environ, TMPDIR=str(tmp),
+               PYTHONPATH=os.pathsep.join(
+                   [str(REPO)] + [p for p in [os.environ.get("PYTHONPATH")]
+                                  if p]))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "enph459_super_resolution_tpu_torch.sr.prewarm",
+         "--workloads", "mono_cal_target", "--reps", "1"],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
+    prewarm_s = time.perf_counter() - t0
+    check(proc.returncode == 0,
+          f"sr.prewarm exited {proc.returncode}: {proc.stderr[-2000:]}")
+    saved = tempfile.tempdir
+    tempfile.tempdir = str(tmp)
+    try:
+        cache = Path(classical.op_cache_dir())
+        pickles = sorted(f.name for f in cache.glob("*.pkl"))
+        check(len(pickles) == 1, f"prewarm cache holds {pickles}")
+        classical._device_matrices.cache_clear()
+        host_build = classical._host_solve_matrices
+
+        def forbidden(*a, **k):
+            raise RuntimeError("check failed: the host build ran despite "
+                               "the prewarmed disk cache")
+
+        classical._host_solve_matrices = forbidden
+        warm = WORK / "mono" / "results_prewarmed"
+        try:
+            run_s, launches = _sr_run("mono_cal_target", mono["data"], warm)
+        finally:
+            classical._host_solve_matrices = host_build
+        check(launches == mono["launches"],
+              f"prewarmed sr.run launches {launches}")
+        diff = _u8_diff(load_gray(str(warm / "session0" / "SAA_IBP.png")),
+                        mono["f32"]["ibp"])
+        check(diff <= 1, f"sr.run from the prewarmed cache differs by {diff}")
+    finally:
+        tempfile.tempdir = saved
+
+    out = WORK / "mono" / "results_watch"
+    said = io.StringIO()
+    with contextlib.redirect_stdout(said):
+        watch_s, launches = _sr_run("mono_cal_target", mono["data"], out,
+                                    "--watch", "0.1", "--watch-polls", "2")
+    text = said.getvalue()
+    check("watch done: 1 unit(s) processed over 2 poll(s)" in text,
+          f"watch: {text[-500:]}")
+    check(launches == mono["launches"],
+          f"watch launches {launches}, one solve's are {mono['launches']}")
+    _check_unit(out / "session0", mono["cfg"].lr_mean_name)
+    row = {"phase": "prewarm_watch", "prewarm_s": prewarm_s,
+           "prewarm_out": proc.stdout.strip().splitlines()[-3:],
+           "cache_files": pickles, "prewarmed_sr_run_s": run_s,
+           "prewarmed_ibp_vs_f32_max_diff": diff,
+           "watch_s": watch_s, "watch_launches": launches}
+    emit(row)
+    return row
+
+
 def _summary(name, source, replaces, launches, rows, head, card):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -1090,6 +1419,10 @@ def main() -> int:
         edsr_model, edsr = phase_edsr(torch)
         phase_burst_lr(torch)
         phase_tiled(torch, edsr_model)
+        precision = phase_precision(torch, mono, modes)
+        phase_adjoint(torch, mono)
+        phase_conv(torch, mono)
+        phase_prewarm_watch(torch, mono)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 
@@ -1112,7 +1445,11 @@ def main() -> int:
                  card),
         _summary("banded_rows_bf16", k1_src, k1_tpu, bf16_launches["k1_bf16"],
                  k1("bfloat16"),
-                 next(r for r in k1_rows if r["op"] == "fwd_r_bf16"), card)]
+                 next(r for r in k1_rows if r["op"] == "fwd_r_bf16"), card),
+        _summary("banded_rows_x3", k1_src, k1_tpu,
+                 precision["f32 BF16_BF16_F32_X3"]["launches"]["k1_x3"],
+                 k1("x3"), next(r for r in k1_rows if r["op"] == "fwd_r_x3"),
+                 card)]
     for kernel, line, key in (("fused_fwd", 237, "k2"),
                               ("fused_bwd", 264, "k3")):
         for dtype, launches in (("float32", f32_fused[f"{key}_f32"]),

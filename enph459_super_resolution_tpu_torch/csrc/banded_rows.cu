@@ -3,8 +3,10 @@
 //   out[z, row0_b + r, w] = sum_k bands[b, k, r] * x[z, start_b + k, w]
 //   for r < rows_b, k < win, start_b + k < n_in.
 //
-// Two instantiations of one template: float32 bands (strict f32, the
-// default band store) and bfloat16 bands (the bf16 band store).
+// Three instantiations of one template: float32 bands (strict f32, the
+// default band store), bfloat16 bands (the bf16 band store, and float32
+// bands at mm_precision DEFAULT) and float32 bands split into bf16 halves
+// (mm_precision HIGH / BF16_BF16_F32_X3).
 //
 // * float32 bands: f32 FMA on the CUDA cores -- no tensor cores, no TF32
 //   and no 3xTF32, which the strict mode's parity contract forbids.
@@ -14,7 +16,13 @@
 //   preferred_element_type=float32 does (opmatrix.py BandedOp.row_apply);
 //   the band is exact as stored.  Products of two bf16 values are exact, so
 //   only the order of the f32 sum differs from the plain version.
-// Both write float32.
+// * split (X3): the float32 bands come pre-split as two bf16 arrays, hi =
+//   bf16(b) and lo = bf16(b - hi), each in the k-major layout (together the
+//   bytes of the f32 bands); x is split the same way in registers, and each
+//   k16 step issues three mma.sync into one f32 accumulator: hi*hi, hi*lo
+//   and lo*hi.  The dropped lo*lo term and x's bits past its two halves are
+//   ~2^-16 of |b|*|x| per product: the 3-pass split XLA runs for HIGH.
+// All three write float32.
 //
 // Replaces the TPU kernel enph459_super_resolution_tpu/ops/pallas_kernels.py
 // `_row_kernel` (launched by `_banded_row_pallas`) and the reference's bf16
@@ -29,7 +37,8 @@
 // ~43 FLOP/B.  On the float32 CUDA cores it is bound by operations, at
 // SMs x 128 FMA/clk x 2 x SM clock (~67 TFLOP/s on an H100 SXM at 700 W):
 // 0.055 ms.  With bf16 bands on the tensor cores (989 TFLOP/s) it is bound
-// by bytes: 0.023 ms.
+// by bytes: 0.023 ms.  The split runs three bf16 products of the same work
+// (0.011 ms of tensor-core time) over the same bytes: 0.023 ms, bytes.
 //
 // Design.  What the TPU kernel spent its code on (HBM-pinned operands,
 // scalar-prefetched window starts, hand double-buffered DMA, 8-aligned
@@ -52,6 +61,9 @@
 //   ldmatrix.trans (row stride 272 B: the 8 rows of one matrix fall in
 //   distinct banks); B is read from the f32 x chunk (row stride 132 floats:
 //   conflict-free) and rounded to bf16 pairs in registers.
+// * split: as bfloat16, with a hi and a lo band chunk in each stage and x
+//   split into hi and lo pairs; per m16 tile the A fragments of hi, then of
+//   lo, each over the warp's four n8 tiles.
 // The ragged edges are masked (columns >= W, window rows >= n_in, rows >=
 // rows_b), so every shape runs on the kernel.  Compile without
 // --use_fast_math.
@@ -72,28 +84,57 @@ constexpr int THREADS = 256;
 constexpr int XS = BN + 4;    // row stride of a staged x chunk, in floats
 constexpr int MAX_GRID_Z = 65535;
 
-// Shared-memory layout of one stage for a band type: the band chunk
-// [BK][AS] (k-major) and the x chunk [BK][XS] float32.
-template <typename BandT>
+// The split instantiation's tag: float32 bands stored as bf16 hi and lo.
+struct Split {};
+
+// Shared-memory layout of one stage for a band kind: PARTS band chunks
+// [BK][AS] of Elem (k-major) and the x chunk [BK][XS] float32.
+template <typename Kind>
 struct Stage;
 template <>
 struct Stage<float> {
+  using Elem = float;
+  static constexpr int PARTS = 1;
   static constexpr int AS = BM;  // float4 reads of 8 rows: no padding needed
   static constexpr int MIN_BLOCKS = 1;
 };
 template <>
 struct Stage<__nv_bfloat16> {
+  using Elem = __nv_bfloat16;
+  static constexpr int PARTS = 1;
   static constexpr int AS = BM + 8;  // 272-byte rows for ldmatrix.trans
   static constexpr int MIN_BLOCKS = 2;
 };
+template <>
+struct Stage<Split> {
+  using Elem = __nv_bfloat16;
+  static constexpr int PARTS = 2;  // hi, then lo
+  static constexpr int AS = BM + 8;
+  static constexpr int MIN_BLOCKS = 2;
+};
 
-template <typename BandT>
-__host__ __device__ constexpr int a_bytes() {
-  return BK * Stage<BandT>::AS * static_cast<int>(sizeof(BandT));
+template <typename Kind>
+__host__ __device__ constexpr int part_bytes() {
+  return BK * Stage<Kind>::AS *
+         static_cast<int>(sizeof(typename Stage<Kind>::Elem));
 }
-template <typename BandT>
+template <typename Kind>
+__host__ __device__ constexpr int a_bytes() {
+  return Stage<Kind>::PARTS * part_bytes<Kind>();
+}
+template <typename Kind>
 __host__ __device__ constexpr int stage_bytes() {
-  return a_bytes<BandT>() + BK * XS * 4;
+  return a_bytes<Kind>() + BK * XS * 4;
+}
+
+// Two floats split into bf16 pairs, `a` in the low halves: hi = bf16(v)
+// and lo = bf16(v - hi), both nearest even (v - hi is exact in f32).
+__device__ __forceinline__ void split_bf16x2(float a, float b, uint32_t& hi,
+                                             uint32_t& lo) {
+  using namespace mma_bf16;
+  hi = pack_bf16x2(a, b);
+  const float2 h = unpack_bf16x2(hi);
+  lo = pack_bf16x2(a - h.x, b - h.y);
 }
 
 struct Block {
@@ -101,25 +142,32 @@ struct Block {
   int start, w0, n_in, W;
 };
 
-// cp.async window chunk `kc` of the band and of x into one ring stage.
-template <typename BandT, bool kVec>
-__device__ __forceinline__ void load_chunk(char* stage,
-                                           const BandT* __restrict__ band,
-                                           const Block& bl, int kc, int tid) {
+// cp.async window chunk `kc` of the band (of both halves for the split) and
+// of x into one ring stage.
+template <typename Kind, bool kVec>
+__device__ __forceinline__ void load_chunk(
+    char* stage, const typename Stage<Kind>::Elem* __restrict__ band,
+    const typename Stage<Kind>::Elem* __restrict__ band_lo, const Block& bl,
+    int kc, int tid) {
   using namespace mma_bf16;
-  constexpr int PER16 = 16 / static_cast<int>(sizeof(BandT));
+  using Elem = typename Stage<Kind>::Elem;
+  constexpr int PER16 = 16 / static_cast<int>(sizeof(Elem));
   constexpr int PIECES = BK * BM / PER16;
-  constexpr int AS = Stage<BandT>::AS;
-  const BandT* src = band + static_cast<size_t>(kc) * BK * BM;
-  BandT* as = reinterpret_cast<BandT*>(stage);
+  constexpr int AS = Stage<Kind>::AS;
 #pragma unroll
-  for (int i = 0; i < PIECES / THREADS; ++i) {
-    const int e = tid + i * THREADS;
-    const int k = e / (BM / PER16);
-    const int c = (e % (BM / PER16)) * PER16;
-    cp_async16(as + k * AS + c, src + k * BM + c, 16);
+  for (int p = 0; p < Stage<Kind>::PARTS; ++p) {
+    const Elem* src =
+        (p == 0 ? band : band_lo) + static_cast<size_t>(kc) * BK * BM;
+    Elem* as = reinterpret_cast<Elem*>(stage + p * part_bytes<Kind>());
+#pragma unroll
+    for (int i = 0; i < PIECES / THREADS; ++i) {
+      const int e = tid + i * THREADS;
+      const int k = e / (BM / PER16);
+      const int c = (e % (BM / PER16)) * PER16;
+      cp_async16(as + k * AS + c, src + k * BM + c, 16);
+    }
   }
-  float* xs = reinterpret_cast<float*>(stage + a_bytes<BandT>());
+  float* xs = reinterpret_cast<float*>(stage + a_bytes<Kind>());
   const int xr0 = bl.start + kc * BK;
   if (kVec) {
 #pragma unroll
@@ -208,9 +256,12 @@ struct FmaTile {
   }
 };
 
-// bfloat16 bands: warp (wm, wn) = (warp % 2, warp / 2) owns rows
+// bfloat16 or split bands: warp (wm, wn) = (warp % 2, warp / 2) owns rows
 // wm*64 .. +63 (4 m16 tiles) and columns wn*32 .. +31 (4 n8 tiles).
+template <typename Kind>
 struct MmaTile {
+  static constexpr bool kSplit = Stage<Kind>::PARTS == 2;
+
   float acc[4][4][4];
 
   __device__ __forceinline__ void zero() {
@@ -224,10 +275,11 @@ struct MmaTile {
 
   __device__ __forceinline__ void step(const char* stage, int tid) {
     using namespace mma_bf16;
-    constexpr int AS = Stage<__nv_bfloat16>::AS;
+    constexpr int AS = Stage<Kind>::AS;
     const __nv_bfloat16* as = reinterpret_cast<const __nv_bfloat16*>(stage);
-    const float* xs =
-        reinterpret_cast<const float*>(stage + a_bytes<__nv_bfloat16>());
+    const __nv_bfloat16* as_lo =
+        reinterpret_cast<const __nv_bfloat16*>(stage + part_bytes<Kind>());
+    const float* xs = reinterpret_cast<const float*>(stage + a_bytes<Kind>());
     const int lane = tid & 31;
     const int warp = tid >> 5;
     const int wm = warp & 1;
@@ -235,24 +287,42 @@ struct MmaTile {
     const int g = lane >> 2;
     const int q = lane & 3;
     // x as bf16 pairs along k: b0 = rows 2q, 2q+1; b1 = rows 2q+8, 2q+9
-    uint32_t b[4][2];
+    // (split: hi pairs in b, lo pairs in bl)
+    uint32_t b[4][2], bl[4][2];
 #pragma unroll
     for (int nt = 0; nt < 4; ++nt) {
       const float* col = xs + wn * 32 + nt * 8 + g;
-      b[nt][0] = pack_bf16x2(col[(2 * q) * XS], col[(2 * q + 1) * XS]);
-      b[nt][1] = pack_bf16x2(col[(2 * q + 8) * XS], col[(2 * q + 9) * XS]);
+      if (kSplit) {
+        split_bf16x2(col[(2 * q) * XS], col[(2 * q + 1) * XS], b[nt][0],
+                     bl[nt][0]);
+        split_bf16x2(col[(2 * q + 8) * XS], col[(2 * q + 9) * XS], b[nt][1],
+                     bl[nt][1]);
+      } else {
+        b[nt][0] = pack_bf16x2(col[(2 * q) * XS], col[(2 * q + 1) * XS]);
+        b[nt][1] = pack_bf16x2(col[(2 * q + 8) * XS], col[(2 * q + 9) * XS]);
+      }
     }
     // lanes 8m..8m+7 address matrix m: k rows (m / 2) * 8 + lane % 8 at
     // band rows +(m % 2) * 8 of the m16 tile
     const int krow = (lane & 7) + (lane >> 4) * 8;
     const int rsub = ((lane >> 3) & 1) * 8;
+    const int aoff = krow * AS + wm * 64 + rsub;
 #pragma unroll
     for (int mt = 0; mt < 4; ++mt) {
       uint32_t a[4];
-      ldmatrix_x4_trans(a, as + krow * AS + wm * 64 + mt * 16 + rsub);
+      ldmatrix_x4_trans(a, as + aoff + mt * 16);
 #pragma unroll
       for (int nt = 0; nt < 4; ++nt)
         mma_16816(acc[mt][nt], a, b[nt][0], b[nt][1]);
+      if (kSplit) {
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+          mma_16816(acc[mt][nt], a, bl[nt][0], bl[nt][1]);
+        ldmatrix_x4_trans(a, as_lo + aoff + mt * 16);
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+          mma_16816(acc[mt][nt], a, b[nt][0], b[nt][1]);
+      }
     }
   }
 
@@ -286,20 +356,19 @@ struct MmaTile {
   }
 };
 
-template <typename BandT>
-struct TileOf;
+template <typename Kind>
+struct TileOf {
+  using type = MmaTile<Kind>;
+};
 template <>
 struct TileOf<float> {
   using type = FmaTile;
 };
-template <>
-struct TileOf<__nv_bfloat16> {
-  using type = MmaTile;
-};
 
-template <typename BandT, bool kVec>
-__global__ void __launch_bounds__(THREADS, Stage<BandT>::MIN_BLOCKS)
-banded_rows_kernel(const BandT* __restrict__ bands,
+template <typename Kind, bool kVec>
+__global__ void __launch_bounds__(THREADS, Stage<Kind>::MIN_BLOCKS)
+banded_rows_kernel(const typename Stage<Kind>::Elem* __restrict__ bands,
+                   const typename Stage<Kind>::Elem* __restrict__ bands_lo,
                    const int* __restrict__ starts,
                    const int* __restrict__ out_row0,
                    const int* __restrict__ rows,
@@ -311,17 +380,22 @@ banded_rows_kernel(const BandT* __restrict__ bands,
   const size_t z = static_cast<size_t>(blockIdx.z) + z0;
   const Block bl = {x + z * n_in * W, starts[b],
                     static_cast<int>(blockIdx.y) * BN, n_in, W};
-  const BandT* band = bands + static_cast<size_t>(b) * win * BM;
+  using Elem = typename Stage<Kind>::Elem;
+  const Elem* band = bands + static_cast<size_t>(b) * win * BM;
+  const Elem* band_lo =
+      Stage<Kind>::PARTS == 2 ? bands_lo + static_cast<size_t>(b) * win * BM
+                              : nullptr;
   const int tid = threadIdx.x;
   const int nk = win / BK;
 
-  typename TileOf<BandT>::type tile;
+  typename TileOf<Kind>::type tile;
   tile.zero();
 
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nk) load_chunk<BandT, kVec>(smem + s * stage_bytes<BandT>(), band,
-                                        bl, s, tid);
+    if (s < nk)
+      load_chunk<Kind, kVec>(smem + s * stage_bytes<Kind>(), band, band_lo,
+                             bl, s, tid);
     cp_async_commit();
   }
   for (int kc = 0; kc < nk; ++kc) {
@@ -331,53 +405,60 @@ banded_rows_kernel(const BandT* __restrict__ bands,
     __syncthreads();
     const int next = kc + STAGES - 1;
     if (next < nk)
-      load_chunk<BandT, kVec>(smem + (next % STAGES) * stage_bytes<BandT>(),
-                              band, bl, next, tid);
+      load_chunk<Kind, kVec>(smem + (next % STAGES) * stage_bytes<Kind>(),
+                             band, band_lo, bl, next, tid);
     cp_async_commit();
-    tile.step(smem + (kc % STAGES) * stage_bytes<BandT>(), tid);
+    tile.step(smem + (kc % STAGES) * stage_bytes<Kind>(), tid);
   }
   tile.template store<kVec>(out + z * n_out * W, out_row0[b], rows[b], bl.w0,
                             W, tid);
 }
 
-template <typename BandT, bool kVec>
-int launch_kind(const BandT* bands, const int* starts, const int* out_row0,
-                const int* rows, const float* x, float* out, int n_blk,
-                int win, int n_in, int n_out, int W, int batch,
-                cudaStream_t s) {
-  constexpr int smem = STAGES * stage_bytes<BandT>();
-  auto kernel = banded_rows_kernel<BandT, kVec>;
+template <typename Kind, bool kVec>
+int launch_kind(const typename Stage<Kind>::Elem* bands,
+                const typename Stage<Kind>::Elem* bands_lo, const int* starts,
+                const int* out_row0, const int* rows, const float* x,
+                float* out, int n_blk, int win, int n_in, int n_out, int W,
+                int batch, cudaStream_t s) {
+  constexpr int smem = STAGES * stage_bytes<Kind>();
+  auto kernel = banded_rows_kernel<Kind, kVec>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   for (int z0 = 0; z0 < batch; z0 += MAX_GRID_Z) {
     const int nz = batch - z0 < MAX_GRID_Z ? batch - z0 : MAX_GRID_Z;
     const dim3 grid(n_blk, (W + BN - 1) / BN, nz);
-    kernel<<<grid, THREADS, smem, s>>>(bands, starts, out_row0, rows, x, out,
-                                       win, n_in, n_out, W, z0);
+    kernel<<<grid, THREADS, smem, s>>>(bands, bands_lo, starts, out_row0,
+                                       rows, x, out, win, n_in, n_out, W, z0);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return static_cast<int>(cudaSuccess);
 }
 
-template <typename BandT>
-int launch(const BandT* bands, const int* starts, const int* out_row0,
-           const int* rows, const float* x, float* out, int n_blk, int win,
-           int n_in, int n_out, int W, int batch, void* stream) {
+template <typename Kind>
+int launch(const typename Stage<Kind>::Elem* bands,
+           const typename Stage<Kind>::Elem* bands_lo, const int* starts,
+           const int* out_row0, const int* rows, const float* x, float* out,
+           int n_blk, int win, int n_in, int n_out, int W, int batch,
+           void* stream) {
   if (n_blk <= 0 || win <= 0 || win % BK != 0 || n_in <= 0 || n_out <= 0 ||
       W <= 0 || batch <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  if ((reinterpret_cast<uintptr_t>(bands) & 15) != 0)
+  if ((reinterpret_cast<uintptr_t>(bands) & 15) != 0 ||
+      (Stage<Kind>::PARTS == 2 &&
+       (reinterpret_cast<uintptr_t>(bands_lo) & 15) != 0))
     return static_cast<int>(cudaErrorMisalignedAddress);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // 16-byte copies and stores need every row of x and out 16-byte aligned
   const bool vec = W % 4 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0 &&
                    (reinterpret_cast<uintptr_t>(out) & 15) == 0;
-  return vec ? launch_kind<BandT, true>(bands, starts, out_row0, rows, x, out,
-                                        n_blk, win, n_in, n_out, W, batch, s)
-             : launch_kind<BandT, false>(bands, starts, out_row0, rows, x, out,
-                                         n_blk, win, n_in, n_out, W, batch, s);
+  return vec ? launch_kind<Kind, true>(bands, bands_lo, starts, out_row0,
+                                       rows, x, out, n_blk, win, n_in, n_out,
+                                       W, batch, s)
+             : launch_kind<Kind, false>(bands, bands_lo, starts, out_row0,
+                                        rows, x, out, n_blk, win, n_in, n_out,
+                                        W, batch, s);
 }
 
 }  // namespace
@@ -386,15 +467,16 @@ int launch(const BandT* bands, const int* starts, const int* out_row0,
 // [batch, n_out, W] output (both contiguous float32); `starts`, `out_row0`
 // and `rows` hold n_blk int32 each, `bands` n_blk x win x 128 (k-major,
 // 16-byte aligned) float32 (banded_rows_launch) or bfloat16
-// (banded_rows_bf16_launch).  Each returns cudaGetLastError() after the
-// launch (0 on success).
+// (banded_rows_bf16_launch), or two such bfloat16 arrays, the hi and lo
+// halves of float32 bands (banded_rows_x3_launch).  Each returns
+// cudaGetLastError() after the launch (0 on success).
 extern "C" int banded_rows_launch(const float* bands, const int* starts,
                                   const int* out_row0, const int* rows,
                                   const float* x, float* out, int n_blk,
                                   int win, int n_in, int n_out, int W,
                                   int batch, void* stream) {
-  return launch(bands, starts, out_row0, rows, x, out, n_blk, win, n_in,
-                n_out, W, batch, stream);
+  return launch<float>(bands, nullptr, starts, out_row0, rows, x, out, n_blk,
+                       win, n_in, n_out, W, batch, stream);
 }
 
 extern "C" int banded_rows_bf16_launch(const __nv_bfloat16* bands,
@@ -403,6 +485,17 @@ extern "C" int banded_rows_bf16_launch(const __nv_bfloat16* bands,
                                        float* out, int n_blk, int win,
                                        int n_in, int n_out, int W, int batch,
                                        void* stream) {
-  return launch(bands, starts, out_row0, rows, x, out, n_blk, win, n_in,
-                n_out, W, batch, stream);
+  return launch<__nv_bfloat16>(bands, nullptr, starts, out_row0, rows, x, out,
+                               n_blk, win, n_in, n_out, W, batch, stream);
+}
+
+extern "C" int banded_rows_x3_launch(const __nv_bfloat16* bands_hi,
+                                     const __nv_bfloat16* bands_lo,
+                                     const int* starts, const int* out_row0,
+                                     const int* rows, const float* x,
+                                     float* out, int n_blk, int win, int n_in,
+                                     int n_out, int W, int batch,
+                                     void* stream) {
+  return launch<Split>(bands_hi, bands_lo, starts, out_row0, rows, x, out,
+                       n_blk, win, n_in, n_out, W, batch, stream);
 }

@@ -23,6 +23,25 @@ Its host blocks stay float32 (numpy has no bf16, and the disk cache holds
 float32); the bands become bf16 where the op is bound to the device, and
 both applies then follow the reference's bf16 einsums: the operand rounded
 to bf16, exact bf16 x bf16 products summed in float32, a float32 result.
+
+Matmul precision (the reference's ``SRTPU_MM_PRECISION``, ``sr.run
+--mm-precision``) applies to the applies of float32 bands only, as in the
+reference: bf16 bands, the fused kernels and the dense sampling matmuls
+ignore it.  The accepted names (:data:`MM_PRECISIONS`):
+
+* ``HIGHEST`` (the default) and ``F32_F32_F32`` -- strict float32;
+* ``HIGH`` and ``BF16_BF16_F32_X3`` -- the row applies run the 3-pass
+  split ``hi*hi + hi*lo + lo*hi`` of bands and operand, ``hi = bf16(v)``,
+  ``lo = bf16(v - hi)``, summed in float32 (what XLA runs for ``HIGH`` on
+  its TPU; the bands become :data:`~.banded_rows.X3`).  The column applies,
+  one library matmul each, stay float32: that is within the split's error
+  bound, and on the card faster than three bf16 matmuls with their split
+  passes;
+* ``DEFAULT`` and ``BF16_BF16_F32`` -- one bf16 pass, the class of the bf16
+  band store (the bands become bf16).
+
+The other names of JAX's ``Precision`` and ``DotAlgorithmPreset`` are not
+ported and raise ``ValueError``.
 """
 
 from __future__ import annotations
@@ -34,7 +53,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from .banded_rows import (RowPack, banded_row_apply,
+from .banded_rows import (X3, RowPack, banded_row_apply,
                           banded_row_apply_reference, pack_banded)
 from .resample import bspline_prefilter_kernel, cubic_bspline_weights
 
@@ -42,6 +61,22 @@ from .resample import bspline_prefilter_kernel, cubic_bspline_weights
 # block's nonzero column window spans ~2*128+43 columns for the stride-2
 # forward operators, so the block matmuls do ~12x fewer FLOPs than dense.
 BLOCK = 128
+
+# Accepted mm_precision names -> the band type float32 bands take on the
+# device under them (see the module docstring).
+MM_PRECISIONS = {"HIGHEST": torch.float32, "F32_F32_F32": torch.float32,
+                 "HIGH": X3, "BF16_BF16_F32_X3": X3,
+                 "DEFAULT": torch.bfloat16, "BF16_BF16_F32": torch.bfloat16}
+
+
+def resolve_mm_precision(name: str):
+    """The band type float32 bands take at matmul precision ``name``:
+    torch.float32, :data:`~.banded_rows.X3` or torch.bfloat16."""
+    try:
+        return MM_PRECISIONS[name]
+    except KeyError:
+        raise ValueError(f"mm_precision {name!r}: use one of "
+                         f"{', '.join(MM_PRECISIONS)}") from None
 
 
 def _ext_index(e: np.ndarray, n: int, mode: str) -> np.ndarray:
@@ -331,8 +366,8 @@ class BandedOp:
     the device pack that :meth:`row_apply` or :meth:`col_apply` needs is
     built there on its first use (an op of a solve is only ever applied
     along one axis, so the other pack is never built).  ``band_dtype`` is
-    the bands' type on the device: float32, or bfloat16 after
-    :meth:`astype_band`.
+    the bands' type on the device: float32, or bfloat16 or
+    :data:`~.banded_rows.X3` (split float32) after :meth:`astype_band`.
     """
 
     # the default also for ops pickled before the field existed: the host
@@ -392,15 +427,15 @@ class BandedOp:
                   for k in range(r) for lo, hi in op.col_ranges]
         return cls(blocks, ranges, op.n_out * r, op.n_in * r, op.band_dtype)
 
-    def astype_band(self, dtype: torch.dtype) -> "BandedOp":
-        """A copy whose bands are ``dtype`` (float32 or bfloat16) on the
-        device, unbound (the reference's ``astype_band``).  The cast happens
-        where the copy's packs are built; torch rounds to nearest even, as
-        ``ml_dtypes`` does, so the device bands equal the reference's bf16
-        blocks bit for bit."""
-        if dtype not in (torch.float32, torch.bfloat16):
-            raise TypeError(f"band dtype {dtype} is neither float32 nor "
-                            "bfloat16")
+    def astype_band(self, dtype) -> "BandedOp":
+        """A copy whose bands are ``dtype`` (float32, bfloat16 or
+        :data:`~.banded_rows.X3`) on the device, unbound (the reference's
+        ``astype_band``).  The cast happens where the copy's packs are
+        built; torch rounds to nearest even, as ``ml_dtypes`` does, so the
+        device bands equal the reference's bf16 blocks bit for bit."""
+        if dtype not in (torch.float32, torch.bfloat16, X3):
+            raise TypeError(f"band dtype {dtype} is none of float32, "
+                            "bfloat16 and X3")
         return BandedOp(self.blocks, self.col_ranges, self.n_out, self.n_in,
                         dtype)
 
@@ -431,7 +466,8 @@ class BandedOp:
     def col_pack(self) -> ColPack:
         """The column apply's gather indices and transposed bands on this
         op's device (for bf16 bands: rounded to bf16, kept as float32 so
-        that the float32 matmul sums their exact products)."""
+        that the float32 matmul sums their exact products; X3 bands stay
+        float32)."""
         if self._col_pack is None:
             device = self._bound_device()
             n_blk = len(self.blocks)
@@ -465,11 +501,12 @@ class BandedOp:
         """``x @ self^T`` along x's column (-1) axis: gather every block's
         input-column window, one batched matmul over blocks, interleave.
         With bf16 bands x is rounded to bf16 first (the reference's bf16
-        einsum); the products are exact and summed in float32."""
+        einsum); the products are exact and summed in float32.  X3 bands
+        take the float32 matmul (see the module docstring)."""
         idx, bands_t, n_out = self.col_pack
         if self.band_dtype == torch.bfloat16:
             x = x.to(torch.bfloat16).float()
-        xg = x[..., idx]                                  # [..., H, nb, win]
-        y = torch.matmul(xg.transpose(-3, -2), bands_t)   # [..., nb, H, B]
+        xg = x[..., idx].transpose(-3, -2)                # [..., nb, H, win]
+        y = torch.matmul(xg, bands_t)                     # [..., nb, H, B]
         y = y.transpose(-3, -2).reshape(*x.shape[:-1], -1)
         return y[..., :n_out]

@@ -1,10 +1,11 @@
 """Classical multi-frame super-resolution: Shift-and-Add + Iterative
 Back-Projection on the banded-matmul engine.
 
-Counterpart of ``enph459_super_resolution_tpu/sr/classical.py`` (its
-``mm`` engine and ``ibp`` solver, with the ``f32``, ``bf16`` and
-``hybrid[:tail]`` band stores and the fused-iteration engine).  Reference
-behavior: ``mono_barcodes/run_sr.py:188-240``:
+Counterpart of ``enph459_super_resolution_tpu/sr/classical.py``: its
+banded ``mm`` engine (the ``f32``, ``bf16`` and ``hybrid[:tail]`` band
+stores, the fused-iteration engine and the matmul precisions), its ``conv``
+engine, the ``ibp`` and ``adjoint`` solvers and ``landweber_refine``.
+Reference behavior: ``mono_barcodes/run_sr.py:188-240``:
 
   * forward model   = PSF blur -> sub-pixel shift -> decimate
   * back-projection = zero-stuff LR error -> inverse shift -> correlate PSF
@@ -39,6 +40,28 @@ shapes that qualify (:func:`~..ops.fused_ibp.fused_eligible`), the banded
 engine for ``f32`` and ``hybrid``.  ``"on"`` takes the fused kernels for
 every store (``hybrid``'s f32 tail stays banded, as in the reference) and
 raises for a shape they cannot take; ``"off"`` never takes them.
+
+Matmul precision (``mm_precision``; the reference's ``SRTPU_MM_PRECISION``,
+names in :data:`~..ops.opmatrix.MM_PRECISIONS`) applies to the float32-band
+applies only: ``HIGHEST`` (default) strict, ``HIGH`` / ``BF16_BF16_F32_X3``
+the 3-pass bf16 split on the row applies (K1's split instantiation; the
+column applies stay float32), ``DEFAULT`` / ``BF16_BF16_F32`` one bf16
+pass.  bf16 bands and the fused kernels ignore
+it, as in the reference.
+
+Solver (``solver``; the reference's ``SRTPU_SOLVER``): ``"ibp"`` (default,
+the reference's heuristic back-projection, step 0.5) or ``"adjoint"``
+(true-adjoint Landweber: the back-projection operators are the transposed
+forward operators, stable at step 2.0).  The adjoint runs on the banded
+engine only: ``fused="auto"`` takes it, ``fused="on"`` raises (the fused
+pack bakes the heuristic back-projection), and so does ``engine="conv"``.
+
+Engine (``engine``): ``"mm"`` (default, the banded operators above) or
+``"conv"``, the reference's cross-check engine: the same algorithm as
+separable correlations and dense sampling matmuls
+(:mod:`~..ops.conv`, :mod:`~..ops.resample`), strict f32, one unit at a
+time; it runs no hand-written kernel and ignores ``band_store``, ``fused``
+and ``mm_precision``, as the reference does.
 """
 
 from __future__ import annotations
@@ -54,15 +77,19 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..ops.conv import conv2d_same, correlate2d_same
 from ..ops.fused_ibp import FusedIBP, fused_eligible
 from ..ops.opmatrix import (
     BLOCK,
     BandedOp,
+    band_transpose,
     psf_separable_factors,
+    resolve_mm_precision,
     shift_op_banded,
     stuff_shift_op_banded,
     zoom_op_banded,
 )
+from ..ops.resample import spline_shift, spline_zoom
 
 # Constants shared by all four reference workloads
 # (``mono_barcodes/run_sr.py:60-67``).
@@ -77,6 +104,8 @@ IBP_STEP_SIZE = 0.5
 # these float32 bands on the device.
 _DTYPE_NAME = "float32"
 FUSED_MODES = ("auto", "on", "off")
+SOLVERS = ("ibp", "adjoint")
+ENGINES = ("mm", "conv")
 _DEFAULT_TAIL = 16
 
 
@@ -96,13 +125,40 @@ def parse_band_store(band_store: str) -> Tuple[str, int]:
                      "'hybrid[:tail]'")
 
 
-def fused_engine_on(fused: str, band_store: str, lr_shape,
-                    hr_shape) -> bool:
-    """Whether a solve runs the fused kernels (see the module docstring):
-    the reference's ``_fused_engine_on`` as it routes on its chip, except
-    that ``fused="on"`` raises for a shape the kernels cannot take."""
+def check_config(engine: str = "mm", solver: str = "ibp",
+                 band_store: str = "f32", fused: str = "auto",
+                 mm_precision: str = "HIGHEST") -> None:
+    """Raise ``ValueError`` for an unknown knob value or a combination the
+    solve refuses: the adjoint solver on the conv engine or with
+    ``fused="on"``.  The conv engine runs strict float32 and ignores the
+    banded engine's knobs (band store, fused kernels, matmul precision), as
+    the reference does."""
+    if engine not in ENGINES:
+        raise ValueError(f"engine {engine!r}: use one of {ENGINES}")
+    if solver not in SOLVERS:
+        raise ValueError(f"solver {solver!r}: use one of {SOLVERS}")
     if fused not in FUSED_MODES:
         raise ValueError(f"fused {fused!r}: use one of {FUSED_MODES}")
+    parse_band_store(band_store)
+    resolve_mm_precision(mm_precision)
+    if solver == "adjoint" and engine != "mm":
+        raise ValueError("solver 'adjoint' runs on the banded 'mm' engine "
+                         f"only (got engine={engine!r})")
+    if solver == "adjoint" and fused == "on":
+        raise ValueError("solver 'adjoint' runs on the banded engine: the "
+                         "fused kernels bake the heuristic back-projection "
+                         "(got fused='on')")
+
+
+def fused_engine_on(fused: str, band_store: str, lr_shape,
+                    hr_shape, solver: str = "ibp") -> bool:
+    """Whether a solve runs the fused kernels (see the module docstring):
+    the reference's ``_fused_engine_on`` as it routes on its chip, except
+    that ``fused="on"`` raises for a shape the kernels cannot take or with
+    the adjoint solver."""
+    check_config(solver=solver, band_store=band_store, fused=fused)
+    if solver == "adjoint":
+        return False
     kind, _ = parse_band_store(band_store)
     eligible = fused_eligible(lr_shape, hr_shape)
     if fused == "on" and not eligible:
@@ -123,14 +179,17 @@ def make_gaussian_psf(size: int = PSF_SIZE, sigma: float = PSF_SIGMA) -> np.ndar
 
 
 def _frame_operator_banded(psf, shift_yx, factor: int, lr_shape,
-                           dtype_name: str = _DTYPE_NAME):
+                           dtype_name: str = _DTYPE_NAME,
+                           solver: str = "ibp"):
     """(fwd_row, fwd_col, bwd_row, bwd_col) :class:`HostBanded` lists over
     the PSF's separable rank terms.
 
     Forward:  sim  = sum_k R_k @ HR @ C_k^T   ==  decimate(shift(conv2d(HR)))
-    Backward: corr = sum_k Br_k @ ERR @ Bc_k^T
+    Backward (solver 'ibp', the reference's heuristic back-projection):
+              corr = sum_k Br_k @ ERR @ Bc_k^T
                    ==  correlate2d(shift^{-1}(zero_stuff(ERR)), psf)
-    (the reference's heuristic back-projection, solver 'ibp').
+    Backward (solver 'adjoint'): Br_k = R_k^T, Bc_k = C_k^T, the true
+    adjoint of the forward operator (banded too, at the same cost).
     """
     h_lr, w_lr = lr_shape
     dy, dx = float(shift_yx[0]), float(shift_yx[1])
@@ -144,6 +203,10 @@ def _frame_operator_banded(psf, shift_yx, factor: int, lr_shape,
         fwd_c.append(shift_op_banded(
             w_lr * factor, dx * factor, stride=factor, n_out=w_lr,
             blur_taps=tuple(v[::-1]), blur_first=True, dtype_name=dtype_name))
+        if solver == "adjoint":
+            bwd_r.append(band_transpose(fwd_r[-1]))
+            bwd_c.append(band_transpose(fwd_c[-1]))
+            continue
         # back-projection correlates with the PSF -> taps unflipped
         bwd_r.append(stuff_shift_op_banded(
             h_lr, factor, -dy * factor, blur_taps=tuple(u),
@@ -152,6 +215,73 @@ def _frame_operator_banded(psf, shift_yx, factor: int, lr_shape,
             w_lr, factor, -dx * factor, blur_taps=tuple(v),
             dtype_name=dtype_name))
     return fwd_r, fwd_c, bwd_r, bwd_c
+
+
+def forward_model(hr: torch.Tensor, psf, shift_yx, factor: int):
+    """HR image -> simulated LR frame on the conv engine: blur, shift by
+    ``shift * factor``, decimate (``mono_barcodes/run_sr.py:192-196``); the
+    decimation is the shift's output stride."""
+    return spline_shift(conv2d_same(hr, psf),
+                        (shift_yx[0] * factor, shift_yx[1] * factor),
+                        strides=(factor, factor))
+
+
+def back_project(error_lr: torch.Tensor, psf, shift_yx, factor: int,
+                 hr_shape):
+    """LR residual -> HR-grid correction on the conv engine
+    (``mono_barcodes/run_sr.py:199-209``): zero-stuff onto the HR grid,
+    shift by ``-shift * factor``, correlate with the PSF."""
+    h, w = error_lr.shape[-2:]
+    up = error_lr.new_zeros(error_lr.shape[:-2] + tuple(hr_shape))
+    up[..., : h * factor: factor, : w * factor: factor] = error_lr
+    shifted = spline_shift(up, (-shift_yx[0] * factor,
+                                -shift_yx[1] * factor))
+    return correlate2d_same(shifted, psf)
+
+
+def shift_and_add(lr_stack: torch.Tensor, shifts_yx,
+                  factor: int = UPSAMPLE_FACTOR):
+    """Cubic zoom of each frame, shifted into registration and averaged
+    (``mono_barcodes/run_sr.py:212-218``), on the conv engine."""
+    up = spline_zoom(lr_stack, factor)
+    acc = None
+    for i, (dy, dx) in enumerate(shifts_yx):
+        term = spline_shift(up[i], (dy * factor, dx * factor))
+        acc = term if acc is None else acc + term
+    return acc / lr_stack.shape[0]
+
+
+def native_upsample(lr_mean: torch.Tensor, factor: int = UPSAMPLE_FACTOR):
+    """Cubic-spline zoom of the LR mean (``mono_barcodes/run_sr.py:315``)."""
+    return spline_zoom(lr_mean, factor)
+
+
+def ibp_step(hr, lr_stack, shifts_yx, psf, factor: int, step: float,
+             clip=(0.0, 255.0)):
+    """One IBP update over all frames on the conv engine; returns (new hr,
+    mean MSE)."""
+    n = lr_stack.shape[0]
+    correction = torch.zeros_like(hr)
+    total = hr.new_zeros(())
+    for i in range(n):
+        err = lr_stack[i] - forward_model(hr, psf, shifts_yx[i], factor)
+        total = total + torch.mean(err * err)
+        correction += back_project(err, psf, shifts_yx[i], factor,
+                                   hr.shape[-2:])
+    return torch.clamp(hr + step * correction / n, *clip), total / n
+
+
+def ibp(lr_stack, shifts_yx, psf, hr_init, factor: int = UPSAMPLE_FACTOR,
+        n_iter: int = 80, step: float = IBP_STEP_SIZE, clip=(0.0, 255.0)):
+    """Iterative back-projection on the conv engine
+    (``mono_barcodes/run_sr.py:221-240``); returns ``(hr, f32[n_iter]
+    per-iteration mean MSE)``."""
+    errs = hr_init.new_zeros((n_iter,))
+    hr = hr_init
+    for it in range(n_iter):
+        hr, errs[it] = ibp_step(hr, lr_stack, shifts_yx, psf, factor, step,
+                                clip)
+    return hr, errs
 
 
 def forward_model_mm(hr: torch.Tensor, mats, plain: bool = False):
@@ -175,9 +305,11 @@ def back_project_mm(err: torch.Tensor, mats, plain: bool = False):
     return out
 
 
-def _host_solve_matrices(psf, shifts_yx, factor, lr_shape, reps=1):
+def _host_solve_matrices(psf, shifts_yx, factor, lr_shape, reps=1,
+                         solver="ibp"):
     """Host (numpy) build of one solve config's operators, as
-    :class:`BandedOp` block decompositions.
+    :class:`BandedOp` block decompositions; ``solver`` picks the frames'
+    back-projection operators (:func:`_frame_operator_banded`).
 
     ``reps > 1`` builds the batched-solve operators: every ROW operator is
     block-diagonally tiled ``reps`` times (:meth:`BandedOp.tiled`) so that
@@ -191,7 +323,8 @@ def _host_solve_matrices(psf, shifts_yx, factor, lr_shape, reps=1):
         return BandedOp.tiled(BandedOp.from_banded(hb), reps)
 
     h_lr, w_lr = lr_shape
-    frame_bands = [_frame_operator_banded(psf, s, factor, lr_shape)
+    frame_bands = [_frame_operator_banded(psf, s, factor, lr_shape,
+                                          solver=solver)
                    for s in shifts_yx]
     return {
         "zoom_r": br(zoom_op_banded(h_lr, factor, dtype_name=_DTYPE_NAME)),
@@ -207,10 +340,18 @@ def _host_solve_matrices(psf, shifts_yx, factor, lr_shape, reps=1):
     }
 
 
-_OP_CACHE_VERSION = 1
+_OP_CACHE_VERSION = 2  # v2: the solver joins the key
 
 
-def _op_cache_path(psf, shifts_yx, factor, lr_shape, reps) -> str:
+def op_cache_dir() -> str:
+    """The host operator disk cache: ``srtorch_opcache_<uid>`` under the
+    temp dir."""
+    return os.path.join(tempfile.gettempdir(),
+                        f"srtorch_opcache_{os.getuid()}")
+
+
+def _op_cache_path(psf, shifts_yx, factor, lr_shape, reps,
+                   solver="ibp") -> str:
     """Disk-cache file for a host operator build.
 
     The key covers everything that changes the cached contents.  The
@@ -219,11 +360,10 @@ def _op_cache_path(psf, shifts_yx, factor, lr_shape, reps) -> str:
     :func:`_cache_dir_trusted`).
     """
     meta = repr((_OP_CACHE_VERSION, psf.shape, str(psf.dtype), shifts_yx,
-                 factor, lr_shape, _DTYPE_NAME, reps, BLOCK)).encode()
+                 factor, lr_shape, _DTYPE_NAME, reps, BLOCK,
+                 solver)).encode()
     key = hashlib.sha256(meta + psf.tobytes()).hexdigest()[:32]
-    cache_dir = os.path.join(tempfile.gettempdir(),
-                             f"srtorch_opcache_{os.getuid()}")
-    return os.path.join(cache_dir, f"ops_{key}.pkl")
+    return os.path.join(op_cache_dir(), f"ops_{key}.pkl")
 
 
 def _cache_dir_trusted(path: str) -> bool:
@@ -236,16 +376,18 @@ def _cache_dir_trusted(path: str) -> bool:
     return st.st_uid == os.getuid() and not (st.st_mode & 0o022)
 
 
-def _cached_host_matrices(psf, shifts_yx, factor, lr_shape, reps=1):
+def _cached_host_matrices(psf, shifts_yx, factor, lr_shape, reps=1,
+                          solver="ibp"):
     """:func:`_host_solve_matrices`, memoized on disk (host numpy only)."""
-    path = _op_cache_path(psf, shifts_yx, factor, lr_shape, reps)
+    path = _op_cache_path(psf, shifts_yx, factor, lr_shape, reps, solver)
     if os.path.exists(path) and _cache_dir_trusted(path):
         try:
             with open(path, "rb") as fp:
                 return pickle.load(fp)
         except Exception:  # noqa: BLE001 -- stale/corrupt entry: rebuild
             pass
-    mats = _host_solve_matrices(psf, shifts_yx, factor, lr_shape, reps)
+    mats = _host_solve_matrices(psf, shifts_yx, factor, lr_shape, reps,
+                                solver)
     os.makedirs(os.path.dirname(path), mode=0o700, exist_ok=True)
     if _cache_dir_trusted(path):
         tmp = f"{path}.tmp.{os.getpid()}"
@@ -255,27 +397,31 @@ def _cached_host_matrices(psf, shifts_yx, factor, lr_shape, reps=1):
     return mats
 
 
+def _map_ops(fn, tree):
+    """``fn`` applied to every :class:`BandedOp` of an operator tree."""
+    if isinstance(tree, BandedOp):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _map_ops(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_ops(fn, v) for v in tree)
+    raise TypeError(f"unexpected operator tree node {type(tree)}")
+
+
 def _to_device(tree, device):
     """Every :class:`BandedOp` of an operator tree, bound to ``device``."""
-    if isinstance(tree, BandedOp):
-        return tree.to(device)
-    if isinstance(tree, dict):
-        return {k: _to_device(v, device) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_to_device(v, device) for v in tree)
-    raise TypeError(f"unexpected operator tree node {type(tree)}")
+    return _map_ops(lambda op: op.to(device), tree)
 
 
 def _cast_bf16(tree):
     """Every :class:`BandedOp` of an operator tree with bf16 bands."""
-    if isinstance(tree, BandedOp):
-        return tree.astype_band(torch.bfloat16)
-    return type(tree)(_cast_bf16(v) for v in tree)
+    return _map_ops(lambda op: op.astype_band(torch.bfloat16), tree)
 
 
 @functools.lru_cache(maxsize=64)
 def _device_matrices(psf_bytes, psf_shape, shifts_yx, factor, lr_shape, reps,
-                     device, band_store="f32", fused_on=False):
+                     device, band_store="f32", fused_on=False,
+                     precision=torch.float32, solver="ibp"):
     """One solve config's operator tree on ``device``, kept in process (as
     the JAX package keeps ``_compiled_solve``), so a run of many units reads
     the disk cache and uploads each op's pack once per config.
@@ -285,15 +431,22 @@ def _device_matrices(psf_bytes, psf_shape, shifts_yx, factor, lr_shape, reps,
     ``_solve_matrices``: ``fused`` (the f32 fused pack) for ``f32`` with the
     fused engine; ``fused_lo`` (the bf16 pack) for ``bf16``/``hybrid`` with
     it; ``frames_lo`` (bf16 frame operators) for ``hybrid`` without it; and
-    for ``bf16`` every banded operator cast to bf16.  The host disk cache
-    stays float32."""
+    for ``bf16`` every banded operator cast to bf16.  ``precision`` (the
+    band type :func:`~..ops.opmatrix.resolve_mm_precision` gives) then
+    applies to the float32-band operators; the fused packs keep theirs.
+    ``solver`` picks the frames' back-projection operators.  The host disk
+    cache stays float32."""
     psf = np.frombuffer(psf_bytes, dtype=np.float64).reshape(psf_shape)
-    host = _cached_host_matrices(psf, shifts_yx, factor, lr_shape, reps)
+    host = _cached_host_matrices(psf, shifts_yx, factor, lr_shape, reps,
+                                 solver)
     kind, _ = parse_band_store(band_store)
     if kind == "bf16":
-        host = {k: _cast_bf16(v) for k, v in host.items()}
+        host = _cast_bf16(host)
     elif kind == "hybrid" and not fused_on:
         host = dict(host, frames_lo=_cast_bf16(host["frames"]))
+    if precision != torch.float32:
+        host = _map_ops(lambda op: op.astype_band(precision)
+                        if op.band_dtype == torch.float32 else op, host)
     mats = _to_device(host, device)
     if fused_on:
         pack = FusedIBP.build(host["frames"], device)
@@ -304,15 +457,63 @@ def _device_matrices(psf_bytes, psf_shape, shifts_yx, factor, lr_shape, reps,
     return mats
 
 
+def _build_packs(mats) -> None:
+    """Build every device pack a solve of ``mats`` reads (the upload a solve
+    does at each op's first use): the row pack of each row operator and the
+    column pack of each column operator."""
+    for key, node in mats.items():
+        if key == "zoom_r":
+            node.row_pack
+        elif key == "zoom_c":
+            node.col_pack
+        elif key == "saa":
+            for r, c in node:
+                r.row_pack, c.col_pack
+        elif key in ("frames", "frames_lo"):
+            for frame in node:
+                for axis, ops in enumerate(frame):
+                    for op in ops:
+                        op.row_pack if axis % 2 == 0 else op.col_pack
+
+
 def _solve_matrices(psf, shifts_yx, factor, lr_shape, reps, device,
-                    band_store="f32", fused="off"):
+                    band_store="f32", fused="off", mm_precision="HIGHEST",
+                    solver="ibp"):
     psf = np.ascontiguousarray(psf, dtype=np.float64)
     h, w = lr_shape
     # one rep's shape decides, as in the reference
     fused_on = fused_engine_on(fused, band_store, (h, w),
-                               (h * factor, w * factor))
+                               (h * factor, w * factor), solver)
     return _device_matrices(psf.tobytes(), psf.shape, shifts_yx, factor,
-                            lr_shape, reps, device, band_store, fused_on)
+                            lr_shape, reps, device, band_store, fused_on,
+                            resolve_mm_precision(mm_precision), solver)
+
+
+def _rep_mse(err: torch.Tensor, reps: int) -> torch.Tensor:
+    """Mean squared error of ``err`` (per rep when ``reps > 1``, reps
+    stacked along H); a bf16 err (fused low path) is summed in f32."""
+    err = err.float()
+    if reps == 1:
+        return torch.mean(err * err)
+    per = err.reshape((reps, err.shape[-2] // reps) + err.shape[-1:])
+    return torch.mean(per * per, dim=(-2, -1))
+
+
+def _banded_update(hr, lr_stack, frames, step: float, clip, reps: int,
+                   plain: bool):
+    """One update of the banded engine over every frame, ``hr + step *
+    mean_f(bp_f(lr_f - fwd_f(hr)))`` clipped; returns (new hr, the mean MSE
+    of the errors before the update)."""
+    n = lr_stack.shape[0]
+    total = torch.zeros((reps,) if reps > 1 else (), dtype=hr.dtype,
+                        device=hr.device)
+    correction = torch.zeros_like(hr)
+    for i in range(n):
+        err = lr_stack[i] - forward_model_mm(hr, frames[i], plain)
+        total += _rep_mse(err, reps)
+        # in place: saves one HR-sized allocation per frame
+        correction += back_project_mm(err, frames[i], plain)
+    return torch.clamp(hr + step * correction / n, *clip), total / n
 
 
 def _solve_body(lr_stack: torch.Tensor, mats, n_iter: int, step: float,
@@ -328,13 +529,6 @@ def _solve_body(lr_stack: torch.Tensor, mats, n_iter: int, step: float,
 
     def rows(op, x):
         return op.row_apply(x, plain=plain)
-
-    def rep_mse(err):
-        err = err.float()  # bf16 err (fused low path): f32 MSE
-        if reps == 1:
-            return torch.mean(err * err)
-        per = err.reshape((reps, err.shape[-2] // reps) + err.shape[-1:])
-        return torch.mean(per * per, dim=(-2, -1))
 
     lr_mean = torch.mean(lr_stack, dim=0)
     native = mats["zoom_c"].col_apply(rows(mats["zoom_r"], lr_mean))
@@ -352,22 +546,17 @@ def _solve_body(lr_stack: torch.Tensor, mats, n_iter: int, step: float,
         # 'fused': the two whole-iteration kernels over the given pack;
         # 'banded': the banded engine over the given per-frame operators
         for it in its:
+            if kind == "banded":
+                hr, errs[it] = _banded_update(hr, lr_stack, obj, step, clip,
+                                              reps, plain)
+                continue
+            low = obj.band_dtype == torch.bfloat16
+            err = obj.fwd_err(hr, lr_lo if low else lr_stack, plain)
             total = torch.zeros(errs.shape[1:], dtype=hr.dtype,
                                 device=hr.device)
-            if kind == "fused":
-                low = obj.band_dtype == torch.bfloat16
-                err = obj.fwd_err(hr, lr_lo if low else lr_stack, plain)
-                for i in range(n):
-                    total += rep_mse(err[i])
-                hr = obj.bwd_update(hr, err, step / n, clip, plain)
-            else:
-                correction = torch.zeros_like(hr)
-                for i in range(n):
-                    err = lr_stack[i] - forward_model_mm(hr, obj[i], plain)
-                    total += rep_mse(err)
-                    # in place: saves one HR-sized allocation per frame
-                    correction += back_project_mm(err, obj[i], plain)
-                hr = torch.clamp(hr + step * correction / n, *clip)
+            for i in range(n):
+                total += _rep_mse(err[i], reps)
+            hr = obj.bwd_update(hr, err, step / n, clip, plain)
             errs[it] = total / n
         return hr
 
@@ -387,6 +576,18 @@ def _solve_body(lr_stack: torch.Tensor, mats, n_iter: int, step: float,
         hr = iterate(*hi_spec, saa, range(n_iter))
     return {"lr_mean": lr_mean, "native": native, "saa": saa, "ibp": hr,
             "mse_history": errs}
+
+
+def _solve_conv(lr_stack: torch.Tensor, psf, shifts_yx, factor: int,
+                n_iter: int, step: float, clip_max: float) -> Dict:
+    """The conv engine's solve of one unit ``f32[N, h, w]``, every result on
+    the device."""
+    lr_mean = torch.mean(lr_stack, dim=0)
+    saa = shift_and_add(lr_stack, shifts_yx, factor)
+    hr, errs = ibp(lr_stack, shifts_yx, psf, saa, factor, n_iter, step,
+                   (0.0, clip_max))
+    return {"lr_mean": lr_mean, "native": native_upsample(lr_mean, factor),
+            "saa": saa, "ibp": hr, "mse_history": errs}
 
 
 def _to_host(result: Dict) -> Dict[str, np.ndarray]:
@@ -416,7 +617,9 @@ def _prepare(lr, psf, shifts_yx, device):
 def solve(lr_stack, psf, shifts_yx, factor: int = UPSAMPLE_FACTOR,
           n_iter: int = 80, step: float = IBP_STEP_SIZE,
           clip_max: float = 255.0, device="cuda", band_store: str = "f32",
-          fused: str = "auto", plain: bool = False) -> Dict[str, np.ndarray]:
+          fused: str = "auto", plain: bool = False,
+          mm_precision: str = "HIGHEST", solver: str = "ibp",
+          engine: str = "mm") -> Dict[str, np.ndarray]:
     """Full classical SR solve of one unit.
 
     Computes everything a reference ``process_session`` rep computes
@@ -432,14 +635,24 @@ def solve(lr_stack, psf, shifts_yx, factor: int = UPSAMPLE_FACTOR,
       fused: ``"auto"`` (default), ``"on"`` or ``"off"`` (the engine).
       plain: run every kernel's plain PyTorch version instead of the kernel
         (the on-card parity check of the kernels).
+      mm_precision: ``"HIGHEST"`` (default), ``"HIGH"`` /
+        ``"BF16_BF16_F32_X3"`` or ``"DEFAULT"`` / ``"BF16_BF16_F32"`` (see
+        the module docstring).
+      solver: ``"ibp"`` (default) or ``"adjoint"``.
+      engine: ``"mm"`` (default) or ``"conv"``.
 
     Returns a dict of numpy arrays ``lr_mean, native, saa, ibp,
     mse_history``.
     """
+    check_config(engine, solver, band_store, fused, mm_precision)
     lr, psf, shifts_key, device = _prepare(lr_stack, psf, shifts_yx, device)
+    if engine == "conv":
+        return _to_host(_solve_conv(lr, psf, shifts_key, int(factor),
+                                    int(n_iter), float(step),
+                                    float(clip_max)))
     lr_shape = tuple(int(v) for v in lr.shape[-2:])
     mats = _solve_matrices(psf, shifts_key, int(factor), lr_shape, 1, device,
-                           band_store, fused)
+                           band_store, fused, mm_precision, solver)
     return _to_host(_solve_body(lr, mats, int(n_iter), float(step),
                                 float(clip_max), 1, band_store, plain))
 
@@ -448,24 +661,35 @@ def solve_batch(lr_stacks, psf, shifts_yx, factor: int = UPSAMPLE_FACTOR,
                 n_iter: int = 80, step: float = IBP_STEP_SIZE,
                 clip_max: float = 255.0, device="cuda",
                 band_store: str = "f32", fused: str = "auto",
-                plain: bool = False) -> Dict[str, np.ndarray]:
+                plain: bool = False, mm_precision: str = "HIGHEST",
+                solver: str = "ibp",
+                engine: str = "mm") -> Dict[str, np.ndarray]:
     """Batched solve over R same-shaped units ``f32[R, N, h, w]``; returns
     the :func:`solve` dict with a leading R axis.
 
-    Reps are concatenated along the image ROW axis and every row operator
-    is block-diagonally rep-tiled (:meth:`BandedOp.tiled`), so the batch
-    runs as the same few large applies as one solve, with per-rep-exact
-    boundaries; the fused pack rep-tiles its row operators the same way.
-    ``band_store``, ``fused`` and ``plain`` are :func:`solve`'s.
+    On the ``mm`` engine reps are concatenated along the image ROW axis and
+    every row operator is block-diagonally rep-tiled
+    (:meth:`BandedOp.tiled`), so the batch runs as the same few large
+    applies as one solve, with per-rep-exact boundaries; the fused pack
+    rep-tiles its row operators the same way.  The ``conv`` engine solves
+    the units one after another (its ``nearest`` boundary taps would leak
+    across concatenated reps).  The other arguments are :func:`solve`'s.
     """
+    check_config(engine, solver, band_store, fused, mm_precision)
     lr, psf, shifts_key, device = _prepare(lr_stacks, psf, shifts_yx, device)
     r, n, h, w = (int(v) for v in lr.shape)
+    fh = factor * h
+    if engine == "conv":
+        units = [_solve_conv(lr[i], psf, shifts_key, int(factor),
+                             int(n_iter), float(step), float(clip_max))
+                 for i in range(r)]
+        return _to_host({k: torch.stack([u[k] for u in units])
+                         for k in units[0]})
     mats = _solve_matrices(psf, shifts_key, int(factor), (h, w), r, device,
-                           band_store, fused)
+                           band_store, fused, mm_precision, solver)
     stacked = lr.transpose(0, 1).reshape(n, r * h, w)
     out = _solve_body(stacked, mats, int(n_iter), float(step),
                       float(clip_max), r, band_store, plain)
-    fh = factor * h
     return _to_host({
         "lr_mean": out["lr_mean"].reshape(r, h, w),
         "native": out["native"].reshape(r, fh, -1),
@@ -474,6 +698,38 @@ def solve_batch(lr_stacks, psf, shifts_yx, factor: int = UPSAMPLE_FACTOR,
         "mse_history": (out["mse_history"].T if r > 1
                         else out["mse_history"][None]),
     })
+
+
+def landweber_refine(hr0, lr_stack, psf, shifts_yx,
+                     factor: int = UPSAMPLE_FACTOR, n_iter: int = 30,
+                     step: float = 2.0, clip_max: float = 255.0,
+                     device="cuda", mm_precision: str = "HIGHEST",
+                     plain: bool = False):
+    """True-adjoint Landweber refinement seeded from ``hr0``, ``hr += step *
+    A^T(lr - A hr) / n``, on the banded engine with the adjoint operator set
+    (the ``solver="adjoint"`` operators, so both share the caches).  Step
+    2.0 is stable: the blur + decimate operator has norm below 1.
+    ``plain`` is :func:`solve`'s.
+
+    Returns ``(hr, mse_history[n_iter], final_mse)`` as numpy (one copy to
+    the host): ``mse_history[i]`` is the forward fit before update ``i``,
+    ``final_mse`` that of the returned estimate.
+    """
+    lr, psf, shifts_key, device = _prepare(lr_stack, psf, shifts_yx, device)
+    hr = torch.as_tensor(hr0, dtype=torch.float32).to(device)
+    lr_shape = tuple(int(v) for v in lr.shape[-2:])
+    frames = _solve_matrices(psf, shifts_key, int(factor), lr_shape, 1,
+                             device, "f32", "auto", mm_precision,
+                             "adjoint")["frames"]
+    clip = (0.0, float(clip_max))
+    errs = torch.zeros((int(n_iter),), dtype=torch.float32, device=device)
+    for it in range(int(n_iter)):
+        hr, errs[it] = _banded_update(hr, lr, frames, float(step), clip, 1,
+                                      plain)
+    final = sum(_rep_mse(lr[i] - forward_model_mm(hr, frames[i], plain), 1)
+                for i in range(lr.shape[0])) / lr.shape[0]
+    out = _to_host({"hr": hr, "mse_history": errs, "final": final})
+    return out["hr"], out["mse_history"], float(out["final"])
 
 
 def to_uint8(img) -> np.ndarray:

@@ -79,9 +79,11 @@ def save_figures(hr_images: Dict[str, np.ndarray], lr_mean: np.ndarray,
 def process_unit(session: SessionData, psf: np.ndarray, cfg: WorkloadConfig,
                  output_base: str, figures: bool = True,
                  force: bool = False, device="cuda", band_store: str = "f32",
-                 fused: str = "auto") -> Optional[str]:
-    """Run one SR unit (a session or one rep) end to end; ``band_store``
-    and ``fused`` are :func:`~.classical.solve`'s.
+                 fused: str = "auto", mm_precision: str = "HIGHEST",
+                 solver: str = "ibp", engine: str = "mm") -> Optional[str]:
+    """Run one SR unit (a session or one rep) end to end; ``band_store``,
+    ``fused``, ``mm_precision``, ``solver`` and ``engine`` are
+    :func:`~.classical.solve`'s.
 
     Returns the output dir, or None when skipped via ``done.flag``
     (idempotent resume, ``mono_barcodes/run_sr.py:306-308``).
@@ -100,7 +102,9 @@ def process_unit(session: SessionData, psf: np.ndarray, cfg: WorkloadConfig,
         result = solve(frames, psf, session.shifts,
                        factor=cfg.upsample_factor,
                        n_iter=cfg.ibp_iterations, step=cfg.ibp_step,
-                       device=device, band_store=band_store, fused=fused)
+                       device=device, band_store=band_store, fused=fused,
+                       mm_precision=mm_precision, solver=solver,
+                       engine=engine)
     return _write_unit_artifacts(session, result, cfg, output_base, figures,
                                  timer)
 
@@ -163,10 +167,15 @@ def process_session_dir(session_dir: str, psf: np.ndarray, cfg: WorkloadConfig,
                         output_base: str, figures: bool = True,
                         force: bool = False, batch_reps: bool = True,
                         device="cuda", band_store: str = "f32",
-                        fused: str = "auto") -> int:
+                        fused: str = "auto", mm_precision: str = "HIGHEST",
+                        solver: str = "ibp", engine: str = "mm") -> int:
     """Load all units in a session directory and process them; with
     ``batch_reps`` (default) same-shaped pending units solve as ONE
-    batched device call (:func:`~.classical.solve_batch`)."""
+    batched device call (:func:`~.classical.solve_batch`) on the ``mm``
+    engine (the ``conv`` engine solves them one at a time).  The solve
+    options are :func:`~.classical.solve`'s."""
+    opts = dict(device=device, band_store=band_store, fused=fused,
+                mm_precision=mm_precision, solver=solver, engine=engine)
     t0 = time.time()
     units = cfg.load(session_dir)
     print(f"Session {os.path.basename(session_dir)}: {len(units)} unit(s), "
@@ -182,31 +191,31 @@ def process_session_dir(session_dir: str, psf: np.ndarray, cfg: WorkloadConfig,
 
     same_shape = len({u.frames.shape for u in pending}) == 1
     same_shifts = len({u.shifts for u in pending}) == 1
-    if batch_reps and len(pending) > 1 and same_shape and same_shifts:
+    if batch_reps and engine == "mm" and len(pending) > 1 and same_shape \
+            and same_shifts:
         return _solve_units_batched(pending, psf, cfg, output_base, figures,
-                                    device, band_store, fused)
+                                    opts)
 
     n = 0
     for unit in pending:
         if process_unit(unit, psf, cfg, output_base, figures, force=True,
-                        device=device, band_store=band_store,
-                        fused=fused) is not None:
+                        **opts) is not None:
             n += 1
     return n
 
 
 def _solve_units_batched(pending, psf, cfg, output_base, figures,
-                         device, band_store="f32", fused="auto") -> int:
-    """Solve same-shaped units as ONE device call and write per-unit
-    artifacts.  Returns the number of units whose artifacts were written."""
+                         opts) -> int:
+    """Solve same-shaped units as ONE device call (``opts``: the solve
+    options) and write per-unit artifacts.  Returns the number of units
+    whose artifacts were written."""
     timer = StageTimer()
     with timer.stage("solve_batch"):
         batched = solve_batch(np.stack([u.frames for u in pending]), psf,
                               pending[0].shifts,
                               factor=cfg.upsample_factor,
                               n_iter=cfg.ibp_iterations,
-                              step=cfg.ibp_step, device=device,
-                              band_store=band_store, fused=fused)
+                              step=cfg.ibp_step, **opts)
     t_batch = timer.as_dict()["solve_batch"]
     print(f"  batched solve of {len(pending)} unit(s): {t_batch:.2f}s")
     n_written = 0
@@ -226,12 +235,16 @@ def _solve_units_batched(pending, psf, cfg, output_base, figures,
 def process_workload(session_dirs, psf, cfg, output_base, figures=True,
                      force=False, batch_reps=True, max_batch: int = 4,
                      device="cuda", band_store: str = "f32",
-                     fused: str = "auto") -> int:
+                     fused: str = "auto", mm_precision: str = "HIGHEST",
+                     solver: str = "ibp", engine: str = "mm") -> int:
     """Process many sessions with CROSS-SESSION unit batching: every
     pending unit across the workload joins one stream, and runs of
     consecutive units with identical (shape, shifts) solve as single
-    batched device calls of up to ``max_batch``.  ``band_store`` and
-    ``fused`` are :func:`~.classical.solve`'s."""
+    batched device calls of up to ``max_batch`` (``mm`` engine; the
+    ``conv`` engine solves units one at a time).  The solve options are
+    :func:`~.classical.solve`'s."""
+    opts = dict(device=device, band_store=band_store, fused=fused,
+                mm_precision=mm_precision, solver=solver, engine=engine)
     buffer: list = []
     n_done = 0
 
@@ -239,17 +252,14 @@ def process_workload(session_dirs, psf, cfg, output_base, figures=True,
         nonlocal buffer, n_done
         if not buffer:
             return
-        if len(buffer) == 1 or not batch_reps:
+        if len(buffer) == 1 or not batch_reps or engine != "mm":
             for u in buffer:
                 if process_unit(u, psf, cfg, output_base, figures,
-                                force=True, device=device,
-                                band_store=band_store,
-                                fused=fused) is not None:
+                                force=True, **opts) is not None:
                     n_done += 1
         else:
             n_done += _solve_units_batched(buffer, psf, cfg, output_base,
-                                           figures, device, band_store,
-                                           fused)
+                                           figures, opts)
         buffer = []
 
     for sdir in session_dirs:

@@ -10,23 +10,86 @@ card is an error, never a quiet CPU run.  Flags mirror the reference CLI
 (``mono_barcodes/run_sr.py:356-367``): ``--psf {gaussian,measured}``,
 ``--psf-dir``, ``--data-dir``, ``--output-dir``; plus ``--no-figures`` /
 ``--force`` / ``--session``, rep batching, the IBP overrides, the band
-store (``--band-store {f32,bf16,hybrid[:tail]}``) and the engine
-(``--fused-ibp {auto,on,off}``).
+store (``--band-store {f32,bf16,hybrid[:tail]}``), the fused engine
+(``--fused-ibp {auto,on,off}``), ``--engine {mm,conv}``, ``--solver
+{ibp,adjoint}``, ``--mm-precision`` and serve mode (``--watch SECONDS``,
+``--watch-polls N``).
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import sys
 import time
+
+
+def fingerprint(sdir: str) -> frozenset:
+    """(name, size, mtime_ns) of every entry of a session directory: a
+    collector adding, removing or rewriting a file changes it (an entry that
+    vanishes while it is listed reads (name, -1, -1))."""
+    out = set()
+    for name in os.listdir(sdir):
+        try:
+            st = os.stat(os.path.join(sdir, name))
+            out.add((name, st.st_size, st.st_mtime_ns))
+        except OSError:
+            out.add((name, -1, -1))
+    return frozenset(out)
+
+
+def watch(list_sessions, serve, interval: float, polls=None) -> int:
+    """Serve mode: poll the sessions ``list_sessions()`` returns every
+    ``interval`` seconds and ``serve`` (a list of session dirs -> units
+    processed) those new or changed since their last successful pass.
+
+    A processed session is skipped while its listing's :func:`fingerprint`
+    is unchanged; one that gains files (late reps) is served again, and
+    ``done.flag`` keeps its finished units idempotent.  When a poll's batch
+    fails, each of its sessions is served alone, and one that fails again
+    (still being written) is deferred to the next poll.  Stops after
+    ``polls`` polls (``None``: never).  Returns the units processed.
+    """
+    seen: dict = {}  # session dir -> fingerprint at its last good pass
+    total = n_polls = 0
+    while True:
+        changed = []
+        for sdir in list_sessions():
+            try:
+                fp = fingerprint(sdir)
+            except OSError:
+                continue  # the session dir vanished since it was listed
+            if seen.get(sdir) != fp:
+                changed.append((sdir, fp))
+        if changed:
+            print("[watch]", end=" ")
+            try:
+                # one stream over every changed session keeps
+                # cross-session batching in serve mode
+                total += serve([s for s, _ in changed])
+                seen.update(changed)
+            except Exception:  # noqa: BLE001 -- isolate the broken session
+                for sdir, fp in changed:
+                    try:
+                        total += serve([sdir])
+                        seen[sdir] = fp
+                    except Exception as exc:  # noqa: BLE001 -- keep serving
+                        print(f"  [defer] {os.path.basename(sdir)}: {exc}")
+        n_polls += 1
+        if polls is not None and n_polls >= polls:
+            break
+        time.sleep(interval)
+    print(f"watch done: {total} unit(s) processed over {n_polls} poll(s)")
+    return total
 
 
 def main(argv=None) -> int:
     from ..data.sessions import discover_sessions
     from ..device import DEVICES, resolve_device
     from ..psf.kernels import load_measured_psf, make_gaussian_psf
-    from .classical import FUSED_MODES, parse_band_store
+    from ..ops.opmatrix import MM_PRECISIONS
+    from .classical import ENGINES, FUSED_MODES, SOLVERS, check_config
     from .config import WORKLOADS
     from .pipeline import process_workload
 
@@ -67,11 +130,40 @@ def main(argv=None) -> int:
                         "at shapes that qualify, else the banded engine; "
                         "on = always (an error for a shape that does not "
                         "qualify); off = never")
+    p.add_argument("--engine", default="mm", choices=ENGINES,
+                   help="mm = the banded operators (default); conv = the "
+                        "cross-check engine of separable correlations, "
+                        "strict f32, one unit at a time (it ignores "
+                        "--band-store, --fused-ibp and --mm-precision)")
+    p.add_argument("--solver", default="ibp", choices=SOLVERS,
+                   help="ibp = the reference's heuristic back-projection "
+                        "(default); adjoint = true-adjoint Landweber on the "
+                        "transposed forward operators (banded mm engine), "
+                        "stable at step 2.0; it defaults --ibp-iters to the "
+                        "workload's / 4 and --ibp-step to 2.0")
+    p.add_argument("--mm-precision", default="HIGHEST",
+                   metavar="{" + ",".join(MM_PRECISIONS) + "}",
+                   help="matmul precision of the float32-band applies: "
+                        "HIGHEST = strict (default); HIGH / BF16_BF16_F32_X3 "
+                        "= the 3-pass bf16 split of the row applies, +-1 "
+                        "uint8 of HIGHEST; DEFAULT / BF16_BF16_F32 = one "
+                        "bf16 pass, +-3. Their speed on the card against "
+                        "HIGHEST is in PERF.md")
+    p.add_argument("--watch", type=float, default=None, metavar="SECONDS",
+                   help="serve mode: after the existing sessions, poll "
+                        "--data-dir every SECONDS for new or changed ones "
+                        "(done.flag keeps finished units idempotent; a "
+                        "session that fails to load is deferred to the next "
+                        "poll)")
+    p.add_argument("--watch-polls", type=int, default=None,
+                   help="stop serve mode after this many polls (default: "
+                        "never)")
     p.add_argument("--device", default="cuda", choices=DEVICES,
                    help="where the solve runs (default cuda; no fallback)")
     args = p.parse_args(argv)
     try:
-        parse_band_store(args.band_store)
+        check_config(args.engine, args.solver, args.band_store,
+                     args.fused_ibp, args.mm_precision)
     except ValueError as exc:
         p.error(str(exc))
     try:
@@ -80,13 +172,20 @@ def main(argv=None) -> int:
         p.error(str(exc))
 
     cfg = WORKLOADS[args.workload]
-    if args.ibp_iters is not None or args.ibp_step is not None:
+    n_iter, ibp_step = args.ibp_iters, args.ibp_step
+    if args.solver == "adjoint":
+        # the true adjoint converges ~4x faster per iteration at the same
+        # truth quality, and is stable at step 2.0
+        if n_iter is None:
+            n_iter = max(1, round(cfg.ibp_iterations / 4))
+        if ibp_step is None:
+            ibp_step = 2.0
+    if n_iter is not None or ibp_step is not None:
         cfg = dataclasses.replace(
             cfg,
-            ibp_iterations=args.ibp_iters if args.ibp_iters is not None
+            ibp_iterations=n_iter if n_iter is not None
             else cfg.ibp_iterations,
-            ibp_step=args.ibp_step if args.ibp_step is not None
-            else cfg.ibp_step)
+            ibp_step=ibp_step if ibp_step is not None else cfg.ibp_step)
     if args.psf == "measured":
         if not args.psf_dir:
             p.error("--psf measured requires --psf-dir")
@@ -94,19 +193,30 @@ def main(argv=None) -> int:
     else:
         psf = make_gaussian_psf(cfg.psf_size, cfg.psf_sigma)
 
-    sessions = discover_sessions(args.data_dir)
-    if args.session:
-        sessions = [s for s in sessions if s.endswith(args.session)]
+    def list_sessions():
+        found = discover_sessions(args.data_dir)
+        if args.session:
+            found = [s for s in found if s.endswith(args.session)]
+        return found
+
+    def serve(dirs):
+        return process_workload(
+            dirs, psf, cfg, args.output_dir, figures=not args.no_figures,
+            force=args.force, batch_reps=args.batch_reps,
+            max_batch=args.max_batch, device=device,
+            band_store=args.band_store, fused=args.fused_ibp,
+            mm_precision=args.mm_precision, solver=args.solver,
+            engine=args.engine)
+
+    if args.watch is not None:
+        watch(list_sessions, serve, args.watch, args.watch_polls)
+        return 0
+    sessions = list_sessions()
     if not sessions:
         print(f"no sessions found in {args.data_dir}", file=sys.stderr)
         return 1
     t0 = time.time()
-    total = process_workload(sessions, psf, cfg, args.output_dir,
-                             figures=not args.no_figures, force=args.force,
-                             batch_reps=args.batch_reps,
-                             max_batch=args.max_batch, device=device,
-                             band_store=args.band_store,
-                             fused=args.fused_ibp)
+    total = serve(sessions)
     print(f"{total} unit(s) processed in {time.time() - t0:.1f}s")
     return 0
 

@@ -57,12 +57,15 @@ def test_every_port_module_imports_with_jax_blocked():
             names.append(info.name)
         leaked = sorted(m for m in sys.modules if blocked(m))
         assert not leaked, leaked
-        print(len(names))
+        print(" ".join(names))
     """)
     res = subprocess.run([sys.executable, "-c", script], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 27  # every module was walked
+    names = set(res.stdout.split())
+    assert len(names) >= 30  # every module was walked
+    for mod in ("ops.conv", "ops.resample", "sr.prewarm", "sr.hybrid_bound"):
+        assert f"enph459_super_resolution_tpu_torch.{mod}" in names, mod
 
 
 @pytest.mark.parametrize("path", sorted(
@@ -119,6 +122,8 @@ def test_every_kernel_entry_point_is_in_its_source():
     from enph459_super_resolution_tpu_torch.ops import (banded_rows,
                                                         fused_ibp, trunk)
 
+    assert "banded_rows_x3_launch" in [s for s, _ in
+                                       banded_rows._ENTRY.values()]
     bound = {"banded_rows": [s for s, _ in banded_rows._ENTRY.values()],
              "fused_ibp": ["fused_fwd_launch", "fused_bwd_launch"],
              "trunk": [s for s, _ in trunk._ENTRY.values()]}

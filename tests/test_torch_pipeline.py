@@ -1,6 +1,8 @@
 """The port's ``sr.run`` CLI against the JAX package's on the same session
 directories (``--device cpu`` for the port): the same artifacts within +-1
-uint8, ``metrics.json`` with the same keys, and ``done.flag`` resume."""
+uint8 for all four workloads (the rgb ones on RGGB mosaics, rgb_cal_target
+with its metadata shifts), ``metrics.json`` with the same keys,
+``done.flag`` resume, and serve mode (``--watch``)."""
 
 import json
 import os
@@ -38,10 +40,21 @@ def _noisy(rng, scene):
                    255).astype(np.uint8)
 
 
+def _mosaic(rng, scene):
+    """An RGGB mosaic whose red plane (even rows and columns) is a noisy
+    ``scene`` and whose other sites hold other noise."""
+    h, w = scene.shape
+    out = rng.uniform(0, 255, (2 * h, 2 * w))
+    out[::2, ::2] = scene + rng.normal(0, 1, scene.shape)
+    return np.clip(out, 0, 255).astype(np.uint8)
+
+
 @pytest.fixture()
 def sessions(tmp_path):
     """A corner_rep session of 2 reps (batched path) and a center+4
-    session, each under its own data dir."""
+    session, and for the rgb workloads RGGB corner_rep sessions of 2 reps
+    (rgb_cal_target's with a metadata.json), each under its own data
+    dir."""
     rng = np.random.default_rng(0)
     corner = tmp_path / "corner" / "tiny_mono_session"
     scene = _scene(rng)
@@ -53,9 +66,25 @@ def sessions(tmp_path):
     for name in ("center.png", "shift_0.png", "shift_1.png", "shift_2.png",
                  "shift_3.png"):
         save_png(_noisy(rng, scene), str(center / name))
+    rgb_bar = tmp_path / "rgb_bar" / "tiny_rgb_session"
+    rgb_cal = tmp_path / "rgb_cal" / "cal_rgb"
+    for sdir in (rgb_bar, rgb_cal):
+        for ci in range(4):
+            for ri in range(2):
+                save_png(_mosaic(rng, scene),
+                         str(sdir / f"corner{ci}_rep{ri:02d}.png"))
+    # sensor-pixel shifts off the nominal +-1 (LR = sensor / 2)
+    meta = {"expected_shifts": {
+        label: {"dy_px": dy, "dx_px": dx} for label, (dy, dx) in zip(
+            ("(-x,+y)", "(+x,+y)", "(-x,-y)", "(+x,-y)"),
+            ((1.1, -0.9), (0.9, 1.2), (-1.0, -1.1), (-0.8, 0.9)))}}
+    (rgb_cal / "metadata.json").write_text(json.dumps(meta))
     return {"mono_barcodes": (str(corner.parent), ["tiny_mono_session/rep0",
                                                    "tiny_mono_session/rep1"]),
-            "mono_cal_target": (str(center.parent), ["cal0"])}
+            "mono_cal_target": (str(center.parent), ["cal0"]),
+            "rgb_barcodes": (str(rgb_bar.parent), ["tiny_rgb_session/rep0",
+                                                   "tiny_rgb_session/rep1"]),
+            "rgb_cal_target": (str(rgb_cal.parent), ["cal_rgb"])}
 
 
 def _args(workload, data, out):
@@ -63,19 +92,21 @@ def _args(workload, data, out):
             "--no-figures"]
 
 
-@pytest.mark.parametrize("workload", ["mono_barcodes", "mono_cal_target"])
+@pytest.mark.parametrize("workload", ["mono_barcodes", "mono_cal_target",
+                                      "rgb_barcodes", "rgb_cal_target"])
 def test_cli_matches_jax_cli(sessions, tmp_path, workload):
     data, units = sessions[workload]
     out_j, out_t = str(tmp_path / "jax"), str(tmp_path / "torch")
+    lr_name = "LR_red_mean.png" if workload.startswith("rgb") \
+        else "LR_mean.png"
     assert jax_run.main(_args(workload, data, out_j)) == 0
     assert torch_run.main(_args(workload, data, out_t)
                           + ["--device", "cpu"]) == 0
     for unit in units:
         uj, ut = os.path.join(out_j, unit), os.path.join(out_t, unit)
-        for name in ARTIFACTS + ("LR_mean.png",):
+        for name in ARTIFACTS + (lr_name,):
             assert os.path.exists(os.path.join(ut, name)), (unit, name)
-        for name in ("native_2x.png", "SAA.png", "SAA_IBP.png",
-                     "LR_mean.png"):
+        for name in ("native_2x.png", "SAA.png", "SAA_IBP.png", lr_name):
             a = load_image(os.path.join(uj, name)).astype(int)
             b = load_image(os.path.join(ut, name)).astype(int)
             assert a.shape == b.shape
@@ -106,3 +137,45 @@ def test_cli_done_flag_resume_and_force(sessions, tmp_path, capsys):
     assert torch_run.main(args + ["--force", "--no-batch-reps"]) == 0
     assert "2 unit(s) processed" in capsys.readouterr().out
     assert os.stat(metrics).st_mtime_ns != stamp
+
+
+def test_watch_serve_mode(sessions, tmp_path, monkeypatch, capsys):
+    """``--watch``: the existing sessions are served on the first poll; a
+    session that fails to load (still being written) is deferred and taken
+    once complete; a served session whose listing changes (a late rep) is
+    served again, its finished units skipped by their done.flag."""
+    import shutil
+
+    data_dir, _ = sessions["mono_barcodes"]
+    tiny = os.path.join(data_dir, "tiny_mono_session")
+    out = str(tmp_path / "serve_out")
+    broken = os.path.join(data_dir, "tiny_mono_session2")
+    os.makedirs(broken)
+    with open(os.path.join(broken, "corner0_rep00.png"), "wb") as fp:
+        fp.write(b"this is not a png")  # collection still writing
+    polls = {"n": 0}
+
+    def fake_sleep(_):
+        polls["n"] += 1
+        if polls["n"] == 1:  # the collector finishes the session
+            shutil.rmtree(broken)
+            shutil.copytree(tiny, broken)
+        elif polls["n"] == 2:  # and appends a third rep to the first one
+            src = os.path.join(tiny, "corner0_rep00.png")
+            for ci in range(4):
+                shutil.copy(src, os.path.join(tiny, f"corner{ci}_rep02.png"))
+
+    monkeypatch.setattr(torch_run.time, "sleep", fake_sleep)
+    assert torch_run.main(_args("mono_barcodes", data_dir, out)
+                          + ["--device", "cpu", "--watch", "0.01",
+                             "--watch-polls", "4"]) == 0
+    said = capsys.readouterr().out
+    for sess in ("tiny_mono_session", "tiny_mono_session2"):
+        for rep in ("rep0", "rep1"):
+            assert os.path.exists(os.path.join(out, sess, rep, "done.flag"))
+    assert os.path.exists(os.path.join(out, "tiny_mono_session", "rep2",
+                                       "done.flag"))
+    assert "[defer] tiny_mono_session2" in said
+    assert os.path.join("tiny_mono_session", "rep0") + " - already done" \
+        in said
+    assert "watch done: 5 unit(s) processed over 4 poll(s)" in said
