@@ -99,6 +99,26 @@ or of the JAX package.  Phases, one JSON line each:
    process's operator trees dropped and the host build forbidden then reads
    that cache; ``sr.run --watch 0.1 --watch-polls 2`` serves the session
    on the first poll and nothing on the second.
+16. burst -- the learned burst engine.  ``train_burst`` on cuda at full
+   width: BurstFusionLR 64 x 8, batch 16, LR patch 24, pool 64, 200 steps
+   (checkpoints at 100 and 200), then BurstFusion 48 x 6 for 20 steps:
+   steps/s, bursts/s, the logged losses, the final eval's PSNRs, peak
+   memory; every number finite, ``psnr_ibp > psnr_bicubic``, the run
+   directory complete; the step-100 checkpoint restores params, EMA and
+   optimizer state bit for bit; one train step from it on cuda and on cpu
+   agrees (metrics within rtol 1e-4, parameters within 0.01 of the rate).
+   Then a mono_barcodes session of 4 corners x 1536x2048 through
+   ``sr.run --fusion-run <run> --fusion-refine 10``: its launches are the
+   classical solve's (``expected_launches``) plus the refine's 84 K1-f32
+   (2 per frame and iteration plus 1 per frame), artifacts,
+   ``fusion_forward_mse < fusion_forward_mse_raw``.  Then the engine in
+   process: the refine within 1e-3 of ``landweber_refine(plain=True)``
+   from the same seed, the banded registration (8 K1 launches)
+   within 1e-3 of the conv one and of its plain rows, the bf16 engine
+   within 0.05 of the residual's span of the f32 one, a 2-iteration vjp
+   refine improves the fit, the engine at 4 x 128x160 on cuda within +-1
+   of cpu; the warm time of a unit in f32 and bf16, split into
+   registration, trunk and refine per iteration.
 
 Then the ``kernels`` summary line, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -1378,6 +1398,265 @@ def phase_prewarm_watch(torch, mono):
     return row
 
 
+BURST_LR = (1536, 2048)     # the rig's frame; HR 3072 x 4096
+BURST_REFINE = 10
+BURST_STEPS, BURST_CKPT, BURST_HR_STEPS = 200, 100, 20
+BURST_STEP_RTOL = 1e-4     # a train step, cuda against cpu: metrics
+BURST_STEP_LR_SHARE = 0.01  # ... and parameters, in units of the rate
+
+
+def _ms(torch, fn):
+    """Median milliseconds of three calls of ``fn`` (:func:`_serve`), and
+    the last call's result."""
+    out, times = _serve(torch, lambda _: fn(), range(3))
+    return sorted(times)[1] * 1e3, out
+
+
+def _finite(obj) -> bool:
+    return all(np.isfinite(v) for v in obj.values()
+               if isinstance(v, (int, float)))
+
+
+def _burst_train(torch, work: Path):
+    """train_burst at full width on cuda (LR arch 64 x 8, then HR arch
+    48 x 6), the run directory, resume from step 100, and one train step on
+    cuda against the same step on cpu."""
+    from enph459_super_resolution_tpu_torch.sr.classical import \
+        make_gaussian_psf
+    from enph459_super_resolution_tpu_torch.train import burst as TB
+    from enph459_super_resolution_tpu_torch.train import state as TS
+    from enph459_super_resolution_tpu_torch.train.data import \
+        synthetic_scene_pool
+
+    run = work / "run_lr"
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    final = TB.train_burst(arch="lr", n_feats=64, n_resblocks=8, batch=16,
+                           lr_patch=24, pool_images=64, steps=BURST_STEPS,
+                           ckpt_every=BURST_CKPT, eval_every=BURST_STEPS,
+                           out_dir=str(run), device="cuda")
+    train_s = time.perf_counter() - t0
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    for f in ("config.json", "metrics.jsonl", "eval.jsonl",
+              "final_eval.json", f"ckpt/{BURST_CKPT}/state.pt",
+              f"ckpt/{BURST_STEPS}/state.pt"):
+        check((run / f).exists(), f"burst run: missing {f}")
+    recs = [json.loads(ln) for ln in
+            (run / "metrics.jsonl").read_text().splitlines()]
+    logged = sorted({1, BURST_STEPS} | set(range(50, BURST_STEPS, 50)))
+    check([r["step"] for r in recs] == logged,
+          f"burst metrics.jsonl steps {[r['step'] for r in recs]}")
+    check(all(_finite(r) for r in recs) and _finite(final),
+          "burst training: a non-finite number")
+    check(final["psnr_ibp"] > final["psnr_bicubic"],
+          f"psnr_ibp {final['psnr_ibp']} <= psnr_bicubic "
+          f"{final['psnr_bicubic']}")
+    w = {r["step"]: r["wall_s"] for r in recs}
+    steps_per_s = (BURST_STEPS - logged[1]) / (w[BURST_STEPS] - w[logged[1]])
+
+    # resume: the step-100 checkpoint into a fresh state, bit for bit
+    ck = TS.load_checkpoint(str(run / "ckpt"), BURST_CKPT)
+    cfg = TS.TrainConfig(learning_rate=1e-4, lr_halve_every=BURST_STEPS // 2)
+
+    def state_on(device, ckpt):
+        model = TB._build_model("burstfusion_lr", 4, 2, 64, 8, device)
+        st = TS.TrainState.create(model, cfg)
+        st.load_state_dict(ckpt)
+        return st
+
+    back = state_on("cuda", ck).state_dict()
+    exact = all(torch.equal(back[part][k].cpu(), ck[part][k])
+                for part in ("params", "ema_params") for k in ck[part])
+    for key, v in ck["opt_state"]["state"].items():
+        exact &= all(torch.equal(v[k].cpu(),
+                                 back["opt_state"]["state"][key][k].cpu())
+                     for k in v)
+    check(exact and back["step"] == BURST_CKPT,
+          "resume from the step-100 checkpoint not exact")
+
+    # one step from the step-100 state on one batch, cuda against cpu
+    psf = make_gaussian_psf()
+    gen = TB.BurstGen(TB.NOMINAL_SHIFTS_4, 2, psf, 2.0, 0.05,
+                      model_name="burstfusion_lr")
+    pool = torch.as_tensor(np.stack([p[..., 0] for p in synthetic_scene_pool(
+        n_images=4, size=192, channels=1, seed=SEED)]))
+    g = TB.generator("cpu", SEED, 100)
+    stack, tgt = gen(TB._crop_hr_batch(pool, g, 72, 16), g)
+    step = TS.make_train_step(cfg)
+    got = {}
+    for dev in ("cuda", "cpu"):
+        st = state_on(dev, TS.load_checkpoint(str(run / "ckpt"),
+                                              BURST_CKPT))
+        m = step(st, stack.to(dev), tgt.to(dev))
+        got[dev] = ({k: float(v) for k, v in m.items()},
+                    {k: v.detach().cpu() for k, v in st.params.items()})
+    metric_rel = max(abs(got["cuda"][0][k] - got["cpu"][0][k])
+                     / abs(got["cpu"][0][k]) for k in got["cpu"][0])
+    param_dev = max(float((got["cuda"][1][k] - got["cpu"][1][k]).abs().max())
+                    for k in got["cpu"][1]) / cfg.learning_rate
+    check(metric_rel <= BURST_STEP_RTOL,
+          f"train step cuda vs cpu: metrics differ by {metric_rel}")
+    check(param_dev <= BURST_STEP_LR_SHARE,
+          f"train step cuda vs cpu: parameters differ by {param_dev} lr")
+
+    t0 = time.perf_counter()
+    final_hr = TB.train_burst(arch="hr", n_feats=48, n_resblocks=6,
+                              batch=16, lr_patch=24, pool_images=64,
+                              steps=BURST_HR_STEPS,
+                              ckpt_every=BURST_HR_STEPS,
+                              eval_every=BURST_HR_STEPS,
+                              out_dir=str(work / "run_hr"), device="cuda")
+    hr_s = time.perf_counter() - t0
+    recs_hr = [json.loads(ln) for ln in
+               (work / "run_hr" / "metrics.jsonl").read_text().splitlines()]
+    check(all(_finite(r) for r in recs_hr) and _finite(final_hr),
+          "hr arch training: a non-finite number")
+    row = {"train_lr": {
+        "arch": "lr", "n_feats": 64, "n_resblocks": 8, "batch": 16,
+        "lr_patch": 24, "steps": BURST_STEPS, "train_s": train_s,
+        "steps_per_s": steps_per_s, "bursts_per_s": 16 * steps_per_s,
+        "losses": {r["step"]: r["loss"] for r in recs},
+        "psnr": {k: final[k] for k in final if k.startswith("psnr")},
+        "peak_mem_mb": peak_mb, "resume_exact": exact,
+        "step_cuda_vs_cpu_metric_rel": metric_rel,
+        "step_cuda_vs_cpu_param_dev_lr": param_dev},
+        "train_hr": {"arch": "hr", "n_feats": 48, "n_resblocks": 6,
+                     "steps": BURST_HR_STEPS, "train_s": hr_s,
+                     "losses": {r["step"]: r["loss"] for r in recs_hr},
+                     "psnr": {k: final_hr[k] for k in final_hr
+                              if k.startswith("psnr")}}}
+    return run, row
+
+
+def phase_burst(torch):
+    """The learned burst engine: trained on the card at full width, then
+    served at the rig's frame size through ``sr.run --fusion-run``."""
+    from enph459_super_resolution_tpu_torch.data.io import load_gray, save_png
+    from enph459_super_resolution_tpu_torch.sr import fusion as TF
+    from enph459_super_resolution_tpu_torch.sr.classical import (
+        landweber_refine, make_gaussian_psf)
+    from enph459_super_resolution_tpu_torch.sr.config import WORKLOADS
+
+    work = WORK / "burst"
+    run, row = _burst_train(torch, work)
+
+    # serve: a mono_barcodes session of 4 corners x 1 rep at full size
+    cfg = WORKLOADS["mono_barcodes"]
+    rng = np.random.default_rng(SEED + 7)
+    sdir = work / "data" / "session0"
+    scene = _smooth_scene(rng, BURST_LR)
+    for ci in range(4):
+        save_png(_noisy_u8(rng, scene), str(sdir / f"corner{ci}_rep00.png"))
+    out = work / "results"
+    sr_run_s, launches = _sr_run("mono_barcodes", sdir.parent, out,
+                                 "--fusion-run", str(run),
+                                 "--fusion-refine", str(BURST_REFINE))
+    psf = make_gaussian_psf(cfg.psf_size, cfg.psf_sigma)
+    solve = expected_launches("f32", False, _rank(psf), 4,
+                              cfg.ibp_iterations)
+    expected = dict(solve)
+    # the refine: per iteration a forward and a back-projection row apply
+    # per frame and PSF rank term, then one forward of each for the fit
+    expected["k1_f32"] += (2 * BURST_REFINE + 1) * 4 * _rank(psf)
+    check(launches == expected,
+          f"sr.run --fusion-run launches {launches}, the code implies "
+          f"{expected}")
+    refine_launches = launches["k1_f32"] - solve["k1_f32"]
+    unit = out / "session0" / "rep0"
+    metrics = _check_unit(unit, cfg.lr_mean_name)
+    check((unit / "fusion.png").exists(), "missing fusion.png")
+    fusion_png = load_gray(str(unit / "fusion.png"))
+    check(fusion_png.shape == tuple(2 * v for v in BURST_LR),
+          f"fusion {fusion_png.shape}")
+    check(metrics["fusion_forward_mse"] < metrics["fusion_forward_mse_raw"],
+          f"the refine did not improve the fit: {metrics}")
+
+    # in process: the same unit through the engine, against plain rows
+    unit_data = cfg.load(str(sdir))[0]
+    lr = torch.as_tensor(unit_data.frames, device="cuda")
+    shifts = unit_data.shifts
+    eng = TF.FusionEngine(str(run), refine=BURST_REFINE, device="cuda")
+    sr, mse, mse_raw = eng(lr, shifts, psf)
+    check(_u8_diff(sr, fusion_png) <= 1, "in-process engine vs sr.run")
+    seed, raw_mse, _ = TF.FusionEngine(str(run), device="cuda")(lr, shifts,
+                                                                 psf)
+    check(np.isclose(raw_mse, mse_raw, rtol=1e-5),
+          f"raw fit {raw_mse} != {mse_raw}")
+    plain, _, plain_mse = landweber_refine(seed, lr, psf, shifts,
+                                           n_iter=BURST_REFINE,
+                                           device="cuda", plain=True)
+    refine_vs_plain = float(np.abs(sr - plain).max())
+    check(refine_vs_plain <= KERNEL_ATOL,
+          f"refine kernels vs plain rows {refine_vs_plain}")
+
+    # the banded registration (K1 on 5-tap bands) against the conv one
+    stack = eng.register_stack(lr, shifts)
+    ops = TF.build_register_phase_ops(shifts, *BURST_LR, 2, device="cuda")
+    reset_counts()
+    banded = TF.register_burst_phases_banded(lr, ops)
+    reg_launches = read_counts()["k1_f32"]
+    check(reg_launches == 4 * 2, f"banded registration {reg_launches} K1")
+    reg_vs_conv = float((banded - stack).abs().max())
+    reg_vs_plain = float((banded - TF.register_burst_phases_banded(
+        lr, ops, plain=True)).abs().max())
+    check(reg_vs_conv <= KERNEL_ATOL and reg_vs_plain <= KERNEL_ATOL,
+          f"banded registration vs conv {reg_vs_conv}, plain {reg_vs_plain}")
+
+    # bf16 trunk against the f32 engine, within 0.05 of the residual span
+    sr32, _, _ = TF.FusionEngine(str(run), device="cuda")(lr, shifts, psf)
+    eng16 = TF.FusionEngine(str(run), refine=BURST_REFINE, dtype="bf16",
+                            device="cuda")
+    sr16, _, _ = TF.FusionEngine(str(run), dtype="bf16", device="cuda")(
+        lr, shifts, psf)
+    base = eng.model.shift_and_add(stack[None])[0, ..., 0].cpu().numpy()
+    span = float(np.abs(sr32 - base).max())
+    bf16_err = float(np.abs(sr16 - sr32).max())
+    check(bf16_err <= EDSR_BF16_SHARE * span,
+          f"bf16 engine {bf16_err} > {EDSR_BF16_SHARE} x span {span}")
+
+    # the vjp refine: 2 iterations improve the fit
+    _, vjp_mse, vjp_raw = TF.FusionEngine(
+        str(run), refine=2, refine_engine="vjp", device="cuda")(lr, shifts,
+                                                                psf)
+    check(vjp_mse < vjp_raw, f"vjp refine {vjp_raw} -> {vjp_mse}")
+
+    # the whole engine at 4 x 128 x 160, cuda against cpu
+    small = lr[:, :128, :160]
+    got_c = TF.FusionEngine(str(run), refine=BURST_REFINE, device="cuda")(
+        small, shifts, psf)
+    got_h = TF.FusionEngine(str(run), refine=BURST_REFINE, device="cpu")(
+        small.cpu(), shifts, psf)
+    cpu_diff = _u8_diff(got_c[0], got_h[0])
+    check(cpu_diff <= 1, f"engine cuda vs cpu at 128x160: {cpu_diff}")
+
+    # warm time split of a unit, f32 and bf16
+    split = {}
+    for name, e in (("f32", eng), ("bf16", eng16)):
+        unit_ms, _ = _ms(torch, lambda: e(lr, shifts, psf))
+        reg_ms, st = _ms(torch, lambda: e.register_stack(lr, shifts))
+        trunk_ms, sr_t = _ms(torch, lambda: e.net(st))
+        refine_ms, _ = _ms(torch, lambda: landweber_refine(
+            sr_t, lr, psf, shifts, n_iter=BURST_REFINE, device="cuda"))
+        split[name] = {"unit_s": unit_ms / 1e3, "register_ms": reg_ms,
+                       "trunk_ms": trunk_ms,
+                       "refine_ms_per_iter": refine_ms / BURST_REFINE}
+    row.update(phase="burst", serve_lr=[4, *BURST_LR],
+               hr=list(fusion_png.shape), sr_run_s=sr_run_s,
+               sr_run_timings_s=metrics["timings_s"],
+               fusion_forward_mse=metrics["fusion_forward_mse"],
+               fusion_forward_mse_raw=metrics["fusion_forward_mse_raw"],
+               sr_run_launches=launches, refine_launches=refine_launches,
+               refine_vs_plain_max_abs=refine_vs_plain,
+               refine_final_mse=mse, refine_final_mse_plain=plain_mse,
+               banded_register_launches=reg_launches,
+               banded_register_vs_conv=reg_vs_conv,
+               bf16_vs_f32_max_abs=bf16_err, residual_span=span,
+               vjp2_mse=[vjp_raw, vjp_mse],
+               cuda_vs_cpu_u8_diff_128x160=cpu_diff, warm=split)
+    emit(row)
+    return row
+
+
 def _summary(name, source, replaces, launches, rows, head, card):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -1423,6 +1702,7 @@ def main() -> int:
         phase_adjoint(torch, mono)
         phase_conv(torch, mono)
         phase_prewarm_watch(torch, mono)
+        burst = phase_burst(torch)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 
@@ -1440,9 +1720,10 @@ def main() -> int:
                 if r["kernel"] == kernel and r["bands"] == dtype]
 
     entries = [
-        _summary("banded_rows", k1_src, k1_tpu, mono["launches"]["k1_f32"],
-                 k1("float32"), next(r for r in k1_rows if r["op"] == "fwd_r"),
-                 card),
+        dict(_summary("banded_rows", k1_src, k1_tpu,
+                      mono["launches"]["k1_f32"], k1("float32"),
+                      next(r for r in k1_rows if r["op"] == "fwd_r"), card),
+             fusion_refine_launches=burst["refine_launches"]),
         _summary("banded_rows_bf16", k1_src, k1_tpu, bf16_launches["k1_bf16"],
                  k1("bfloat16"),
                  next(r for r in k1_rows if r["op"] == "fwd_r_bf16"), card),

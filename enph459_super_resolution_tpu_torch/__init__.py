@@ -13,14 +13,20 @@ Ported so far: the classical SR main path (``sr.run`` -> pipeline ->
 solver) in the f32, bf16 and hybrid band stores, on the CUDA kernels
 ``csrc/banded_rows.cu`` and ``csrc/fused_ibp.cu``; and the neural serving
 path (SRCNN, ESPCN, FSRCNN, EDSR, BurstFusionLR, the fused-trunk serving
-functions and tiled inference) on ``csrc/trunk.cu``.
+functions and tiled inference) on ``csrc/trunk.cu``; and the learned burst
+engine (``ops.resize``, ``sr.fusion``, ``train.burst``, BurstFusion, served
+through ``sr.run --fusion-run``), whose refine and banded registration run
+``csrc/banded_rows.cu``.
 
 Subpackages
 -----------
 ops    host banded-operator construction, ``BandedOp``, the banded row,
-       fused IBP and residual-trunk kernels
-sr     classical solve, workload configs, session pipeline, CLI
+       fused IBP and residual-trunk kernels, Keys-cubic resize and shifts
+sr     classical solve, burst fusion, workload configs, session pipeline,
+       CLI
 models neural model zoo, fused-trunk serving, tiled inference
+train  burst-engine training: losses, train state, scene pools, trainer
+eval   image quality metrics
 data   PNG IO (PIL or a stdlib zlib codec), session layouts
 psf    Gaussian and measured PSF kernels
 utils  stage timing

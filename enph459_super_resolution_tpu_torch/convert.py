@@ -10,11 +10,14 @@ device: bf16 arrays are handed over as float32 (exact) and cast back there.
 The neural models' state is a flax parameter tree, handed over as nested
 dicts of numpy arrays with flax's automatic names; :func:`flax_state_dict`
 turns it into a ``state_dict`` of the port's models, whose modules carry
-the same names.
+the same names.  :func:`save_burst_run` writes a trained JAX burst run as a
+port run (``train.burst.load_burst_run`` serves it).
 """
 
 from __future__ import annotations
 
+import json
+import os
 from typing import Dict, Mapping
 
 import numpy as np
@@ -120,3 +123,28 @@ def load_flax_params(model: nn.Module, tree: Mapping) -> nn.Module:
     a missing or extra parameter, or a shape that differs, raises."""
     model.load_state_dict(flax_state_dict(tree), strict=True)
     return model
+
+
+def save_burst_run(out_dir: str, cfg: Mapping, flax_tree: Mapping) -> str:
+    """Write a JAX ``train.burst`` run as a port run under ``out_dir``.
+
+    ``cfg`` is the run's ``config.json`` (as a dict); ``flax_tree`` what the
+    JAX package's ``train.state.restore_checkpoint_numpy`` returns for the
+    run's ``ckpt`` directory (a numpy tree with ``params``,
+    ``ema_params``, ``step`` and ``opt_state``; run it where JAX is
+    installed).  Writes ``config.json`` and ``ckpt/<step>/state.pt`` with
+    the parameters and their EMA as the port model's state dicts.  The
+    optimizer state is not carried over (``opt_state`` None: a resumed run
+    starts a fresh Adam).  Returns the checkpoint's path.
+    """
+    from .train.state import save_checkpoint
+
+    step = int(np.asarray(flax_tree.get("step", 0)))
+    state = {"step": step,
+             "params": flax_state_dict(flax_tree["params"]),
+             "ema_params": flax_state_dict(flax_tree["ema_params"]),
+             "opt_state": None}
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "config.json"), "w") as fp:
+        json.dump(dict(cfg), fp, indent=2)
+    return save_checkpoint(os.path.join(out_dir, "ckpt"), state)

@@ -25,7 +25,8 @@ def resolve_device(name: str = "cuda") -> torch.device:
 
 
 def no_tf32(x: torch.Tensor) -> None:
-    """float32 convolutions on the card in full float32 (``x`` on cuda):
-    cuDNN's default is TF32, unlike matmul's."""
+    """float32 convolutions and matmuls on the card in full float32 (``x``
+    on cuda): cuDNN's default is TF32, and matmul's may have been set so."""
     if x.is_cuda:
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False

@@ -10,7 +10,8 @@ Module and parameter names mirror flax's automatic names (``Conv_0``,
 ``ResBlock_3``, ``Upsampler_0/Conv_1``, ``PReLU_2``), so a flax parameter
 tree maps onto a module's ``state_dict`` by one rule
 (:func:`..convert.flax_state_dict`).  Weights are float32; the models run
-in float32 (the bf16 serving path is ``models/fused.py``).
+in float32, the burst models also in bfloat16 (a :class:`Conv`'s compute
+``dtype``), and the fused bf16 serving path is ``models/fused.py``.
 """
 
 from __future__ import annotations
@@ -73,11 +74,16 @@ class MeanShift(nn.Module):
 class Conv(nn.Conv2d):
     """flax ``nn.Conv`` with an odd square kernel: NHWC in and out, 'SAME'
     zero padding, stride 1, bias.  The weight is OIHW (flax's kernel is
-    HWIO).  It is zero until :func:`init_flax_default` draws it."""
+    HWIO).  It is zero until :func:`init_flax_default` draws it.
+
+    ``dtype`` is the compute type, as flax's ``dtype=``: the weights stay
+    float32, and a bfloat16 conv casts its input, weight and bias to
+    bfloat16 and returns bfloat16."""
 
     def __init__(self, in_features: int, features: int, kernel: int,
-                 zero_init: bool = False):
+                 zero_init: bool = False, dtype: torch.dtype = torch.float32):
         self.zero_init = zero_init
+        self.compute_dtype = dtype
         super().__init__(in_features, features, kernel, padding=kernel // 2)
 
     def reset_parameters(self) -> None:
@@ -87,7 +93,12 @@ class Conv(nn.Conv2d):
 
     def forward(self, x):
         no_tf32(x)
-        return super().forward(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        x = x.permute(0, 3, 1, 2)
+        if self.compute_dtype == torch.float32:
+            return super().forward(x).permute(0, 2, 3, 1)
+        dt = self.compute_dtype
+        return self._conv_forward(x.to(dt), self.weight.to(dt),
+                                  self.bias.to(dt)).permute(0, 2, 3, 1)
 
 
 class PReLU(nn.Module):
@@ -126,13 +137,15 @@ def init_flax_default(module: nn.Module, generator: torch.Generator) -> None:
 
 
 class ResBlock(nn.Module):
-    """EDSR residual block: conv-relu-conv, residual-scaled, no batchnorm."""
+    """EDSR residual block: conv-relu-conv, residual-scaled, no batchnorm;
+    in the convs' compute ``dtype``."""
 
-    def __init__(self, features: int, res_scale: float = 1.0):
+    def __init__(self, features: int, res_scale: float = 1.0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.res_scale = res_scale
-        self.Conv_0 = Conv(features, features, 3)
-        self.Conv_1 = Conv(features, features, 3)
+        self.Conv_0 = Conv(features, features, 3, dtype=dtype)
+        self.Conv_1 = Conv(features, features, 3, dtype=dtype)
 
     def forward(self, x):
         r = self.Conv_1(torch.relu(self.Conv_0(x)))

@@ -8,9 +8,10 @@ through :func:`..device.resolve_device`) with flax's default
 initialisation drawn from ``generator`` (default: seed 0); trained weights
 come in through :func:`..convert.load_flax_params`.
 
-Ported: SRCNN, ESPCN, FSRCNN, EDSR (unrolled trunk) and BurstFusionLR.
-EDSR's ``scan_trunk`` and ``remat``, EDSRMoE, RRDBNet, the VGG-style
-discriminator and BurstFusion come with the training slice.
+Ported: SRCNN, ESPCN, FSRCNN, EDSR (unrolled trunk), and the burst models
+BurstFusion and BurstFusionLR with a compute ``dtype`` (float32 or
+bfloat16) as flax's.  EDSR's ``scan_trunk`` and ``remat``, EDSRMoE,
+RRDBNet and the VGG-style discriminator come with the training slice.
 """
 
 from __future__ import annotations
@@ -139,6 +140,50 @@ class EDSR(nn.Module):
         return self.MeanShift_1(x)
 
 
+class BurstFusion(nn.Module):
+    """Multi-frame (burst) fusion SR with the trunk on the HR grid:
+    N sub-pixel-shifted LR frames -> one HR image.
+
+    The caller registers each frame onto the HR grid with the known shifts
+    (``sr.fusion.register_burst``); input is the registered stack
+    ``(B, H, W, N)`` (0..255), output ``(B, H, W, 1)``: a residual over the
+    stack mean (the shift-and-add estimate) through a zero-initialised
+    head, so the untrained model reproduces shift-and-add.  ``dtype`` is
+    the trunk's compute type (float32 or bfloat16); the mean and the
+    output stay float32.
+    """
+
+    def __init__(self, n_frames: int = 4, n_feats: int = 48,
+                 n_resblocks: int = 6, rgb_range: float = 255.0,
+                 dtype: torch.dtype = torch.float32, *, device="cuda",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.n_frames, self.n_feats = n_frames, n_feats
+        self.n_resblocks, self.rgb_range = n_resblocks, rgb_range
+        self.dtype = dtype
+        self.Conv_0 = Conv(n_frames, n_feats, 3, dtype=dtype)
+        for i in range(n_resblocks):
+            self.add_module(f"ResBlock_{i}", ResBlock(n_feats, dtype=dtype))
+        self.Conv_1 = Conv(n_feats, 1, 3, zero_init=True, dtype=dtype)
+        _place(self, device, generator)
+
+    def blocks(self):
+        return [getattr(self, f"ResBlock_{i}")
+                for i in range(self.n_resblocks)]
+
+    def shift_and_add(self, x):
+        """The mean over the registered frames."""
+        return x.mean(dim=-1, keepdim=True)
+
+    def forward(self, x):
+        h = ((x - self.rgb_range / 2) / self.rgb_range).to(self.dtype)
+        h = self.Conv_0(h)
+        for block in self.blocks():
+            h = block(h)
+        res = self.Conv_1(h).float()
+        return self.shift_and_add(x) + res * self.rgb_range
+
+
 class BurstFusionLR(nn.Module):
     """Burst fusion with the trunk on the LR grid.
 
@@ -146,22 +191,26 @@ class BurstFusionLR(nn.Module):
     packed as ``f*f`` LR-grid phase channels.  The mean over frames of the
     phase stack, pixel-shuffled, is the shift-and-add estimate; the trunk
     adds a residual through a zero-initialised head, so the untrained model
-    reproduces shift-and-add.  Output ``(B, h*f, w*f, 1)``.
+    reproduces shift-and-add.  Output ``(B, h*f, w*f, 1)``.  ``dtype`` is
+    the trunk's compute type (float32 or bfloat16): the residual is cast
+    back to float32 before it is added to the float32 base.
     """
 
     def __init__(self, n_frames: int = 4, factor: int = 2,
                  n_feats: int = 64, n_resblocks: int = 8,
-                 rgb_range: float = 255.0, *, device="cuda",
+                 rgb_range: float = 255.0,
+                 dtype: torch.dtype = torch.float32, *, device="cuda",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.n_frames, self.factor = n_frames, factor
         self.n_feats, self.n_resblocks = n_feats, n_resblocks
         self.rgb_range = rgb_range
+        self.dtype = dtype
         ff = factor * factor
-        self.Conv_0 = Conv(n_frames * ff, n_feats, 3)
+        self.Conv_0 = Conv(n_frames * ff, n_feats, 3, dtype=dtype)
         for i in range(n_resblocks):
-            self.add_module(f"ResBlock_{i}", ResBlock(n_feats))
-        self.Conv_1 = Conv(n_feats, ff, 3, zero_init=True)
+            self.add_module(f"ResBlock_{i}", ResBlock(n_feats, dtype=dtype))
+        self.Conv_1 = Conv(n_feats, ff, 3, zero_init=True, dtype=dtype)
         _place(self, device, generator)
 
     def blocks(self):
@@ -182,10 +231,11 @@ class BurstFusionLR(nn.Module):
 
     def forward(self, x):
         self.check_input(x)
-        h = self.Conv_0((x - self.rgb_range / 2) / self.rgb_range)
+        h = ((x - self.rgb_range / 2) / self.rgb_range).to(self.dtype)
+        h = self.Conv_0(h)
         for block in self.blocks():
             h = block(h)
-        res = pixel_shuffle(self.Conv_1(h), self.factor)
+        res = pixel_shuffle(self.Conv_1(h).float(), self.factor)
         return self.shift_and_add(x) + res * self.rgb_range
 
 
@@ -193,6 +243,7 @@ MODELS = {
     "srcnn": SRCNN,
     "espcn": ESPCN,
     "fsrcnn": FSRCNN,
+    "burstfusion": BurstFusion,
     "burstfusion_lr": BurstFusionLR,
     "edsr": EDSR,
 }

@@ -5,7 +5,10 @@ the reference's session workflow (``mono_barcodes/run_sr.py:293-351``): per
 session/rep ``native_2x.png``, ``SAA.png``, ``SAA_IBP.png``,
 ``LR_mean.png``, ``comparison.png``, ``convergence.png`` and an idempotent
 ``done.flag`` sentinel, plus a ``metrics.json`` with per-stage wall-clock
-and the full MSE history.
+and the full MSE history.  With a learned burst engine
+(:class:`~.fusion.FusionEngine`, ``sr.run --fusion-run``) each unit also
+gets ``fusion.png`` and its forward-model MSE, side by side with the
+classical engine's.
 """
 
 from __future__ import annotations
@@ -80,10 +83,14 @@ def process_unit(session: SessionData, psf: np.ndarray, cfg: WorkloadConfig,
                  output_base: str, figures: bool = True,
                  force: bool = False, device="cuda", band_store: str = "f32",
                  fused: str = "auto", mm_precision: str = "HIGHEST",
-                 solver: str = "ibp", engine: str = "mm") -> Optional[str]:
+                 solver: str = "ibp", engine: str = "mm",
+                 fusion=None) -> Optional[str]:
     """Run one SR unit (a session or one rep) end to end; ``band_store``,
     ``fused``, ``mm_precision``, ``solver`` and ``engine`` are
-    :func:`~.classical.solve`'s.
+    :func:`~.classical.solve`'s.  ``fusion`` (a
+    :class:`~.fusion.FusionEngine`) runs after the solve, in the ``fusion``
+    stage: ``fusion.png``, ``fusion_forward_mse`` and, when it refines,
+    ``fusion_forward_mse_raw``.
 
     Returns the output dir, or None when skipped via ``done.flag``
     (idempotent resume, ``mono_barcodes/run_sr.py:306-308``).
@@ -105,6 +112,14 @@ def process_unit(session: SessionData, psf: np.ndarray, cfg: WorkloadConfig,
                        device=device, band_store=band_store, fused=fused,
                        mm_precision=mm_precision, solver=solver,
                        engine=engine)
+    if fusion is not None:
+        fusion.check(int(frames.shape[0]), cfg.upsample_factor)
+        with timer.stage("fusion"):
+            sr, fwd_mse, fwd_mse_raw = fusion(frames, session.shifts, psf)
+            result["fusion"] = sr
+            result["fusion_forward_mse"] = float(fwd_mse)
+            if fusion.refine > 0:
+                result["fusion_forward_mse_raw"] = float(fwd_mse_raw)
     return _write_unit_artifacts(session, result, cfg, output_base, figures,
                                  timer)
 
@@ -123,6 +138,9 @@ def _write_unit_artifacts(session: SessionData, result: Dict,
         }
         name_map = {"Native-2x": "native_2x", "SAA": "SAA",
                     "SAA+IBP": "SAA_IBP"}
+        if "fusion" in result:  # learned burst engine (additive artifact)
+            hr_images["Fusion"] = to_uint8(result["fusion"])
+            name_map["Fusion"] = "fusion"
         for name, img in hr_images.items():
             save_png(img, os.path.join(out_dir, f"{name_map[name]}.png"))
         save_png(to_uint8(result["lr_mean"]),
@@ -154,6 +172,9 @@ def _write_unit_artifacts(session: SessionData, result: Dict,
         "timings_s": timer.as_dict(),
         "hr_megapixels": float(np.prod(result["ibp"].shape)) / 1e6,
     }
+    for key in ("fusion_forward_mse", "fusion_forward_mse_raw"):
+        if key in result:
+            metrics[key] = result[key]
     with open(os.path.join(out_dir, "metrics.json"), "w") as fp:
         json.dump(metrics, fp, indent=2)
 
@@ -236,12 +257,14 @@ def process_workload(session_dirs, psf, cfg, output_base, figures=True,
                      force=False, batch_reps=True, max_batch: int = 4,
                      device="cuda", band_store: str = "f32",
                      fused: str = "auto", mm_precision: str = "HIGHEST",
-                     solver: str = "ibp", engine: str = "mm") -> int:
+                     solver: str = "ibp", engine: str = "mm",
+                     fusion=None) -> int:
     """Process many sessions with CROSS-SESSION unit batching: every
     pending unit across the workload joins one stream, and runs of
     consecutive units with identical (shape, shifts) solve as single
     batched device calls of up to ``max_batch`` (``mm`` engine; the
-    ``conv`` engine solves units one at a time).  The solve options are
+    ``conv`` engine, and every unit when the learned burst engine
+    ``fusion`` rides along, go one at a time).  The solve options are
     :func:`~.classical.solve`'s."""
     opts = dict(device=device, band_store=band_store, fused=fused,
                 mm_precision=mm_precision, solver=solver, engine=engine)
@@ -252,10 +275,12 @@ def process_workload(session_dirs, psf, cfg, output_base, figures=True,
         nonlocal buffer, n_done
         if not buffer:
             return
-        if len(buffer) == 1 or not batch_reps or engine != "mm":
+        if len(buffer) == 1 or not batch_reps or engine != "mm" \
+                or fusion is not None:
             for u in buffer:
                 if process_unit(u, psf, cfg, output_base, figures,
-                                force=True, **opts) is not None:
+                                force=True, fusion=fusion,
+                                **opts) is not None:
                     n_done += 1
         else:
             n_done += _solve_units_batched(buffer, psf, cfg, output_base,

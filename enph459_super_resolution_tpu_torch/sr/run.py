@@ -12,8 +12,10 @@ card is an error, never a quiet CPU run.  Flags mirror the reference CLI
 ``--force`` / ``--session``, rep batching, the IBP overrides, the band
 store (``--band-store {f32,bf16,hybrid[:tail]}``), the fused engine
 (``--fused-ibp {auto,on,off}``), ``--engine {mm,conv}``, ``--solver
-{ibp,adjoint}``, ``--mm-precision`` and serve mode (``--watch SECONDS``,
-``--watch-polls N``).
+{ibp,adjoint}``, ``--mm-precision``, serve mode (``--watch SECONDS``,
+``--watch-polls N``) and the learned burst engine (``--fusion-run RUN``,
+``--fusion-refine N``, ``--fusion-dtype``, ``--fusion-refine-engine``,
+``--fusion-refine-step``).
 """
 
 from __future__ import annotations
@@ -158,6 +160,28 @@ def main(argv=None) -> int:
     p.add_argument("--watch-polls", type=int, default=None,
                    help="stop serve mode after this many polls (default: "
                         "never)")
+    p.add_argument("--fusion-run", default=None, metavar="RUN_DIR",
+                   help="also run the learned burst engine (a trained "
+                        "train.burst run directory) on every unit, writing "
+                        "fusion.png and its forward-model MSE beside the "
+                        "classical artifacts")
+    p.add_argument("--fusion-refine", type=int, default=0, metavar="N",
+                   help="append N data-consistency (Landweber) iterations "
+                        "seeded from the fusion output (metrics.json then "
+                        "also reports fusion_forward_mse_raw)")
+    p.add_argument("--fusion-dtype", default="f32", choices=["f32", "bf16"],
+                   help="compute type of the burst net's convs; "
+                        "registration and refinement stay f32")
+    p.add_argument("--fusion-refine-engine", default="banded",
+                   choices=["banded", "vjp"],
+                   help="engine of --fusion-refine: banded = the adjoint "
+                        "banded operators of the unit's static shifts "
+                        "(landweber_refine; the scipy-exact forward "
+                        "model); vjp = autograd through the Keys-cubic "
+                        "forward model")
+    p.add_argument("--fusion-refine-step", type=float, default=2.0,
+                   help="Landweber step for --fusion-refine (2.0 is stable "
+                        "under the exact adjoint)")
     p.add_argument("--device", default="cuda", choices=DEVICES,
                    help="where the solve runs (default cuda; no fallback)")
     args = p.parse_args(argv)
@@ -186,6 +210,17 @@ def main(argv=None) -> int:
             ibp_iterations=n_iter if n_iter is not None
             else cfg.ibp_iterations,
             ibp_step=ibp_step if ibp_step is not None else cfg.ibp_step)
+    fusion = None
+    if args.fusion_run:
+        from .fusion import FusionEngine
+        fusion = FusionEngine(args.fusion_run, refine=args.fusion_refine,
+                              refine_step=args.fusion_refine_step,
+                              dtype=args.fusion_dtype,
+                              refine_engine=args.fusion_refine_engine,
+                              device=device)
+        if fusion.factor != cfg.upsample_factor:
+            p.error(f"--fusion-run was trained at x{fusion.factor}; "
+                    f"workload {cfg.name} is x{cfg.upsample_factor}")
     if args.psf == "measured":
         if not args.psf_dir:
             p.error("--psf measured requires --psf-dir")
@@ -206,7 +241,7 @@ def main(argv=None) -> int:
             max_batch=args.max_batch, device=device,
             band_store=args.band_store, fused=args.fused_ibp,
             mm_precision=args.mm_precision, solver=args.solver,
-            engine=args.engine)
+            engine=args.engine, fusion=fusion)
 
     if args.watch is not None:
         watch(list_sessions, serve, args.watch, args.watch_polls)

@@ -14,7 +14,7 @@ from enph459_super_resolution_tpu_torch.device import resolve_device
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "enph459_super_resolution_tpu_torch"
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "ml_dtypes",
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "ml_dtypes",
            "enph459_super_resolution_tpu")
 
 
@@ -28,6 +28,7 @@ def test_blocklist_minds_the_prefix():
     assert _blocked("enph459_super_resolution_tpu")
     assert _blocked("enph459_super_resolution_tpu.sr.classical")
     assert _blocked("jax.numpy")
+    assert _blocked("orbax.checkpoint")
     assert not _blocked("enph459_super_resolution_tpu_torch")
     assert not _blocked("enph459_super_resolution_tpu_torch.sr.run")
     assert not _blocked("jaxtyping")
@@ -63,8 +64,10 @@ def test_every_port_module_imports_with_jax_blocked():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     names = set(res.stdout.split())
-    assert len(names) >= 30  # every module was walked
-    for mod in ("ops.conv", "ops.resample", "sr.prewarm", "sr.hybrid_bound"):
+    assert len(names) >= 39  # every module was walked
+    for mod in ("ops.conv", "ops.resample", "sr.prewarm", "sr.hybrid_bound",
+                "ops.resize", "sr.fusion", "eval.metrics", "train.burst",
+                "train.data", "train.losses", "train.state"):
         assert f"enph459_super_resolution_tpu_torch.{mod}" in names, mod
 
 

@@ -2,7 +2,10 @@
 directories (``--device cpu`` for the port): the same artifacts within +-1
 uint8 for all four workloads (the rgb ones on RGGB mosaics, rgb_cal_target
 with its metadata shifts), ``metrics.json`` with the same keys,
-``done.flag`` resume, and serve mode (``--watch``)."""
+``done.flag`` resume, serve mode (``--watch``), and the learned burst
+engine (``--fusion-run``): ``fusion.png`` within +-1 uint8 of the JAX CLI's
+and ``fusion_forward_mse`` (and ``_raw``) within rtol 1e-4, the JAX run
+carried across with ``convert.save_burst_run``."""
 
 import json
 import os
@@ -179,3 +182,82 @@ def test_watch_serve_mode(sessions, tmp_path, monkeypatch, capsys):
     assert os.path.join("tiny_mono_session", "rep0") + " - already done" \
         in said
     assert "watch done: 5 unit(s) processed over 4 poll(s)" in said
+
+
+FUSION_CASES = {
+    "net_only": [],
+    "banded_refine": ["--fusion-refine", "3"],
+    "vjp_refine": ["--fusion-refine", "2", "--fusion-refine-engine", "vjp",
+                   "--fusion-refine-step", "1.5"],
+}
+
+
+@pytest.fixture(scope="module")
+def burst_runs(tmp_path_factory):
+    """A JAX burst run (LR arch) and its port copy."""
+    from test_torch_fusion import jax_burst_run, port_run_from_jax
+
+    base = tmp_path_factory.mktemp("fusion_runs")
+    jdir, tdir = str(base / "jax"), str(base / "port")
+    jax_burst_run(jdir)
+    port_run_from_jax(jdir, tdir)
+    return jdir, tdir
+
+
+@pytest.mark.parametrize("case", sorted(FUSION_CASES))
+def test_cli_fusion_run_matches_jax_cli(sessions, burst_runs, tmp_path,
+                                        case):
+    data, units = sessions["mono_barcodes"]
+    jdir, tdir = burst_runs
+    flags = FUSION_CASES[case]
+    out_j, out_t = str(tmp_path / "jax"), str(tmp_path / "torch")
+    assert jax_run.main(_args("mono_barcodes", data, out_j)
+                        + ["--fusion-run", jdir] + flags) == 0
+    assert torch_run.main(_args("mono_barcodes", data, out_t)
+                          + ["--fusion-run", tdir, "--device", "cpu"]
+                          + flags) == 0
+    for unit in units:
+        uj, ut = os.path.join(out_j, unit), os.path.join(out_t, unit)
+        a = load_image(os.path.join(uj, "fusion.png")).astype(int)
+        b = load_image(os.path.join(ut, "fusion.png")).astype(int)
+        assert a.shape == b.shape == (128, 160)
+        assert np.abs(a - b).max() <= 1, unit
+        mj = json.load(open(os.path.join(uj, "metrics.json")))
+        mt = json.load(open(os.path.join(ut, "metrics.json")))
+        assert set(mj) == set(mt)
+        assert "fusion" in mt["timings_s"]
+        keys = ["fusion_forward_mse"] + (["fusion_forward_mse_raw"]
+                                         if flags else [])
+        assert [k for k in mt if k.startswith("fusion")] == keys
+        for k in keys:
+            np.testing.assert_allclose(mt[k], mj[k], rtol=1e-4)
+        if flags:
+            assert mt["fusion_forward_mse"] < mt["fusion_forward_mse_raw"]
+
+
+def test_cli_fusion_without_a_card_exits_2(sessions, burst_runs, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    data, _ = sessions["mono_barcodes"]
+    out = tmp_path / "out"
+    with pytest.raises(SystemExit) as exc:
+        torch_run.main(_args("mono_barcodes", data, str(out))
+                       + ["--fusion-run", burst_runs[1]])
+    assert exc.value.code == 2
+    assert not out.exists()
+
+
+def test_cli_fusion_factor_check(sessions, burst_runs, tmp_path,
+                                 monkeypatch):
+    """A workload at another factor than the run's is refused (exit 2)."""
+    import dataclasses
+
+    from enph459_super_resolution_tpu_torch.sr import config
+
+    data, _ = sessions["mono_barcodes"]
+    monkeypatch.setitem(config.WORKLOADS, "mono_barcodes", dataclasses.replace(
+        config.WORKLOADS["mono_barcodes"], upsample_factor=3))
+    with pytest.raises(SystemExit) as exc:
+        torch_run.main(_args("mono_barcodes", data, str(tmp_path / "o"))
+                       + ["--fusion-run", burst_runs[1], "--device", "cpu"])
+    assert exc.value.code == 2
