@@ -120,6 +120,30 @@ or of the JAX package.  Phases, one JSON line each:
    of cpu; the warm time of a unit in f32 and bf16, split into
    registration, trunk and refine per iteration.
 
+17. train -- the SR training loop at full width.  ``train.loop.train``
+   on cuda: EDSR-baseline x4 (16 x 64), batch 16, LR patch 48, L1, the
+   synthetic pool, 200 steps (checkpoints and evals at 100 and 200), then
+   a second call to 300 that resumes at 200: the step-200 checkpoint
+   restores bit for bit, ``metrics.jsonl`` reaches 300, the last logged
+   loss is below the first, no hand-written kernel runs while training;
+   steps/s, HR Mpix/s, peak memory and one profiled step's idle share.
+   ``train.evaluate --run <run> --tiled`` exits 0; the EMA weights serve
+   through ``make_edsr_fused_apply`` (f32 and bf16) on the run's eval
+   split, one image a request: 32 K4 launches per request, within
+   ``EDSR_F32_SHARE`` / ``EDSR_BF16_SHARE`` of the output's span of the
+   module's forward.  ESRGAN: RRDBNet 23 x 64, gc 32, x4, batch 16, LR
+   patch 48, an L1 pretrain of 20 steps, then 20 ``gan=True`` steps from
+   it (``init_from``), a seeded random VGG19 ``.pth`` for the perceptual
+   term, ``d_every=2``, ``instance_noise=2.0``: finite losses, 10 D
+   updates, the generator's EMA continuing the pretrain's, ``train.evaluate
+   --interp-run --alpha 0.8`` exits 0; steps/s and peak memory per stage.
+   One GAN step at small width (RRDBNet 2 x 16, D nf 16, VGG19 features)
+   from the same state and noise on cuda and on cpu: metrics within rtol
+   1e-4, the generator's parameters and EMA within 0.01 of the rate, D's
+   within 3 rates, and all but 1 in 10,000 of them outside the two Dense
+   biases within 0.01 of the rate (RaGAN leaves some of D's gradients at
+   rounding level, ``tests/test_torch_gan.py``).
+
 Then the ``kernels`` summary line, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Any failure raises and exits non-zero with no result line; so does a run
@@ -559,10 +583,12 @@ def phase_profile(torch, run_solve, what: str):
         run_solve()
         wall_s = time.perf_counter() - t0
     # device-side events only (kernels, copies): the aten ops that launch
-    # them carry the same device time again
+    # them carry the same device time again, and so do the device spans
+    # of user annotations (the optimizer's step and zero_grad)
     kernels = [(e.key, e.self_device_time_total, e.count)
                for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
                and e.self_device_time_total > 0]
     busy_us = sum(t for _, t, _ in kernels)
     top = sorted(kernels, key=lambda k: -k[1])[:12]
@@ -1657,6 +1683,307 @@ def phase_burst(torch):
     return row
 
 
+TRAIN_STEPS, TRAIN_RESUME, TRAIN_EVERY = 300, 200, 100
+RRDB_STEPS = 20
+RRDB_KW = {"nb": 23, "nf": 64, "gc": 32}
+ADAM_STEP_BOUND = 10  # |Adam update| <= 10 x the rate, a loose bound
+
+
+def _vgg19_pth(torch, path: Path) -> None:
+    """A seeded random VGG19 in torchvision's state-dict layout (He-scaled
+    convs, zero biases): the perceptual term's weights for the GAN runs."""
+    from enph459_super_resolution_tpu_torch.train.vgg import (
+        _TORCH_CONV_INDICES, VGG19_BLOCKS)
+
+    g = torch.Generator().manual_seed(SEED + 9)
+    widths = [w for _, n, w in VGG19_BLOCKS for _ in range(n)]
+    sd, cin = {}, 3
+    for idx, w in zip(_TORCH_CONV_INDICES, widths):
+        sd[f"features.{idx}.weight"] = torch.randn(
+            (w, cin, 3, 3), generator=g) * (2.0 / (9 * cin)) ** 0.5
+        sd[f"features.{idx}.bias"] = torch.zeros(w)
+        cin = w
+    path.parent.mkdir(parents=True, exist_ok=True)
+    torch.save(sd, path)
+
+
+def _records(path: Path):
+    return [json.loads(ln) for ln in path.read_text().splitlines()]
+
+
+def _steps_per_s(recs, a: int, b: int) -> float:
+    w = {r["step"]: r["wall_s"] for r in recs}
+    return (b - a) / (w[b] - w[a])
+
+
+def _gan_step_cuda_vs_cpu(torch, vgg_path: Path) -> dict:
+    """One GAN step at small width on cuda and on cpu, from the same
+    parameters, batch and instance noise."""
+    from enph459_super_resolution_tpu_torch.models import (
+        RRDBNet, VGGStyleDiscriminator)
+    from enph459_super_resolution_tpu_torch.train import losses as TL
+    from enph459_super_resolution_tpu_torch.train import state as TS
+    from enph459_super_resolution_tpu_torch.train import vgg as TV
+
+    cfg = TS.TrainConfig(learning_rate=1e-4)
+    rng = np.random.default_rng(SEED + 10)
+    lr = torch.as_tensor(rng.uniform(0, 255, (2, 12, 12, 3)),
+                         dtype=torch.float32)
+    hr = torch.as_tensor(rng.uniform(0, 255, (2, 48, 48, 3)),
+                         dtype=torch.float32)
+    noise = [torch.randn(hr.shape, generator=torch.Generator().manual_seed(
+        SEED + 11 + k)) for k in range(4)]
+    got = {}
+    for dev in ("cuda", "cpu"):
+        g = RRDBNet(scale=4, nb=2, nf=16, gc=8, device=dev,
+                    generator=torch.Generator().manual_seed(SEED))
+        d = VGGStyleDiscriminator(nf=16, device=dev,
+                                  generator=torch.Generator().manual_seed(1))
+        st = TS.GANTrainState(TS.TrainState.create(g, cfg), d,
+                              TS.make_optimizer(cfg, d.parameters()),
+                              TS.GANBalance(gan_weight=0.1,
+                                            instance_noise=2.0))
+        feat = TV.make_vgg_feature_fn(TV.load_torch_vgg19(str(vgg_path)),
+                                      device=dev)
+        step = TS.make_gan_train_step(cfg, percep_loss=TL.PerceptualLoss(feat))
+        m = step(st, lr.to(dev), hr.to(dev), [n.to(dev) for n in noise])
+        got[dev] = ({k: float(v) for k, v in m.items()},
+                    {k: v.detach().cpu() for k, v in st.g.params.items()},
+                    {k: v.cpu() for k, v in st.g.ema_params.items()},
+                    {k: v.detach().cpu() for k, v in d.named_parameters()})
+    (mc, gc_, ec, dc), (mh, gh, eh, dh) = got["cuda"], got["cpu"]
+    metric_rel = max(abs(mc[k] - mh[k]) / abs(mh[k]) for k in mh if mh[k])
+    g_dev = max(float((gc_[k] - gh[k]).abs().max()) for k in gh)
+    ema_dev = max(float((ec[k] - eh[k]).abs().max()) for k in eh)
+    tol = BURST_STEP_LR_SHARE * cfg.learning_rate
+    # D: RaGAN's shift invariance leaves Dense_0/Dense_1's biases (and a
+    # few elements behind them) with rounding-noise gradients, which Adam
+    # turns into steps of up to the rate in either direction; cuDNN's
+    # summation order varies from run to run, so the count of such
+    # elements does too: at most 1 in 10,000 of the rest may differ
+    # by more than 0.01 of the rate, every element by at most 3 rates
+    n_off = n_all = 0
+    d_max = 0.0
+    for k in dh:
+        diff = (dc[k] - dh[k]).abs()
+        d_max = max(d_max, float(diff.max()))
+        if k not in ("Dense_0.bias", "Dense_1.bias"):
+            n_off += int((diff > tol).sum())
+            n_all += diff.numel()
+    check(metric_rel <= BURST_STEP_RTOL,
+          f"GAN step cuda vs cpu: metrics differ by {metric_rel}")
+    check(max(g_dev, ema_dev) <= tol,
+          f"GAN step cuda vs cpu: generator differs by "
+          f"{max(g_dev, ema_dev) / cfg.learning_rate} of the rate")
+    check(d_max <= 3 * cfg.learning_rate and n_off <= n_all * 1e-4,
+          f"GAN step cuda vs cpu: D differs by {d_max} ({n_off} elements "
+          f"beyond 0.01 of the rate)")
+    return {"metric_rel": metric_rel,
+            "g_param_dev_lr": g_dev / cfg.learning_rate,
+            "g_ema_dev_lr": ema_dev / cfg.learning_rate,
+            "d_param_max_dev_lr": d_max / cfg.learning_rate,
+            "d_elements_beyond_0.01_lr": n_off, "d_elements": n_all}
+
+
+def _serve_trained_edsr(torch, run: Path) -> dict:
+    """The run's EMA EDSR through the fused trunk (K4) on its eval split,
+    one image a request, f32 and bf16, against the module's forward."""
+    from enph459_super_resolution_tpu_torch.models import EDSR
+    from enph459_super_resolution_tpu_torch.models.fused import \
+        make_edsr_fused_apply
+    from enph459_super_resolution_tpu_torch.ops.resize import \
+        bicubic_degrade
+    from enph459_super_resolution_tpu_torch.train import evaluate as TE
+    from enph459_super_resolution_tpu_torch.train.data import \
+        synthetic_scene_pool
+
+    weights, step = TE.load_run_weights(str(run), device="cuda")
+    model = EDSR(scale=4, channels=3, device="cuda")
+    model.load_state_dict(weights, strict=True)
+    model.eval().requires_grad_(False)
+    pool = synthetic_scene_pool(n_images=32, size=208, channels=3,
+                                seed=0)[:4]  # the run's eval split
+    inputs = [bicubic_degrade(torch.as_tensor(img, device="cuda")[None], 4)
+              for img in pool]
+    mean = torch.tensor([0.4488, 0.4371, 0.4040], device="cuda") * 255.0
+    out = {"step": step, "requests": len(inputs),
+           "lr": list(inputs[0].shape)}
+    with torch.no_grad():
+        wants = [model(x) for x in inputs]
+    span = max((w - mean).abs().max().item() for w in wants)
+    for dtype in (torch.float32, torch.bfloat16):
+        key = "k4_bf16" if dtype == torch.bfloat16 else "k4_f32"
+        fn = make_edsr_fused_apply(model, dtype=dtype)
+        fn(inputs[0])  # warm-up
+        reset_counts()
+        times, err = [], 0.0
+        for x, want in zip(inputs, wants):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = fn(x)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            check(tuple(got.shape) == tuple(want.shape)
+                  and bool(torch.isfinite(got).all()),
+                  f"trained edsr {dtype}: output {tuple(got.shape)}")
+            err = max(err, (got - want).abs().max().item())
+        launches = read_counts()
+        expected = dict.fromkeys(launches, 0)
+        expected[key] = 32 * len(inputs)
+        check(launches == expected, f"trained edsr {dtype}: launches "
+                                    f"{launches}, expected {expected}")
+        bound = (EDSR_F32_SHARE if dtype == torch.float32
+                 else EDSR_BF16_SHARE) * span
+        check(err <= bound, f"trained edsr {dtype}: max|fused - module| "
+                            f"{err} > {bound}")
+        out[key] = {"launches": launches[key], "max_abs_vs_module": err,
+                    "bound": bound, "request_s": sorted(times)[len(times) // 2]}
+    out["output_span"] = span
+    return out
+
+
+def phase_train(torch):
+    """train.loop / train.evaluate at full width: EDSR-baseline x4 with a
+    resume, its EMA weights served through K4, the ESRGAN pretrain and GAN
+    fine-tune at RRDB-23 width, and one GAN step cuda against cpu."""
+    from enph459_super_resolution_tpu_torch.models import EDSR
+    from enph459_super_resolution_tpu_torch.train import evaluate as TE
+    from enph459_super_resolution_tpu_torch.train import loop as TL
+    from enph459_super_resolution_tpu_torch.train import state as TS
+    from enph459_super_resolution_tpu_torch.train.data import (
+        PatchConfig, make_patch_sampler, synthetic_scene_pool)
+
+    work = WORK / "train"
+    run = work / "edsr"
+    kw = dict(model_name="edsr", scale=4, batch=16, lr_patch=48, loss="l1",
+              channels=3, out_dir=str(run), eval_every=TRAIN_EVERY,
+              ckpt_every=TRAIN_EVERY, device="cuda")
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    TL.train(steps=TRAIN_RESUME, **kw)
+    first_s = time.perf_counter() - t0
+    saved = TS.load_checkpoint(str(run / "ckpt"), TRAIN_RESUME)
+    t0 = time.perf_counter()
+    final = TL.train(steps=TRAIN_STEPS, **kw)
+    resume_s = time.perf_counter() - t0
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    train_launches = read_counts()
+    check(not any(train_launches.values()),
+          f"training launched hand-written kernels: {train_launches}")
+    recs = _records(run / "metrics.jsonl")
+    steps = [r["step"] for r in recs]
+    check(steps == [1, 50, 100, 150, 200, 201, 250, 300],
+          f"edsr metrics.jsonl steps {steps}")
+    check(all(_finite(r) for r in recs) and _finite(final),
+          "edsr training: a non-finite number")
+    check(recs[-1]["loss"] < recs[0]["loss"],
+          f"edsr loss {recs[0]['loss']} -> {recs[-1]['loss']}")
+    check(TS.checkpoint_steps(str(run / "ckpt")) == [TRAIN_RESUME,
+                                                     TRAIN_STEPS],
+          "edsr checkpoints")
+
+    # the step-200 checkpoint restores bit for bit
+    cfg = TS.TrainConfig(learning_rate=1e-4, lr_halve_every=TRAIN_STEPS // 2)
+    st = TS.TrainState.create(EDSR(scale=4, channels=3, device="cuda"), cfg)
+    st.load_state_dict(saved)
+    back = st.state_dict()
+    exact = back["step"] == TRAIN_RESUME and all(
+        torch.equal(back[part][k].cpu(), saved[part][k])
+        for part in ("params", "ema_params") for k in saved[part])
+    for key, v in saved["opt_state"]["state"].items():
+        exact &= all(torch.equal(v[k], back["opt_state"]["state"][key][k]
+                                 .cpu()) for k in v)
+    check(exact, "resume from the step-200 checkpoint not exact")
+
+    steps_per_s = _steps_per_s(recs, 201, TRAIN_STEPS)
+    hr_mpix = 16 * (48 * 4) ** 2 / 1e6
+    # one profiled step (the restored state, a fresh batch)
+    pool = synthetic_scene_pool(n_images=32, size=208, channels=3, seed=0)
+    sampler = make_patch_sampler(pool[4:], PatchConfig(), seed=0,
+                                 device="cuda", start=TRAIN_STEPS)
+    step_fn = TS.make_train_step(cfg)
+    lr_b, hr_b = next(sampler)
+    step_fn(st, lr_b, hr_b)  # warm-up
+    torch.cuda.synchronize()
+    busy_s, prof_s = phase_profile(
+        torch, lambda: (step_fn(st, lr_b, hr_b), torch.cuda.synchronize()),
+        "one EDSR-baseline x4 train step, batch 16 x 48x48 LR, f32")
+
+    t0 = time.perf_counter()
+    check(TE.main(["--run", str(run), "--tiled"]) == 0,
+          "train.evaluate --tiled failed")
+    eval_tiled_s = time.perf_counter() - t0
+    serve = _serve_trained_edsr(torch, run)
+
+    # ESRGAN: L1 pretrain, then the GAN fine-tune from it
+    rkw = dict(model_name="rrdbnet", scale=4, batch=16, lr_patch=48,
+               channels=3, model_kwargs=RRDB_KW, eval_every=RRDB_STEPS,
+               ckpt_every=RRDB_STEPS, steps=RRDB_STEPS, device="cuda")
+    pre, gan = work / "rrdb_pre", work / "rrdb_gan"
+    vgg = work / "vgg19.pth"
+    _vgg19_pth(torch, vgg)
+    stages = {}
+    for name, out, extra in (
+            ("pretrain", pre, {}),
+            ("gan", gan, dict(gan=True, init_from=str(pre),
+                              vgg_weights=str(vgg), d_every=2,
+                              instance_noise=2.0))):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        fin = TL.train(out_dir=str(out), **rkw, **extra)
+        wall = time.perf_counter() - t0
+        rr = _records(out / "metrics.jsonl")
+        check([r["step"] for r in rr] == [1, RRDB_STEPS] and
+              all(_finite(r) for r in rr) and _finite(fin),
+              f"rrdbnet {name}: records {rr}, final {fin}")
+        stages[name] = {
+            "train_s": wall, "steps_per_s": _steps_per_s(rr, 1, RRDB_STEPS),
+            "peak_mem_mb": torch.cuda.max_memory_allocated() / 2 ** 20,
+            "first": rr[0], "last": rr[-1], "final_eval": fin}
+    ck_pre = TS.load_checkpoint(str(pre / "ckpt"))
+    ck_gan = TS.load_checkpoint(str(gan / "ckpt"))
+    d_updates = int(ck_gan["d_opt_state"]["state"][0]["step"])
+    check(d_updates == RRDB_STEPS // 2, f"D took {d_updates} updates")
+    # the generator's EMA continues the pretrain's: after n steps it is
+    # d^n ema_pre + (1 - d^n) params_pre, give or take n Adam steps
+    decay, n = TS.TrainConfig().ema_decay, RRDB_STEPS
+    ema_dev = max(float((ck_gan["g"]["ema_params"][k]
+                         - decay ** n * ck_pre["ema_params"][k]
+                         - (1 - decay ** n) * ck_pre["params"][k])
+                        .abs().max()) for k in ck_pre["params"])
+    ema_bound = (1 - decay ** n) * n * ADAM_STEP_BOUND * 1e-4
+    check(ema_dev <= ema_bound,
+          f"GAN EMA {ema_dev} from the pretrain's continuation > "
+          f"{ema_bound}")
+    t0 = time.perf_counter()
+    check(TE.main(["--run", str(pre), "--interp-run", str(gan),
+                   "--alpha", "0.8"]) == 0, "train.evaluate --interp-run")
+    interp_s = time.perf_counter() - t0
+
+    step_cmp = _gan_step_cuda_vs_cpu(torch, vgg)
+    row = {"phase": "train",
+           "edsr": {"n_resblocks": 16, "n_feats": 64, "batch": 16,
+                    "lr_patch": 48, "steps": TRAIN_STEPS,
+                    "resumed_at": TRAIN_RESUME, "first_call_s": first_s,
+                    "resume_call_s": resume_s, "steps_per_s": steps_per_s,
+                    "hr_mpix_per_s": steps_per_s * hr_mpix,
+                    "peak_mem_mb": peak_mb, "resume_exact": exact,
+                    "losses": {r["step"]: r["loss"] for r in recs},
+                    "final_eval": final, "profiled_step_s": prof_s,
+                    "device_busy_s": busy_s,
+                    "device_idle_share": 1.0 - busy_s / prof_s,
+                    "evaluate_tiled_s": eval_tiled_s},
+           "serve_trained": serve,
+           "rrdb": {**RRDB_KW, "batch": 16, "lr_patch": 48,
+                    "steps": RRDB_STEPS, **stages, "d_updates": d_updates,
+                    "gan_ema_dev": ema_dev, "gan_ema_bound": ema_bound,
+                    "evaluate_interp_s": interp_s},
+           "gan_step_cuda_vs_cpu": step_cmp}
+    emit(row)
+    return row
+
+
 def _summary(name, source, replaces, launches, rows, head, card):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -1703,6 +2030,7 @@ def main() -> int:
         phase_conv(torch, mono)
         phase_prewarm_watch(torch, mono)
         burst = phase_burst(torch)
+        train = phase_train(torch)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 
@@ -1751,9 +2079,11 @@ def main() -> int:
                 for k in ("kernel_ms", "kernel_device_ms", "plain_ms",
                           "library_ms", "bound_ms")}
         head.update(op="edsr block, per launch", bound_by=block[0]["bound_by"])
-        entries.append(_summary(
-            "trunk" + ("_bf16" if dtype == "bfloat16" else ""), trunk_src,
-            trunk_tpu, edsr[key]["launches"][key], rows, head, card))
+        entries.append(dict(
+            _summary("trunk" + ("_bf16" if dtype == "bfloat16" else ""),
+                     trunk_src, trunk_tpu, edsr[key]["launches"][key], rows,
+                     head, card),
+            trained_serve_launches=train["serve_trained"][key]["launches"]))
     emit({"kernels": entries})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -85,10 +85,12 @@ def flax_state_dict(tree: Mapping) -> Dict[str, torch.Tensor]:
     """A flax parameter tree (``{"params": ...}`` or its contents) as a
     ``state_dict`` of the port's model of the same architecture.
 
-    ``a/b/kernel`` (HWIO ``[kh, kw, in, out]``) becomes ``a.b.weight``
-    (OIHW, as ``F.conv2d`` takes it), ``a/b/bias`` stays ``a.b.bias`` and a
-    PReLU's ``negative_slope`` keeps its name.  Raises for a scan-layout
-    EDSR tree (``head``/``trunk``/...): the port has the unrolled layout only.
+    ``a/b/kernel`` becomes ``a.b.weight``: a conv's HWIO ``[kh, kw, in,
+    out]`` as OIHW (as ``F.conv2d`` takes it), a ``Dense``'s ``[in, out]``
+    as ``[out, in]`` (as ``nn.Linear`` holds it).  A ``GroupNorm``'s
+    ``scale`` becomes ``weight``; ``bias`` and a PReLU's ``negative_slope``
+    keep their names.  Raises for a scan-layout EDSR tree
+    (``head``/``trunk``/...): the port has the unrolled layout only.
     """
     tree = tree.get("params", tree)
     if "trunk" in tree or "head" in tree:
@@ -104,11 +106,14 @@ def flax_state_dict(tree: Mapping) -> Dict[str, torch.Tensor]:
                 continue
             a = np.asarray(value, dtype=np.float32)
             if key == "kernel":
-                if a.ndim != 4:
-                    raise ValueError(f"{prefix}kernel: expected HWIO, got "
-                                     f"shape {a.shape}")
+                if a.ndim not in (2, 4):
+                    raise ValueError(f"{prefix}kernel: expected HWIO or "
+                                     f"[in, out], got shape {a.shape}")
                 out[prefix + "weight"] = torch.from_numpy(
-                    np.ascontiguousarray(a.transpose(3, 2, 0, 1)))
+                    np.ascontiguousarray(a.T if a.ndim == 2
+                                         else a.transpose(3, 2, 0, 1)))
+            elif key == "scale":
+                out[prefix + "weight"] = torch.from_numpy(a.copy())
             elif key in ("bias", "negative_slope"):
                 out[prefix + key] = torch.from_numpy(a.copy())
             else:

@@ -20,6 +20,7 @@ import math
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..device import no_tf32
@@ -72,33 +73,83 @@ class MeanShift(nn.Module):
 
 
 class Conv(nn.Conv2d):
-    """flax ``nn.Conv`` with an odd square kernel: NHWC in and out, 'SAME'
-    zero padding, stride 1, bias.  The weight is OIHW (flax's kernel is
-    HWIO).  It is zero until :func:`init_flax_default` draws it.
+    """flax ``nn.Conv``: NHWC in and out, 'SAME' zero padding, bias.  The
+    weight is OIHW (flax's kernel is HWIO).  It is zero until
+    :func:`init_flax_default` draws it, with variance ``init_variance /
+    fan_in`` (1: flax's lecun_normal default).
+
+    An odd kernel at stride 1 pads ``kernel // 2`` on every side.  Any other
+    (an even kernel, a stride) pads as flax's 'SAME' does, by the input's
+    size: ``ceil(n / stride)`` outputs, the total padding
+    ``max((ceil(n / stride) - 1) * stride + kernel - n, 0)`` split with the
+    extra element after (a 4x4 stride-2 conv pads (1, 1) on an even side,
+    (1, 2) on an odd one).
 
     ``dtype`` is the compute type, as flax's ``dtype=``: the weights stay
     float32, and a bfloat16 conv casts its input, weight and bias to
     bfloat16 and returns bfloat16."""
 
     def __init__(self, in_features: int, features: int, kernel: int,
-                 zero_init: bool = False, dtype: torch.dtype = torch.float32):
+                 zero_init: bool = False, dtype: torch.dtype = torch.float32,
+                 stride: int = 1, init_variance: float = 1.0):
         self.zero_init = zero_init
         self.compute_dtype = dtype
-        super().__init__(in_features, features, kernel, padding=kernel // 2)
+        self.init_variance = init_variance
+        self.same_by_size = stride != 1 or kernel % 2 == 0
+        super().__init__(in_features, features, kernel, stride=stride,
+                         padding=0 if self.same_by_size else kernel // 2)
 
     def reset_parameters(self) -> None:
         # no draw from the global generator; init_flax_default draws
         nn.init.zeros_(self.weight)
         nn.init.zeros_(self.bias)
 
+    def _same_pad(self, x):
+        pads = []
+        for n, k, s in zip(x.shape[-2:], self.kernel_size, self.stride):
+            total = max((-(-n // s) - 1) * s + k - n, 0)
+            pads.append((total // 2, total - total // 2))
+        (top, bottom), (left, right) = pads
+        return F.pad(x, (left, right, top, bottom))
+
     def forward(self, x):
         no_tf32(x)
         x = x.permute(0, 3, 1, 2)
+        if self.same_by_size:
+            x = self._same_pad(x)
         if self.compute_dtype == torch.float32:
             return super().forward(x).permute(0, 2, 3, 1)
         dt = self.compute_dtype
         return self._conv_forward(x.to(dt), self.weight.to(dt),
                                   self.bias.to(dt)).permute(0, 2, 3, 1)
+
+
+class Dense(nn.Linear):
+    """flax ``nn.Dense``: ``x @ kernel + bias`` on the last axis; the weight
+    is ``[out, in]`` (flax's kernel is ``[in, out]``), zero until
+    :func:`init_flax_default` draws it (lecun_normal)."""
+
+    init_variance = 1.0
+
+    def reset_parameters(self) -> None:
+        nn.init.zeros_(self.weight)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x):
+        no_tf32(x)
+        return super().forward(x)
+
+
+class GroupNorm(nn.GroupNorm):
+    """flax ``nn.GroupNorm``: groups of consecutive channels of an NHWC
+    tensor, epsilon 1e-6 (torch's default is 1e-5), scale 1 and bias 0 at
+    initialisation (flax's ``scale`` is the ``weight`` here)."""
+
+    def __init__(self, num_groups: int, features: int, eps: float = 1e-6):
+        super().__init__(num_groups, features, eps=eps)
+
+    def forward(self, x):
+        return super().forward(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
 
 
 class PReLU(nn.Module):
@@ -114,19 +165,21 @@ class PReLU(nn.Module):
 
 def init_flax_default(module: nn.Module, generator: torch.Generator) -> None:
     """flax's default initialisation, drawn from ``generator`` in module
-    order: every :class:`Conv` kernel lecun-normal (a truncated normal of
-    variance 1/fan_in), or zero where the conv is ``zero_init``; every bias
-    zero.  The values differ from flax's, whose generator is another."""
+    order: every :class:`Conv` and :class:`Dense` weight a truncated normal
+    of variance ``init_variance / fan_in`` (lecun_normal at 1; the ESRGAN
+    dense blocks' scaled He init at ``2 * 0.1**2``), or zero where the conv
+    is ``zero_init``; every bias zero.  :class:`GroupNorm` keeps scale 1 and
+    bias 0.  The values differ from flax's, whose generator is another."""
     with torch.no_grad():
         for m in module.modules():
-            if not isinstance(m, Conv):
+            if not isinstance(m, (Conv, Dense)):
                 continue
             m.bias.zero_()
-            if m.zero_init:
+            if getattr(m, "zero_init", False):
                 m.weight.zero_()
                 continue
             fan_in = m.weight[0].numel()
-            std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+            std = math.sqrt(m.init_variance / fan_in) / _TRUNC_STD
             # inverse-CDF draw of a standard normal truncated to [-2, 2]
             lo = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
             u = torch.rand(m.weight.shape, generator=generator,

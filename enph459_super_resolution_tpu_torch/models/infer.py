@@ -32,6 +32,10 @@ def receptive_field_radius(model: nn.Module) -> int:
         n = getattr(model, "n_resblocks", 16)
         convs = 2 + 2 * n + 2 + 1  # head + blocks + tail + up convs
         return convs + 2
+    if name == "rrdbnet":
+        nb = getattr(model, "nb", 23)
+        convs = 2 + 15 * nb + 3
+        return convs + 2
     raise ValueError(f"unknown model {name}; pass halo explicitly")
 
 

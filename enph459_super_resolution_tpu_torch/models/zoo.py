@@ -8,10 +8,17 @@ through :func:`..device.resolve_device`) with flax's default
 initialisation drawn from ``generator`` (default: seed 0); trained weights
 come in through :func:`..convert.load_flax_params`.
 
-Ported: SRCNN, ESPCN, FSRCNN, EDSR (unrolled trunk), and the burst models
-BurstFusion and BurstFusionLR with a compute ``dtype`` (float32 or
-bfloat16) as flax's.  EDSR's ``scan_trunk`` and ``remat``, EDSRMoE,
-RRDBNet and the VGG-style discriminator come with the training slice.
+Ported: SRCNN, ESPCN, FSRCNN, EDSR (unrolled trunk, with ``remat``), the
+ESRGAN generator RRDBNet and its VGG-style discriminator, and the burst
+models BurstFusion and BurstFusionLR with a compute ``dtype`` (float32 or
+bfloat16) as flax's.  EDSR's ``scan_trunk`` and EDSRMoE exist for the
+pipeline- and expert-parallel meshes and come with ``parallel/`` (ROADMAP
+Queue 1 item 9).
+
+``remat`` recomputes each residual block (EDSR) or RRDB (RRDBNet) in the
+backward pass (``torch.utils.checkpoint``), as flax's ``nn.remat``: the
+same gradients for a trunk's activation memory.  flax names a rematted
+block ``CheckpointResBlock_i`` / ``CheckpointRRDB_i``, and so does the port.
 """
 
 from __future__ import annotations
@@ -19,11 +26,16 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
-from .common import (Conv, MeanShift, PReLU, ResBlock, Upsampler,
-                     init_flax_default, pixel_shuffle)
+from .common import (Conv, Dense, GroupNorm, MeanShift, PReLU, ResBlock,
+                     Upsampler, init_flax_default, pixel_shuffle)
+
+SCAN_TRUNK_LATER = ("scan_trunk=True (the stacked trunk of the pp mesh) "
+                    "comes with parallel/, ROADMAP Queue 1 item 9")
 
 
 def _place(model: nn.Module, device, generator: Optional[torch.Generator]):
@@ -32,6 +44,19 @@ def _place(model: nn.Module, device, generator: Optional[torch.Generator]):
                       else torch.Generator().manual_seed(0))
     return model.to(resolve_device(device) if isinstance(device, str)
                     else device)
+
+
+def _run_blocks(blocks, x, remat: bool):
+    """``x`` through ``blocks`` in turn, each recomputed in the backward
+    pass when ``remat`` (and gradients are being recorded)."""
+    remat = remat and torch.is_grad_enabled()
+    for block in blocks:
+        x = checkpoint(block, x, use_reentrant=False) if remat else block(x)
+    return x
+
+
+def _lrelu(x):
+    return F.leaky_relu(x, 0.2)
 
 
 class SRCNN(nn.Module):
@@ -107,20 +132,27 @@ class FSRCNN(nn.Module):
 
 class EDSR(nn.Module):
     """EDSR-baseline: 16 residual blocks, 64 features, res_scale 1.0, with
-    the unrolled trunk layout (``ResBlock_0`` .. ``ResBlock_{n-1}``)."""
+    the unrolled trunk layout (``ResBlock_0`` .. ``ResBlock_{n-1}``, or
+    ``CheckpointResBlock_i`` with ``remat``)."""
 
     def __init__(self, scale: int = 4, channels: int = 3,
                  n_resblocks: int = 16, n_feats: int = 64,
-                 res_scale: float = 1.0, rgb_range: float = 255.0, *,
+                 res_scale: float = 1.0, rgb_range: float = 255.0,
+                 remat: bool = False, scan_trunk: bool = False, *,
                  device="cuda", generator: Optional[torch.Generator] = None):
         super().__init__()
+        if scan_trunk:
+            raise ValueError(SCAN_TRUNK_LATER)
         self.scale, self.channels = scale, channels
         self.n_resblocks, self.n_feats = n_resblocks, n_feats
         self.res_scale, self.rgb_range = res_scale, rgb_range
+        self.remat = remat
+        self.block_prefix = "CheckpointResBlock" if remat else "ResBlock"
         self.MeanShift_0 = MeanShift(sign=-1, scale=rgb_range)
         self.Conv_0 = Conv(channels, n_feats, 3)
         for i in range(n_resblocks):
-            self.add_module(f"ResBlock_{i}", ResBlock(n_feats, res_scale))
+            self.add_module(f"{self.block_prefix}_{i}",
+                            ResBlock(n_feats, res_scale))
         self.Conv_1 = Conv(n_feats, n_feats, 3)
         self.Upsampler_0 = Upsampler(scale, n_feats)
         self.Conv_2 = Conv(n_feats, channels, 3)
@@ -128,16 +160,135 @@ class EDSR(nn.Module):
         _place(self, device, generator)
 
     def blocks(self):
-        return [getattr(self, f"ResBlock_{i}")
+        return [getattr(self, f"{self.block_prefix}_{i}")
                 for i in range(self.n_resblocks)]
 
     def forward(self, x):
         x = head = self.Conv_0(self.MeanShift_0(x))
-        for block in self.blocks():
-            x = block(x)
+        x = _run_blocks(self.blocks(), x, self.remat)
         x = self.Conv_1(x) + head
         x = self.Conv_2(self.Upsampler_0(x))
         return self.MeanShift_1(x)
+
+
+class DenseBlock(nn.Module):
+    """ESRGAN residual dense block: 5 convs with dense connections, leaky
+    relu 0.2, the sum scaled by 0.2 onto the input.  Its convs draw the
+    ESRGAN 'smaller initialisation' (He, weights x ``init_scale``)."""
+
+    def __init__(self, nf: int = 64, gc: int = 32, init_scale: float = 0.1):
+        super().__init__()
+        var = 2.0 * init_scale * init_scale
+        for i in range(4):
+            self.add_module(f"Conv_{i}", Conv(nf + i * gc, gc, 3,
+                                              init_variance=var))
+        self.Conv_4 = Conv(nf + 4 * gc, nf, 3, init_variance=var)
+
+    def forward(self, x):
+        feats = [x]
+        for i in range(4):
+            conv = getattr(self, f"Conv_{i}")
+            feats.append(_lrelu(conv(torch.cat(feats, dim=-1))))
+        return x + 0.2 * self.Conv_4(torch.cat(feats, dim=-1))
+
+
+class RRDB(nn.Module):
+    """Residual-in-residual dense block (3 dense blocks)."""
+
+    def __init__(self, nf: int = 64, gc: int = 32, init_scale: float = 0.1):
+        super().__init__()
+        for i in range(3):
+            self.add_module(f"DenseBlock_{i}", DenseBlock(nf, gc, init_scale))
+
+    def forward(self, x):
+        r = x
+        for i in range(3):
+            r = getattr(self, f"DenseBlock_{i}")(r)
+        return x + 0.2 * r
+
+
+#: nearest-neighbour x2 stages of RRDBNet's upsampler, by scale
+RRDB_STAGES = {2: (2,), 4: (2, 2), 8: (2, 2, 2)}
+
+
+class RRDBNet(nn.Module):
+    """ESRGAN generator: conv -> ``nb`` x RRDB -> trunk conv (+ skip) ->
+    per x2 stage a nearest-neighbour upsample and a conv -> HR conv ->
+    output conv.  ``x / rgb_range`` in, ``* rgb_range`` out."""
+
+    def __init__(self, scale: int = 4, channels: int = 3, nf: int = 64,
+                 nb: int = 23, gc: int = 32, init_scale: float = 0.1,
+                 rgb_range: float = 255.0, remat: bool = False, *,
+                 device="cuda", generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if scale not in RRDB_STAGES:
+            raise ValueError(f"RRDBNet scale {scale}: use one of "
+                             f"{sorted(RRDB_STAGES)}")
+        self.scale, self.channels = scale, channels
+        self.nf, self.nb, self.gc = nf, nb, gc
+        self.rgb_range, self.remat = rgb_range, remat
+        self.stages = RRDB_STAGES[scale]
+        self.block_prefix = "CheckpointRRDB" if remat else "RRDB"
+        self.Conv_0 = Conv(channels, nf, 3)
+        for i in range(nb):
+            self.add_module(f"{self.block_prefix}_{i}",
+                            RRDB(nf, gc, init_scale))
+        # Conv_1 trunk, Conv_2.. one per stage, then the HR and output convs
+        for i in range(1, len(self.stages) + 3):
+            self.add_module(f"Conv_{i}", Conv(nf, nf, 3))
+        n = len(self.stages) + 3
+        self.add_module(f"Conv_{n}", Conv(nf, channels, 3))
+        _place(self, device, generator)
+
+    def blocks(self):
+        return [getattr(self, f"{self.block_prefix}_{i}")
+                for i in range(self.nb)]
+
+    def forward(self, x):
+        fea = self.Conv_0(x / self.rgb_range)
+        trunk = _run_blocks(self.blocks(), fea, self.remat)
+        fea = fea + self.Conv_1(trunk)
+        for i, r in enumerate(self.stages):
+            fea = fea.repeat_interleave(r, dim=1).repeat_interleave(r, dim=2)
+            fea = _lrelu(getattr(self, f"Conv_{2 + i}")(fea))
+        n = len(self.stages)
+        fea = _lrelu(getattr(self, f"Conv_{2 + n}")(fea))
+        return getattr(self, f"Conv_{3 + n}")(fea) * self.rgb_range
+
+
+class VGGStyleDiscriminator(nn.Module):
+    """ESRGAN discriminator: 8 convs (3x3 stride 1 and 4x4 stride 2 in
+    turn, widths nf, nf, 2nf, 2nf, 4nf, 4nf, 8nf, 8nf), GroupNorm (8
+    groups) after all but the first, leaky relu 0.2; the mean over H and W,
+    then Dense(100), leaky relu, Dense(1).  Logits ``[B, 1]`` float32."""
+
+    def __init__(self, nf: int = 64, rgb_range: float = 255.0,
+                 channels: int = 3, *, device="cuda",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.nf, self.rgb_range = nf, rgb_range
+        widths = [nf, nf, nf * 2, nf * 2, nf * 4, nf * 4, nf * 8, nf * 8]
+        cin = channels
+        for i, f in enumerate(widths):
+            self.add_module(f"Conv_{i}", Conv(
+                cin, f, 3 if i % 2 == 0 else 4, stride=1 + i % 2))
+            if i > 0:
+                self.add_module(f"GroupNorm_{i - 1}", GroupNorm(8, f))
+            cin = f
+        self.n_convs = len(widths)
+        self.Dense_0 = Dense(cin, 100)
+        self.Dense_1 = Dense(100, 1)
+        _place(self, device, generator)
+
+    def forward(self, x):
+        x = x / self.rgb_range
+        for i in range(self.n_convs):
+            x = getattr(self, f"Conv_{i}")(x)
+            if i > 0:
+                x = getattr(self, f"GroupNorm_{i - 1}")(x)
+            x = _lrelu(x)
+        x = x.mean(dim=(1, 2))
+        return self.Dense_1(_lrelu(self.Dense_0(x))).float()
 
 
 class BurstFusion(nn.Module):
@@ -246,6 +397,7 @@ MODELS = {
     "burstfusion": BurstFusion,
     "burstfusion_lr": BurstFusionLR,
     "edsr": EDSR,
+    "rrdbnet": RRDBNet,
 }
 
 

@@ -38,30 +38,11 @@ import torch
 from ..device import DEVICES, resolve_device
 from ..sr.fusion import (NOMINAL_SHIFTS_4, REGISTER_FNS, fuse,
                          register_burst, simulate_burst)
+from ..utils.timing import rss_mb
+from .data import generator
 
 #: --arch CLI value -> (zoo model name, registration grid of the stack)
 ARCHS = {"hr": "burstfusion", "lr": "burstfusion_lr"}
-
-
-def _rss_mb() -> int:
-    """Host resident-set size in MB (logged in metrics.jsonl so that host
-    memory growth over a long run shows)."""
-    try:
-        with open("/proc/self/status") as fp:
-            for line in fp:
-                if line.startswith("VmRSS:"):
-                    return int(line.split()[1]) // 1024
-    except OSError:
-        pass
-    return -1
-
-
-def generator(device, *words: int) -> torch.Generator:
-    """A generator on ``device`` seeded from ``words`` (e.g. the run's seed
-    and the step) through numpy's ``SeedSequence``."""
-    seed = int(np.random.SeedSequence([int(w) for w in words])
-               .generate_state(1)[0])
-    return torch.Generator(device=device).manual_seed(seed)
 
 
 class BurstGen:
@@ -379,7 +360,7 @@ def train_burst(steps: int = 20000, batch: int = 16, lr_patch: int = 24,
             if it % log_every == 0 or it == 1 or it == steps:
                 rec = {k: float(v) for k, v in metrics.items()}
                 rec.update(step=it, wall_s=time.perf_counter() - t0,
-                           rss_mb=_rss_mb())
+                           rss_mb=rss_mb())
                 mfp.write(json.dumps(rec) + "\n")
                 mfp.flush()
                 print(f"step {it}/{steps} " +

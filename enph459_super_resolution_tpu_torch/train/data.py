@@ -1,18 +1,44 @@
-"""Scene pools for neural SR training (host numpy).
+"""Neural-SR data pipeline: scene pools, patch samplers, the eval harness.
 
-Counterpart of the pool part of ``enph459_super_resolution_tpu/train/data.py``
-(``image_pool_from_dir`` and the procedural pools), copied: the pools are
-numpy drawn from ``default_rng(seed)``, so the port's pools are the JAX
-package's, array for array.  ``PatchSampler``, ``DevicePatchSampler`` and
-``evaluate_sr`` come with the ``train.loop`` slice.
+Counterpart of ``enph459_super_resolution_tpu/train/data.py``.
+
+* The pools (``image_pool_from_dir`` and the procedural pools) are the
+  reference's numpy code, drawn from ``default_rng(seed)``: the port's
+  pools are the JAX package's, array for array.
+* :class:`PatchSampler` crops on the host from ``default_rng(seed)`` in the
+  JAX package's call order, so its crops equal JAX's bit for bit for the
+  same seed; :class:`DevicePatchSampler` keeps a uniform pool on the device
+  and crops there.  Both augment (flips, rot90) and degrade (Keys cubic,
+  ``ops.resize.bicubic_degrade``) on the device.
+* Every draw of a torch generator (flips, rotations, the device sampler's
+  images and offsets) comes from :func:`generator` seeded by the seed and
+  the batch's index, beside a pure function of the draws
+  (:func:`augment_degrade`, :func:`sample_batch`) that the tests feed the
+  JAX package's draws.  Batch ``i`` is the same whether a run starts at 0
+  or resumes at ``i``.  The stream differs from JAX's (another generator).
+* :func:`evaluate_sr` is the Set5-style protocol, with one read of the
+  device at the end.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
-from typing import List, Optional
+from typing import Callable, Iterator, List, Optional, Tuple
 
 import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..ops.resize import bicubic_degrade, bicubic_upsample
+
+
+def generator(device, *words: int) -> torch.Generator:
+    """A generator on ``device`` seeded from ``words`` (e.g. the run's seed
+    and the step) through numpy's ``SeedSequence``."""
+    seed = int(np.random.SeedSequence([int(w) for w in words])
+               .generate_state(1)[0])
+    return torch.Generator(device=device).manual_seed(seed)
 
 
 def image_pool_from_dir(path: str, max_images: Optional[int] = None,
@@ -196,3 +222,217 @@ POOL_KINDS = {
     "natural": natural_scene_pool,
     "edges": edges_scene_pool,
 }
+
+
+# ---------------------------------------------------------------------------
+# patch batches
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class PatchConfig:
+    scale: int = 4
+    lr_patch: int = 48  # LR patch size; HR patch = lr_patch * scale
+    batch: int = 16
+    augment: bool = True
+
+
+def augment_draws(batch: int, gen: torch.Generator):
+    """``(flips[B, 2], rots[B])`` booleans, each true with probability 1/2,
+    on the generator's device."""
+    flips = torch.rand((batch, 2), generator=gen, device=gen.device) < 0.5
+    rots = torch.rand((batch,), generator=gen, device=gen.device) < 0.5
+    return flips, rots
+
+
+def augment_degrade(hr: torch.Tensor, flips: torch.Tensor,
+                    rots: torch.Tensor, scale: int, augment: bool = True):
+    """Square HR patches ``(B, H, H, C)`` -> ``(lr, hr)``: per patch a row
+    flip where ``flips[:, 0]``, a column flip where ``flips[:, 1]`` and a
+    rot90 where ``rots`` (JAX's ``_degrade_batch`` order), then the Keys
+    cubic 1/scale degradation."""
+    if augment:
+        hr = torch.where(flips[:, 0, None, None, None], hr.flip(1), hr)
+        hr = torch.where(flips[:, 1, None, None, None], hr.flip(2), hr)
+        hr = torch.where(rots[:, None, None, None],
+                         torch.rot90(hr, 1, (1, 2)), hr)
+    return bicubic_degrade(hr, scale), hr
+
+
+def sample_batch(pool: torch.Tensor, idx, ys, xs, flips, rots, hp: int,
+                 scale: int, augment: bool = True):
+    """``hp`` x ``hp`` crops of ``pool[idx]`` (a ``(P, H, W, C)`` tensor) at
+    ``(ys, xs)``, through :func:`augment_degrade`."""
+    ar = torch.arange(hp, device=pool.device)
+    rows = ys[:, None] + ar
+    cols = xs[:, None] + ar
+    crops = pool[idx[:, None, None], rows[:, :, None], cols[:, None, :]]
+    return augment_degrade(crops, flips, rots, scale, augment)
+
+
+class PatchSampler:
+    """Random HR crops from the pool -> ``(lr, hr)`` batches on ``device``.
+
+    The host draws the crops from ``default_rng(seed)`` in the JAX
+    package's order (per patch: the image, then y, then x) and gathers them
+    with numpy; augmentation and degradation run on the device.  ``start``
+    skips that many batches' crop draws (a resumed run).
+    """
+
+    def __init__(self, pool: List[np.ndarray], cfg: PatchConfig,
+                 seed: int = 0, device="cuda", start: int = 0):
+        self.pool = pool
+        self.cfg = cfg
+        self.seed = seed
+        self.device = (resolve_device(device) if isinstance(device, str)
+                       else device)
+        self.rng = np.random.default_rng(seed)
+        hr_patch = cfg.lr_patch * cfg.scale
+        for i, img in enumerate(pool):
+            if img.shape[0] < hr_patch or img.shape[1] < hr_patch:
+                raise ValueError(f"pool image {i} smaller than HR patch "
+                                 f"{hr_patch}")
+        for _ in range(start):
+            self.crop_draws()
+        self.count = start
+
+    def crop_draws(self) -> List[Tuple[int, int, int]]:
+        """One batch's ``(image, y, x)`` per patch."""
+        hp = self.cfg.lr_patch * self.cfg.scale
+        out = []
+        for _ in range(self.cfg.batch):
+            i = int(self.rng.integers(len(self.pool)))
+            img = self.pool[i]
+            y = int(self.rng.integers(0, img.shape[0] - hp + 1))
+            x = int(self.rng.integers(0, img.shape[1] - hp + 1))
+            out.append((i, y, x))
+        return out
+
+    def __iter__(self) -> Iterator[Tuple[torch.Tensor, torch.Tensor]]:
+        return self
+
+    def __next__(self):
+        cfg = self.cfg
+        hp = cfg.lr_patch * cfg.scale
+        crops = np.stack([self.pool[i][y:y + hp, x:x + hp]
+                          for i, y, x in self.crop_draws()])
+        gen = generator(self.device, self.seed, self.count)
+        self.count += 1
+        hr = torch.as_tensor(crops, dtype=torch.float32, device=self.device)
+        return augment_degrade(hr, *augment_draws(cfg.batch, gen), cfg.scale,
+                               cfg.augment)
+
+
+class DevicePatchSampler:
+    """Device-resident variant of :class:`PatchSampler` for uniform-size
+    pools (the procedural pools; any same-shaped dataset): the pool uploads
+    once, and each batch is drawn, cropped, augmented and degraded on the
+    device, so a step moves no image data from the host.  Batch ``i``'s
+    draws come from ``generator(device, seed, i)``; ``start`` is the first
+    batch's index."""
+
+    def __init__(self, pool: List[np.ndarray], cfg: PatchConfig,
+                 seed: int = 0, device="cuda", start: int = 0):
+        shapes = {img.shape for img in pool}
+        if len(shapes) != 1:
+            raise ValueError(f"pool images differ in shape: {shapes}; "
+                             "use PatchSampler")
+        self.cfg = cfg
+        self.seed = seed
+        hp = cfg.lr_patch * cfg.scale
+        h, w = pool[0].shape[:2]
+        if h < hp or w < hp:
+            raise ValueError(f"pool images smaller than HR patch {hp}")
+        device = (resolve_device(device) if isinstance(device, str)
+                  else device)
+        self.pool_arr = torch.as_tensor(np.stack(pool), dtype=torch.float32,
+                                        device=device)
+        self.count = start
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        cfg = self.cfg
+        p, h, w, _ = self.pool_arr.shape
+        hp = cfg.lr_patch * cfg.scale
+        gen = generator(self.pool_arr.device, self.seed, self.count)
+        self.count += 1
+        dev = self.pool_arr.device
+        idx = torch.randint(0, p, (cfg.batch,), generator=gen, device=dev)
+        ys = torch.randint(0, h - hp + 1, (cfg.batch,), generator=gen,
+                           device=dev)
+        xs = torch.randint(0, w - hp + 1, (cfg.batch,), generator=gen,
+                           device=dev)
+        return sample_batch(self.pool_arr, idx, ys, xs,
+                            *augment_draws(cfg.batch, gen), hp, cfg.scale,
+                            cfg.augment)
+
+
+def make_patch_sampler(pool: List[np.ndarray], cfg: PatchConfig,
+                       seed: int = 0, device="cuda", start: int = 0):
+    """Device-resident sampler when the pool is uniform-shaped, host
+    sampler otherwise."""
+    try:
+        return DevicePatchSampler(pool, cfg, seed, device, start)
+    except ValueError:
+        return PatchSampler(pool, cfg, seed, device, start)
+
+
+# ---------------------------------------------------------------------------
+# eval harness (Set5-style protocol)
+# ---------------------------------------------------------------------------
+
+EVAL_KEYS = ("psnr", "ssim", "bicubic_psnr", "grad_ratio",
+             "bicubic_grad_ratio", "spec_dist", "bicubic_spec_dist")
+
+
+def evaluate_sr(apply_fn: Callable, pool: List[np.ndarray], scale: int,
+                shave: Optional[int] = None, on_y: bool = True,
+                max_val: float = 255.0, device="cuda") -> dict:
+    """PSNR/SSIM of ``apply_fn(lr) -> sr`` (``[1, h, w, C]`` tensors on
+    ``device``) over full images.
+
+    Protocol per the SR literature: LR = Keys-cubic 1/s of the HR (cropped
+    to a multiple of s), metrics on the Y channel with an s-pixel border
+    shave.  Returns mean psnr/ssim plus the bicubic baseline, ``grad_ratio``
+    (mean |grad SR| / mean |grad HR|, a sharpness index: L1-trained SR is
+    oversmoothed, < 1) and ``spec_dist`` (log-spectral distance), each for
+    the model and for bicubic, and ``n_images``.  The per-image metrics stay
+    on the device; one array is read at the end.
+    """
+    from ..eval.metrics import log_spectral_distance, psnr, ssim, y_channel
+
+    device = resolve_device(device) if isinstance(device, str) else device
+    shave = scale if shave is None else shave
+
+    def grad_mag(x):
+        gy = x[1:, :-1] - x[:-1, :-1]
+        gx = x[:-1, 1:] - x[:-1, :-1]
+        return torch.mean(torch.sqrt(gy * gy + gx * gx + 1e-12))
+
+    def prep(x):
+        x = torch.clamp(x, 0, max_val)
+        x = y_channel(x) if on_y and x.shape[-1] == 3 else x[..., 0]
+        return x[shave:-shave, shave:-shave]
+
+    rows = []
+    with torch.no_grad():
+        for img in pool:
+            h = img.shape[0] - img.shape[0] % scale
+            w = img.shape[1] - img.shape[1] % scale
+            hr = torch.as_tensor(np.ascontiguousarray(img[:h, :w]),
+                                 dtype=torch.float32, device=device)
+            lr = bicubic_degrade(hr[None], scale)[0]
+            sr = apply_fn(lr[None])[0]
+            bic = bicubic_upsample(lr[None], scale)[0]
+            hr_p, sr_p, bic_p = prep(hr), prep(sr), prep(bic)
+            hr_g = grad_mag(hr_p)
+            rows.append(torch.stack([
+                psnr(sr_p, hr_p, max_val), ssim(sr_p, hr_p, max_val),
+                psnr(bic_p, hr_p, max_val), grad_mag(sr_p) / hr_g,
+                grad_mag(bic_p) / hr_g, log_spectral_distance(sr_p, hr_p),
+                log_spectral_distance(bic_p, hr_p)]))
+    vals = torch.stack(rows).mean(dim=0).cpu().numpy()
+    out = {k: float(v) for k, v in zip(EVAL_KEYS, vals)}
+    out["n_images"] = len(pool)
+    return out

@@ -21,11 +21,17 @@ optax's pieces map so:
 * ``optax.global_norm`` of the gradients -> the same square root of the
   sum of squares, reported before clipping.
 
+The ESRGAN two-player step (:class:`GANBalance`, :class:`GANTrainState`,
+:func:`make_gan_train_step`) holds the generator's :class:`TrainState`, the
+discriminator and its own optimizer.  JAX keeps the balance knobs in the
+jitted state to avoid recompiles; eager PyTorch has none to avoid, so
+:class:`GANBalance` is a plain dataclass.
+
 Checkpoints are the port's own: ``<ckpt_dir>/<step>/state.pt`` written by
 ``torch.save`` (tensors and plain containers only), read with
-``torch.load(weights_only=True)``; the newest two are kept.  The GAN step
-(``GANBalance``, ``GANTrainState``, ``make_gan_train_step``) comes with the
-``train.loop`` slice.
+``torch.load(weights_only=True)``; the newest two are kept.  A GAN
+checkpoint holds the generator's state under ``"g"``, as the JAX
+package's does.  The port reads no orbax checkpoint.
 """
 
 from __future__ import annotations
@@ -38,7 +44,9 @@ from typing import Callable, Dict, Optional
 import torch
 from torch import nn
 
-from .losses import PIXEL_LOSSES, psnr
+from .data import generator
+from .losses import (PIXEL_LOSSES, l1_loss, psnr, ragan_discriminator_loss,
+                     ragan_generator_loss)
 
 CKPT_FILE = "state.pt"
 CKPT_KEEP = 2
@@ -160,6 +168,149 @@ def make_train_step(cfg: TrainConfig,
         state.step += 1
         return {"loss": loss.detach(), "psnr": psnr(sr.detach(), hr),
                 "grad_norm": gnorm}
+
+    return step
+
+
+# --------------------------------------------------------------------------
+# GAN (ESRGAN fine-tune) two-player step
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class GANBalance:
+    """The two players' balance knobs.
+
+    ``gan_weight`` is the weight on the RaGAN generator term (0: the
+    perceptual-only ablation, where D still trains but gives G no
+    gradient); ``d_lr_scale`` scales D's whole update (for Adam and AdamW
+    exactly its rate); D updates only on steps with ``step % d_every ==
+    0``; ``instance_noise`` is the sigma (pixel counts, 0..255) of the
+    Gaussian noise added to D's inputs.
+    """
+    gan_weight: float = 5e-3
+    d_lr_scale: float = 1.0
+    d_every: int = 1
+    instance_noise: float = 0.0
+
+
+def update_count(optimizer: torch.optim.Optimizer) -> int:
+    """The updates an Adam/AdamW optimizer has taken (its state's
+    ``step``; 0 before the first)."""
+    for st in optimizer.state.values():
+        return int(st["step"])
+    return 0
+
+
+class GANTrainState:
+    """``step`` (the two-player step count), ``g`` (the generator's
+    :class:`TrainState`), ``disc`` (the discriminator, whose parameters are
+    D's), ``d_optimizer`` (D's own Adam/AdamW: its update count, not the
+    step, drives D's rate schedule and bias correction) and ``balance``."""
+
+    def __init__(self, g: TrainState, disc: nn.Module,
+                 d_optimizer: torch.optim.Optimizer, balance: GANBalance,
+                 step: int = 0):
+        self.g = g
+        self.disc = disc
+        self.d_optimizer = d_optimizer
+        self.balance = balance
+        self.step = int(step)
+
+    @property
+    def d_updates(self) -> int:
+        return update_count(self.d_optimizer)
+
+    def state_dict(self) -> Dict:
+        return {"step": self.step, "g": self.g.state_dict(),
+                "d_params": {n: p.detach().clone()
+                             for n, p in self.disc.named_parameters()},
+                "d_opt_state": self.d_optimizer.state_dict(),
+                "balance": dataclasses.asdict(self.balance)}
+
+    def load_state_dict(self, state: Dict) -> None:
+        self.g.load_state_dict(state["g"])
+        self.disc.load_state_dict(state["d_params"], strict=True)
+        self.d_optimizer.load_state_dict(state["d_opt_state"])
+        self.balance = GANBalance(**state["balance"])
+        self.step = int(state["step"])
+
+
+def _apply_grads(params, grads, optimizer, cfg: TrainConfig, rate: float):
+    """One optimizer update of ``params`` from ``grads`` at ``rate``, the
+    gradients clipped first where ``cfg.grad_clip`` (optax's chain)."""
+    for p, g in zip(params, grads):
+        p.grad = g
+    if cfg.grad_clip:
+        torch.nn.utils.clip_grad_norm_(params, cfg.grad_clip)
+    for group in optimizer.param_groups:
+        group["lr"] = rate
+    optimizer.step()
+    for p in params:
+        p.grad = None
+
+
+def make_gan_train_step(cfg: TrainConfig, pixel_weight: float = 1e-2,
+                        percep_loss: Optional[Callable] = None,
+                        noise_seed: int = 0):
+    """ESRGAN objective: L_G = percep + lambda * RaGAN + eta * L1, then an
+    alternating D step.  Returns ``step(state, lr, hr, noise=None) ->
+    metrics``, which updates a :class:`GANTrainState` in place.
+
+    * G: the discriminator runs on ``sr`` and ``hr`` with its parameters
+      held (the gradient reaches only the generator's parameters); then
+      G's update, then the EMA.
+    * D: on the same step's pre-update ``sr``, detached (no fresh forward),
+      and ``hr``; only when ``step % d_every == 0``, otherwise D's
+      parameters and optimizer state stay as they are.  Its rate is the
+      schedule at D's own update count, times ``d_lr_scale``.
+    * ``noise`` is the instance noise's four standard-normal draws of
+      ``hr``'s shape (G's fake and real, D's fake and real), scaled by
+      ``balance.instance_noise``; None draws them from a generator seeded
+      by ``noise_seed`` and the step (none are drawn at sigma 0).
+
+    Metrics (0-d tensors): ``g_loss``, ``d_loss``, ``g_gan`` (the raw RaGAN
+    G term), ``gan_weight`` and ``psnr`` (of the pre-update ``sr``).
+    """
+    def step(state: GANTrainState, lr, hr, noise=None):
+        bal = state.balance
+        if noise is None and bal.instance_noise:
+            gen = generator(hr.device, noise_seed, state.step)
+            noise = [torch.randn(hr.shape, generator=gen, device=hr.device)
+                     for _ in range(4)]
+
+        def noisy(x, k):
+            return x if noise is None else x + bal.instance_noise * noise[k]
+
+        g_params = list(state.g.model.parameters())
+        sr = state.g.model(lr)
+        fake = state.disc(noisy(sr, 0))
+        real = state.disc(noisy(hr, 1))
+        g_gan = ragan_generator_loss(real, fake)
+        g_loss = bal.gan_weight * g_gan + pixel_weight * l1_loss(sr, hr)
+        if percep_loss is not None:
+            g_loss = g_loss + percep_loss(sr, hr)
+        g_grads = torch.autograd.grad(g_loss, g_params)
+        _apply_grads(g_params, g_grads, state.g.optimizer, cfg,
+                     learning_rate(cfg, state.g.step))
+        ema_update(state.g.ema_params, state.g.params, cfg.ema_decay)
+
+        sr = sr.detach()
+        d_params = list(state.disc.parameters())
+        do_d = state.step % bal.d_every == 0
+        with torch.set_grad_enabled(do_d):
+            d_loss = ragan_discriminator_loss(state.disc(noisy(hr, 3)),
+                                              state.disc(noisy(sr, 2)))
+        if do_d:
+            d_grads = torch.autograd.grad(d_loss, d_params)
+            _apply_grads(d_params, d_grads, state.d_optimizer, cfg,
+                         learning_rate(cfg, state.d_updates)
+                         * bal.d_lr_scale)
+        state.g.step += 1
+        state.step += 1
+        return {"g_loss": g_loss.detach(), "d_loss": d_loss.detach(),
+                "g_gan": g_gan.detach(),
+                "gan_weight": torch.tensor(float(bal.gan_weight)),
+                "psnr": psnr(sr, hr)}
 
     return step
 

@@ -1,5 +1,6 @@
 """Structured per-stage wall-clock timing (counterpart of
-``enph459_super_resolution_tpu/utils/timing.py``)."""
+``enph459_super_resolution_tpu/utils/timing.py``) and the host's resident
+memory."""
 
 from __future__ import annotations
 
@@ -24,3 +25,17 @@ class StageTimer:
 
     def as_dict(self) -> Dict[str, float]:
         return dict(self._t)
+
+
+def rss_mb() -> int:
+    """Host resident-set size in MB (logged in the trainers' metrics.jsonl
+    so that host memory growth over a long run shows); -1 where
+    ``/proc/self/status`` cannot be read."""
+    try:
+        with open("/proc/self/status") as fp:
+            for line in fp:
+                if line.startswith("VmRSS:"):
+                    return int(line.split()[1]) // 1024
+    except OSError:
+        pass
+    return -1

@@ -216,7 +216,7 @@ def test_models_default_to_cuda():
 
 def test_create_model_and_registry():
     assert set(TZ.MODELS) == {"srcnn", "espcn", "fsrcnn", "edsr",
-                              "burstfusion", "burstfusion_lr"}
+                              "burstfusion", "burstfusion_lr", "rrdbnet"}
     assert set(TZ.MODELS) <= set(JZ.MODELS)
     m = TZ.create_model("espcn", scale=2, channels=3, device="cpu")
     assert isinstance(m, TZ.ESPCN) and m.scale == 2
