@@ -94,12 +94,30 @@ or of the JAX package.  Phases, one JSON line each:
 14. conv -- ``solve(engine="conv")`` of the mono session (80 iterations):
    ``SAA_IBP`` within +-1 of the banded engine's, no K1/K2/K3 launch, its
    time.
-15. prewarm and watch -- ``sr.prewarm --workloads mono_cal_target --reps 1``
+15. sharded -- ``parallel.solve_sharded`` of the mono session at full size
+   as 4 tiles on the one card (a mesh of the card repeated): ``{"sp": 4}``
+   and ``{"sp": 2, "spw": 2}`` (80 IBP iterations) against the conv
+   engine's solve, and the adjoint (20 iterations, step 2.0) at ``sp=4``
+   against the banded adjoint solve: HR within ``SHARDED_ATOL`` over the
+   full array, the MSE history within ``SHARDED_RTOL``, every artifact
+   within +-1 uint8, no K1-K4 launch; each solve's first and warm seconds
+   beside the conv solve's, and one profiled sharded solve of
+   ``PROFILED_ITERS`` iterations (its device launches and idle share).
+   ``tiled_infer_sharded`` of the 4K frame on the EDSR-16 module as 4
+   tiles: within 5e-3 of ``tiled_infer`` away from the ``halo * scale``
+   rows at the two global edges.  ``sr.run --sp 2
+   --device cuda``: with fewer than 2 cards it exits non-zero with the
+   mesh's device-count error and writes no result (no CPU fallback); with
+   2 or more, ``SAA_IBP`` within +-1 of ``--sp 1``.
+   multicard -- only on a host of 4 or more cards (the script needs one):
+   the same solves, ``tiled_infer_sharded`` and ``sr.run --sp 4`` /
+   ``--sp 2x2`` with one tile on each of the first 4 cards, held as above.
+16. prewarm and watch -- ``sr.prewarm --workloads mono_cal_target --reps 1``
    in a subprocess, into a fresh op cache, exits 0; ``sr.run`` with the
    process's operator trees dropped and the host build forbidden then reads
    that cache; ``sr.run --watch 0.1 --watch-polls 2`` serves the session
    on the first poll and nothing on the second.
-16. burst -- the learned burst engine.  ``train_burst`` on cuda at full
+17. burst -- the learned burst engine.  ``train_burst`` on cuda at full
    width: BurstFusionLR 64 x 8, batch 16, LR patch 24, pool 64, 200 steps
    (checkpoints at 100 and 200), then BurstFusion 48 x 6 for 20 steps:
    steps/s, bursts/s, the logged losses, the final eval's PSNRs, peak
@@ -120,7 +138,7 @@ or of the JAX package.  Phases, one JSON line each:
    of cpu; the warm time of a unit in f32 and bf16, split into
    registration, trunk and refine per iteration.
 
-17. train -- the SR training loop at full width.  ``train.loop.train``
+18. train -- the SR training loop at full width.  ``train.loop.train``
    on cuda: EDSR-baseline x4 (16 x 64), batch 16, LR patch 48, L1, the
    synthetic pool, 200 steps (checkpoints and evals at 100 and 200), then
    a second call to 300 that resumes at 200: the step-200 checkpoint
@@ -178,6 +196,9 @@ EDSR_BATCH, EDSR_LR, EDSR_REQUESTS = 8, 256, 4
 EDSR_F32_SHARE = 2e-5
 EDSR_BF16_SHARE = 0.05
 BURST_PHASES = (1, 1536, 2048, 16)
+# a sharded solve against its unsharded twin (tests/test_parallel.py's)
+SHARDED_ATOL, SHARDED_RTOL = 1e-3, 1e-5
+PROFILED_ITERS = 8         # IBP iterations of the profiled sharded solve
 
 
 def emit(obj) -> None:
@@ -595,6 +616,7 @@ def phase_profile(torch, run_solve, what: str):
     busy_s = busy_us / 1e6
     emit({"phase": "profile", "what": what,
           "profiled_wall_s": wall_s, "device_busy_s": busy_s,
+          "device_launches": sum(c for _, _, c in kernels),
           "device_idle_share": 1.0 - busy_s / wall_s,
           "top_kernels": [{"name": k[:90], "device_ms": t / 1e3, "count": c}
                           for k, t, c in top]})
@@ -1347,6 +1369,227 @@ def phase_conv(torch, mono):
            "solve_s_runs": runs, "solve_s": solve_s,
            "hr_mpix_per_s": HR_MPIX / solve_s}
     emit(row)
+    return dict(row, result=res)
+
+
+def _sharded_vs(got, want, what: str) -> dict:
+    """A sharded solve against an unsharded one: HR within ``SHARDED_ATOL``
+    over the full array, the MSE history within ``SHARDED_RTOL``, every
+    artifact within +-1 uint8."""
+    hr_err = float(np.abs(got["ibp"] - want["ibp"]).max())
+    mse_rel = float(np.abs(got["mse_history"] / want["mse_history"]
+                           - 1.0).max())
+    u8 = {k: _u8_diff(got[k], want[k]) for k in ("native", "saa", "ibp")}
+    check(hr_err <= SHARDED_ATOL,
+          f"{what}: max|HR - unsharded| {hr_err} > {SHARDED_ATOL}")
+    check(mse_rel <= SHARDED_RTOL,
+          f"{what}: MSE history rel. diff {mse_rel} > {SHARDED_RTOL}")
+    check(max(u8.values()) <= 1, f"{what}: artifacts vs unsharded {u8} > 1")
+    return {"max_abs_hr_vs_unsharded": hr_err,
+            "mse_history_max_rel_diff": mse_rel, "u8_max_diff": u8}
+
+
+def phase_sharded(torch, mono, conv, model):
+    """The spatially-sharded solve (``parallel/``) at full size, as 4 tiles
+    on the one card, against the unsharded solves; ``tiled_infer_sharded``
+    against ``tiled_infer``; ``sr.run --sp 2 --device cuda``."""
+    import contextlib
+    import io
+
+    from enph459_super_resolution_tpu_torch.data.io import load_gray
+    from enph459_super_resolution_tpu_torch.models.infer import (
+        receptive_field_radius, tiled_infer, tiled_infer_sharded)
+    from enph459_super_resolution_tpu_torch.parallel import (make_mesh,
+                                                             solve_sharded)
+    from enph459_super_resolution_tpu_torch.sr import run
+    from enph459_super_resolution_tpu_torch.sr.classical import solve
+
+    t_phase = time.perf_counter()
+    frames, psf, shifts = mono["frames"], mono["psf"], mono["shifts"]
+    n_iter = mono["cfg"].ibp_iterations
+    card = torch.device("cuda", 0)
+    adjoint_iters = max(1, round(n_iter / 4))
+    runs = {"sp4": ({"sp": 4}, "ibp", n_iter, 0.5),
+            "2x2": ({"sp": 2, "spw": 2}, "ibp", n_iter, 0.5),
+            "sp4_adjoint": ({"sp": 4}, "adjoint", adjoint_iters, 2.0)}
+    row = {"phase": "sharded", "card": nvidia_smi("name,power.limit"),
+           "tiles_on_one_card": 4,
+           "conv_solve_s": conv["solve_s"],
+           "conv_solve_s_runs": conv["solve_s_runs"]}
+    adjoint = solve(frames, psf, shifts, n_iter=adjoint_iters, step=2.0,
+                    device="cuda", solver="adjoint")
+    for name, (axes, solver, iters, step) in runs.items():
+        mesh = make_mesh(axes, devices=[card] * 4)
+
+        def sharded():
+            return solve_sharded(frames, psf, shifts, mesh, n_iter=iters,
+                                 step=step, sp_axis=tuple(axes),
+                                 solver=solver)
+
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = sharded()
+        first_s = time.perf_counter() - t0
+        launches = read_counts()
+        check(all(v == 0 for v in launches.values()),
+              f"sharded {name} launched hand-written kernels: {launches}")
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sharded()
+            times.append(time.perf_counter() - t0)
+        want = adjoint if solver == "adjoint" else conv["result"]
+        row[name] = dict(
+            _sharded_vs(got, want, f"sharded {name}"),
+            mesh=axes, solver=solver, iterations=iters, step=step,
+            against="banded adjoint solve" if solver == "adjoint"
+            else "conv engine solve",
+            first_solve_s=first_s, solve_s_runs=times,
+            solve_s=sorted(times)[1],
+            hr_mpix_per_s=HR_MPIX / sorted(times)[1])
+    # the eager per-tile loop's device launches and idle share, over a
+    # solve of PROFILED_ITERS iterations (the profiler's own processing of
+    # a full solve's ~60 k launches takes longer than the solve)
+    mesh = make_mesh({"sp": 4}, devices=[card] * 4)
+    busy_s, profiled_s = phase_profile(
+        torch, lambda: solve_sharded(frames, psf, shifts, mesh,
+                                     n_iter=PROFILED_ITERS, sp_axis=("sp",)),
+        f"one warm sharded solve of {PROFILED_ITERS} IBP iterations, sp=4 "
+        "on one card")
+    row.update(profiled_iterations=PROFILED_ITERS,
+               profiled_solve_s=profiled_s, device_busy_s=busy_s,
+               device_idle_share=1.0 - busy_s / profiled_s)
+
+    # tiled_infer_sharded of one 4K frame on the EDSR-16 module, 4 tiles
+    lr = np.random.default_rng(SEED + 7).uniform(
+        0, 255, (540, 960, 3)).astype(np.float32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = tiled_infer_sharded(model, lr, mesh)
+    infer_s = time.perf_counter() - t0
+    want = tiled_infer(model, lr)
+    check(got.shape == want.shape == (2160, 3840, 3),
+          f"tiled_infer_sharded {got.shape}")
+    b = receptive_field_radius(model) * 4
+    err = float(np.abs(got[b:-b] - want[b:-b]).max())
+    check(err <= 5e-3, f"tiled_infer_sharded interior vs tiled_infer: "
+                       f"{err} > 5e-3")
+    row["tiled_infer_sharded"] = {"lr": [540, 960, 3], "tiles": 4,
+                                  "edge_rows_left_out": b,
+                                  "max_abs_interior_vs_tiled": err,
+                                  "infer_s": infer_s}
+
+    # sr.run --sp 2 on cuda: the first 2 cards, never the CPU
+    out = WORK / "mono" / "results_sp2"
+    err_text = io.StringIO()
+    n_cards = torch.cuda.device_count()
+    try:
+        with contextlib.redirect_stderr(err_text):
+            _, launches = _sr_run("mono_cal_target", mono["data"], out,
+                                  "--sp", "2")
+        rc = 0
+    except SystemExit as exc:
+        rc = exc.code
+    said = err_text.getvalue().strip().splitlines()
+    if n_cards < 2:
+        check(rc != 0 and f"needs 2 devices, have {n_cards}" in
+              err_text.getvalue(),
+              f"sr.run --sp 2 on {n_cards} card(s): exit {rc}, {said[-1:]}")
+        check(not (out / "session0" / "done.flag").exists(),
+              "sr.run --sp 2 wrote a result without the cards")
+        row["sr_run_sp2"] = {"cards": n_cards, "exit": rc,
+                             "error": said[-1]}
+    else:
+        ibp = load_gray(str(out / "session0" / "SAA_IBP.png"))
+        diff = _u8_diff(ibp, mono["f32"]["ibp"])
+        check(diff <= 1, f"sr.run --sp 2 SAA_IBP vs --sp 1: {diff} > 1")
+        row["sr_run_sp2"] = {"cards": n_cards, "exit": rc,
+                             "ibp_vs_sp1_max_diff": diff,
+                             "launches": launches}
+    row["phase_s"] = time.perf_counter() - t_phase
+    emit(row)
+    return row
+
+
+def phase_multicard(torch, mono, conv, model):
+    """On a host of 4 or more cards: the sharded solves, ``sr.run --sp`` and
+    ``tiled_infer_sharded`` with one tile on each of the first 4 cards
+    (halos cross between cards), against the unsharded solves."""
+    from enph459_super_resolution_tpu_torch.data.io import load_gray
+    from enph459_super_resolution_tpu_torch.models.infer import (
+        receptive_field_radius, tiled_infer, tiled_infer_sharded)
+    from enph459_super_resolution_tpu_torch.parallel import (make_mesh,
+                                                             solve_sharded)
+    from enph459_super_resolution_tpu_torch.sr.classical import solve
+
+    cards = [torch.device("cuda", i) for i in range(4)]
+    frames, psf, shifts = mono["frames"], mono["psf"], mono["shifts"]
+    n_iter = mono["cfg"].ibp_iterations
+    adjoint_iters = max(1, round(n_iter / 4))
+    row = {"phase": "multicard", "cards": torch.cuda.device_count(),
+           "card": nvidia_smi("name,power.limit")}
+    adjoint = solve(frames, psf, shifts, n_iter=adjoint_iters, step=2.0,
+                    device="cuda", solver="adjoint")
+    for name, axes, solver, iters, step in (
+            ("sp4", {"sp": 4}, "ibp", n_iter, 0.5),
+            ("2x2", {"sp": 2, "spw": 2}, "ibp", n_iter, 0.5),
+            ("sp4_adjoint", {"sp": 4}, "adjoint", adjoint_iters, 2.0)):
+        mesh = make_mesh(axes, devices=cards)
+
+        def sharded():
+            return solve_sharded(frames, psf, shifts, mesh, n_iter=iters,
+                                 step=step, sp_axis=tuple(axes),
+                                 solver=solver)
+
+        reset_counts()
+        got = sharded()
+        launches = read_counts()
+        check(all(v == 0 for v in launches.values()),
+              f"4 cards {name} launched hand-written kernels: {launches}")
+        times = []
+        for _ in range(3):
+            for c in cards:
+                torch.cuda.synchronize(c)
+            t0 = time.perf_counter()
+            sharded()  # ends in a copy to the host that waits for every card
+            times.append(time.perf_counter() - t0)
+        want = adjoint if solver == "adjoint" else conv["result"]
+        row[name] = dict(_sharded_vs(got, want, f"4 cards {name}"),
+                         solve_s_runs=times, solve_s=sorted(times)[1])
+    mesh = make_mesh({"sp": 4}, devices=cards)
+    busy_s, profiled_s = phase_profile(
+        torch, lambda: solve_sharded(frames, psf, shifts, mesh,
+                                     n_iter=PROFILED_ITERS, sp_axis=("sp",)),
+        f"one warm sharded solve of {PROFILED_ITERS} IBP iterations, sp=4 "
+        "on 4 cards (busy: all cards)")
+    row.update(profiled_iterations=PROFILED_ITERS,
+               profiled_solve_s=profiled_s, device_busy_s_all_cards=busy_s)
+
+    lr = np.random.default_rng(SEED + 7).uniform(
+        0, 255, (540, 960, 3)).astype(np.float32)
+    tiled_infer_sharded(model, lr, mesh)  # warm: a replica on each card
+    t0 = time.perf_counter()
+    got = tiled_infer_sharded(model, lr, mesh)
+    infer_s = time.perf_counter() - t0
+    want = tiled_infer(model, lr)
+    b = receptive_field_radius(model) * 4
+    err = float(np.abs(got[b:-b] - want[b:-b]).max())
+    check(err <= 5e-3, f"tiled_infer_sharded on 4 cards: {err} > 5e-3")
+    row["tiled_infer_sharded"] = {"max_abs_interior_vs_tiled": err,
+                                  "infer_s": infer_s}
+
+    for sp in ("4", "2x2"):
+        out = WORK / "mono" / f"results_sp{sp}"
+        run_s, launches = _sr_run("mono_cal_target", mono["data"], out,
+                                  "--sp", sp)
+        ibp = load_gray(str(out / "session0" / "SAA_IBP.png"))
+        diff = _u8_diff(ibp, mono["f32"]["ibp"])
+        check(diff <= 1, f"sr.run --sp {sp} on 4 cards vs --sp 1: {diff}")
+        row[f"sr_run_sp{sp}"] = {"ibp_vs_sp1_max_diff": diff,
+                                 "sr_run_s": run_s, "launches": launches}
+    emit(row)
     return row
 
 
@@ -2027,7 +2270,10 @@ def main() -> int:
         phase_tiled(torch, edsr_model)
         precision = phase_precision(torch, mono, modes)
         phase_adjoint(torch, mono)
-        phase_conv(torch, mono)
+        conv = phase_conv(torch, mono)
+        phase_sharded(torch, mono, conv, edsr_model)
+        if torch.cuda.device_count() >= 4:
+            phase_multicard(torch, mono, conv, edsr_model)
         phase_prewarm_watch(torch, mono)
         burst = phase_burst(torch)
         train = phase_train(torch)

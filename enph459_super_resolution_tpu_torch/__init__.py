@@ -16,7 +16,8 @@ path (SRCNN, ESPCN, FSRCNN, EDSR, BurstFusionLR, the fused-trunk serving
 functions and tiled inference) on ``csrc/trunk.cu``; and the learned burst
 engine (``ops.resize``, ``sr.fusion``, ``train.burst``, BurstFusion, served
 through ``sr.run --fusion-run``), whose refine and banded registration run
-``csrc/banded_rows.cu``.
+``csrc/banded_rows.cu``; the SR training loop; and spatial sharding
+(``parallel``: meshes of tiles with halo exchange, ``sr.run --sp``).
 
 Subpackages
 -----------
@@ -25,7 +26,9 @@ ops    host banded-operator construction, ``BandedOp``, the banded row,
 sr     classical solve, burst fusion, workload configs, session pipeline,
        CLI
 models neural model zoo, fused-trunk serving, tiled inference
-train  burst-engine training: losses, train state, scene pools, trainer
+train  SR and burst-engine training: losses, train state, samplers and
+       scene pools, trainers, evaluation
+parallel  device meshes, spatially-sharded (halo-exchange) compute
 eval   image quality metrics
 data   PNG IO (PIL or a stdlib zlib codec), session layouts
 psf    Gaussian and measured PSF kernels

@@ -1,15 +1,16 @@
 """Full-image neural SR inference: receptive-field-exact tiled execution.
 
 Counterpart of ``enph459_super_resolution_tpu/models/infer.py``
-(``receptive_field_radius`` and ``tiled_infer``).  A conv stack's output
-pixel depends only on the inputs within its receptive field, so splitting
-the image into tiles extended by a receptive-field halo and keeping the
-tile interiors is exact, at a peak device memory bounded by the tile size.
-``tiled_infer_sharded`` comes with the port of ``parallel/``.
+(``receptive_field_radius``, ``tiled_infer`` and ``tiled_infer_sharded``).
+A conv stack's output pixel depends only on the inputs within its
+receptive field, so splitting the image into tiles extended by a
+receptive-field halo and keeping the tile interiors is exact, at a peak
+device memory bounded by the tile size.
 """
 
 from __future__ import annotations
 
+import copy
 import math
 from typing import Optional
 
@@ -125,4 +126,48 @@ def tiled_infer(model: nn.Module, lr, tile: int = 256,
             out[:, y0 * scale: (y0 + t_h) * scale,
                 x0 * scale: (x0 + t_w) * scale] = \
                 crops[k, :, oy: oy + t_h * scale, ox: ox + t_w * scale]
+    return out[0] if squeeze else out
+
+
+def tiled_infer_sharded(model: nn.Module, lr, mesh,
+                        halo: Optional[int] = None,
+                        scale: Optional[int] = None,
+                        sp_axis: str = "sp") -> np.ndarray:
+    """Mesh-sharded variant: the image's H axis is split over the
+    ``sp_axis`` tiles of ``mesh`` with one halo exchange
+    (:func:`~..parallel.tiled.tiled_apply`), each tile run by a copy of
+    ``model`` on its device (the model itself where it already lives).
+
+    Interior-exact vs the whole-image apply; within ``halo * scale`` rows
+    of the two GLOBAL image edges the result may differ slightly -- the
+    tiles share one shape, so the zero-filled edge halo cannot replicate
+    SAME-conv boundary handling through biased nonlinear layers (use
+    :func:`tiled_infer` when exact borders matter).
+
+    ``lr`` is ``(H, W, C)`` or ``(B, H, W, C)``, float or uint8; returns a
+    float32 numpy array ``(H*s, W*s, C)`` (or with the batch axis).
+    """
+    from ..parallel.tiled import tiled_apply
+
+    scale = scale if scale is not None else getattr(model, "scale", 1)
+    halo = halo if halo is not None else receptive_field_radius(model)
+    x = torch.as_tensor(np.asarray(lr)).float()
+    squeeze = x.dim() == 3
+    if squeeze:
+        x = x[None]
+    home = next(model.parameters()).device
+    replicas = {}
+
+    def fn(tile):
+        net = replicas.get(tile.device)
+        if net is None:
+            net = model if tile.device == home else \
+                copy.deepcopy(model).to(tile.device)
+            replicas[tile.device] = net
+        with torch.no_grad():
+            return net(tile)
+
+    out = tiled_apply(fn, x, mesh, halo=halo, axis=1, out_scale=scale,
+                      sp_axis=sp_axis, edge_mode="zero")
+    out = out.cpu().numpy()
     return out[0] if squeeze else out

@@ -344,21 +344,26 @@ _OP_CACHE_VERSION = 2  # v2: the solver joins the key
 
 
 def op_cache_dir() -> str:
-    """The host operator disk cache: ``srtorch_opcache_<uid>`` under the
-    temp dir."""
-    return os.path.join(tempfile.gettempdir(),
-                        f"srtorch_opcache_{os.getuid()}")
+    """The host operator disk cache: ``$SRTPU_OP_CACHE_DIR``, else
+    ``srtorch_opcache_<uid>`` under the temp dir (the reference's knob and
+    default, ``/tmp/srtpu_opcache_<uid>``, with the port's own name)."""
+    return os.environ.get(
+        "SRTPU_OP_CACHE_DIR",
+        os.path.join(tempfile.gettempdir(), f"srtorch_opcache_{os.getuid()}"))
 
 
 def _op_cache_path(psf, shifts_yx, factor, lr_shape, reps,
-                   solver="ibp") -> str:
-    """Disk-cache file for a host operator build.
+                   solver="ibp"):
+    """Disk-cache file for a host operator build, or None when
+    ``SRTPU_OP_CACHE=0`` turns the cache off (the reference's knob).
 
     The key covers everything that changes the cached contents.  The
-    directory is uid-scoped and 0700 under the temp dir: pickle runs code
-    on load, so a cache another user could have planted is never read (see
-    :func:`_cache_dir_trusted`).
+    directory is made 0700 and is read only when this uid owns it and no
+    one else may write it: pickle runs code on load, so a cache another
+    user could have planted is never read (see :func:`_cache_dir_trusted`).
     """
+    if os.environ.get("SRTPU_OP_CACHE", "1") == "0":
+        return None
     meta = repr((_OP_CACHE_VERSION, psf.shape, str(psf.dtype), shifts_yx,
                  factor, lr_shape, _DTYPE_NAME, reps, BLOCK,
                  solver)).encode()
@@ -378,8 +383,12 @@ def _cache_dir_trusted(path: str) -> bool:
 
 def _cached_host_matrices(psf, shifts_yx, factor, lr_shape, reps=1,
                           solver="ibp"):
-    """:func:`_host_solve_matrices`, memoized on disk (host numpy only)."""
+    """:func:`_host_solve_matrices`, memoized on disk (host numpy only)
+    unless the cache is off."""
     path = _op_cache_path(psf, shifts_yx, factor, lr_shape, reps, solver)
+    if path is None:
+        return _host_solve_matrices(psf, shifts_yx, factor, lr_shape, reps,
+                                    solver)
     if os.path.exists(path) and _cache_dir_trusted(path):
         try:
             with open(path, "rb") as fp:

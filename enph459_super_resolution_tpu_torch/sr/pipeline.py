@@ -8,7 +8,9 @@ session/rep ``native_2x.png``, ``SAA.png``, ``SAA_IBP.png``,
 and the full MSE history.  With a learned burst engine
 (:class:`~.fusion.FusionEngine`, ``sr.run --fusion-run``) each unit also
 gets ``fusion.png`` and its forward-model MSE, side by side with the
-classical engine's.
+classical engine's.  With ``sp`` above 1 (``sr.run --sp N|NxM``) each
+unit's IBP image plane is sharded over a mesh of tiles
+(:mod:`~..parallel`).
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import torch
 
 from ..data.io import save_png
 from ..data.sessions import SessionData
+from ..parallel import parse_sp_spec, solve_sharded, sp_mesh
 from ..utils.timing import StageTimer
 from .classical import solve, solve_batch, to_uint8
 from .config import WorkloadConfig
@@ -84,10 +87,18 @@ def process_unit(session: SessionData, psf: np.ndarray, cfg: WorkloadConfig,
                  force: bool = False, device="cuda", band_store: str = "f32",
                  fused: str = "auto", mm_precision: str = "HIGHEST",
                  solver: str = "ibp", engine: str = "mm",
-                 fusion=None) -> Optional[str]:
+                 sp=1, fusion=None) -> Optional[str]:
     """Run one SR unit (a session or one rep) end to end; ``band_store``,
     ``fused``, ``mm_precision``, ``solver`` and ``engine`` are
-    :func:`~.classical.solve`'s.  ``fusion`` (a
+    :func:`~.classical.solve`'s.
+
+    ``sp`` (``N``, ``"NxM"`` or ``(N, M)``) above 1 shards the IBP image
+    plane over a mesh of ``N * M`` tiles on ``device``
+    (:func:`~..parallel.sp_mesh`: the first cards for cuda, the host for
+    cpu) and solves with :func:`~..parallel.solve_sharded` and ``solver``
+    (full-array parity with the unsharded solve); it ignores
+    ``band_store``, ``fused``, ``mm_precision`` and ``engine``, as the
+    reference does.  ``fusion`` (a
     :class:`~.fusion.FusionEngine`) runs after the solve, in the ``fusion``
     stage: ``fusion.png``, ``fusion_forward_mse`` and, when it refines,
     ``fusion_forward_mse_raw``.
@@ -106,12 +117,20 @@ def process_unit(session: SessionData, psf: np.ndarray, cfg: WorkloadConfig,
     with timer.stage("h2d"):
         frames = torch.as_tensor(session.frames, device=device)
     with timer.stage("solve"):
-        result = solve(frames, psf, session.shifts,
-                       factor=cfg.upsample_factor,
-                       n_iter=cfg.ibp_iterations, step=cfg.ibp_step,
-                       device=device, band_store=band_store, fused=fused,
-                       mm_precision=mm_precision, solver=solver,
-                       engine=engine)
+        if np.prod(parse_sp_spec(sp)) > 1:
+            mesh, sp_axes = sp_mesh(sp, device)
+            result = solve_sharded(frames, psf, session.shifts, mesh,
+                                   factor=cfg.upsample_factor,
+                                   n_iter=cfg.ibp_iterations,
+                                   step=cfg.ibp_step, sp_axis=sp_axes,
+                                   solver=solver)
+        else:
+            result = solve(frames, psf, session.shifts,
+                           factor=cfg.upsample_factor,
+                           n_iter=cfg.ibp_iterations, step=cfg.ibp_step,
+                           device=device, band_store=band_store,
+                           fused=fused, mm_precision=mm_precision,
+                           solver=solver, engine=engine)
     if fusion is not None:
         fusion.check(int(frames.shape[0]), cfg.upsample_factor)
         with timer.stage("fusion"):
@@ -258,14 +277,15 @@ def process_workload(session_dirs, psf, cfg, output_base, figures=True,
                      device="cuda", band_store: str = "f32",
                      fused: str = "auto", mm_precision: str = "HIGHEST",
                      solver: str = "ibp", engine: str = "mm",
-                     fusion=None) -> int:
+                     sp=1, fusion=None) -> int:
     """Process many sessions with CROSS-SESSION unit batching: every
     pending unit across the workload joins one stream, and runs of
     consecutive units with identical (shape, shifts) solve as single
     batched device calls of up to ``max_batch`` (``mm`` engine; the
-    ``conv`` engine, and every unit when the learned burst engine
-    ``fusion`` rides along, go one at a time).  The solve options are
-    :func:`~.classical.solve`'s."""
+    ``conv`` engine, the spatially-sharded path ``sp`` > 1, whose unit
+    already spans the mesh, and every unit when the learned burst engine
+    ``fusion`` rides along, go one at a time).  The solve options and
+    ``sp`` are :func:`process_unit`'s."""
     opts = dict(device=device, band_store=band_store, fused=fused,
                 mm_precision=mm_precision, solver=solver, engine=engine)
     buffer: list = []
@@ -276,10 +296,10 @@ def process_workload(session_dirs, psf, cfg, output_base, figures=True,
         if not buffer:
             return
         if len(buffer) == 1 or not batch_reps or engine != "mm" \
-                or fusion is not None:
+                or np.prod(parse_sp_spec(sp)) > 1 or fusion is not None:
             for u in buffer:
                 if process_unit(u, psf, cfg, output_base, figures,
-                                force=True, fusion=fusion,
+                                force=True, sp=sp, fusion=fusion,
                                 **opts) is not None:
                     n_done += 1
         else:

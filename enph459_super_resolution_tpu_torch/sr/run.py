@@ -15,7 +15,9 @@ store (``--band-store {f32,bf16,hybrid[:tail]}``), the fused engine
 {ibp,adjoint}``, ``--mm-precision``, serve mode (``--watch SECONDS``,
 ``--watch-polls N``) and the learned burst engine (``--fusion-run RUN``,
 ``--fusion-refine N``, ``--fusion-dtype``, ``--fusion-refine-engine``,
-``--fusion-refine-step``).
+``--fusion-refine-step``) and spatial sharding (``--sp N|NxM``: each
+unit's IBP over a mesh of N (x M) tiles, one per card for ``--device
+cuda``, all on the host for ``--device cpu``).
 """
 
 from __future__ import annotations
@@ -91,6 +93,7 @@ def main(argv=None) -> int:
     from ..device import DEVICES, resolve_device
     from ..psf.kernels import load_measured_psf, make_gaussian_psf
     from ..ops.opmatrix import MM_PRECISIONS
+    from ..parallel.mesh import parse_sp_spec, sp_mesh
     from .classical import ENGINES, FUSED_MODES, SOLVERS, check_config
     from .config import WORKLOADS
     from .pipeline import process_workload
@@ -182,9 +185,24 @@ def main(argv=None) -> int:
     p.add_argument("--fusion-refine-step", type=float, default=2.0,
                    help="Landweber step for --fusion-refine (2.0 is stable "
                         "under the exact adjoint)")
+    p.add_argument("--sp", default="1", metavar="N|NxM",
+                   help="shard each unit's IBP image plane over a mesh of "
+                        "tiles (halo exchange between neighbours, full-array "
+                        "parity with the unsharded solve): N = H strips "
+                        "(image H must divide by it); NxM = 2-D H x W tiles "
+                        "with corner exchange (W must divide by M). With "
+                        "--device cuda each tile takes one of the first "
+                        "N*M cards (fewer cards is an error); with --device "
+                        "cpu every tile runs on the host. It ignores "
+                        "--band-store, --fused-ibp, --mm-precision and "
+                        "--engine")
     p.add_argument("--device", default="cuda", choices=DEVICES,
                    help="where the solve runs (default cuda; no fallback)")
     args = p.parse_args(argv)
+    try:
+        args.sp = parse_sp_spec(args.sp)
+    except ValueError as exc:
+        p.error(str(exc))
     try:
         check_config(args.engine, args.solver, args.band_store,
                      args.fused_ibp, args.mm_precision)
@@ -194,6 +212,11 @@ def main(argv=None) -> int:
         device = resolve_device(args.device)
     except RuntimeError as exc:
         p.error(str(exc))
+    if args.sp[0] * args.sp[1] > 1:
+        try:
+            sp_mesh(args.sp, device)
+        except ValueError as exc:
+            p.error(f"--sp {args.sp[0]}x{args.sp[1]}: {exc}")
 
     cfg = WORKLOADS[args.workload]
     n_iter, ibp_step = args.ibp_iters, args.ibp_step
@@ -241,7 +264,7 @@ def main(argv=None) -> int:
             max_batch=args.max_batch, device=device,
             band_store=args.band_store, fused=args.fused_ibp,
             mm_precision=args.mm_precision, solver=args.solver,
-            engine=args.engine, fusion=fusion)
+            engine=args.engine, sp=args.sp, fusion=fusion)
 
     if args.watch is not None:
         watch(list_sessions, serve, args.watch, args.watch_polls)

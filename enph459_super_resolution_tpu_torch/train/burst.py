@@ -29,6 +29,7 @@ import json
 import os
 import shutil
 import sys
+import tempfile
 import time
 from typing import Optional, Sequence
 
@@ -41,6 +42,8 @@ from ..sr.fusion import (NOMINAL_SHIFTS_4, REGISTER_FNS, fuse,
 from ..utils.timing import rss_mb
 from .data import generator
 
+# the JAX package's /tmp/burst_run, under this process's temp dir
+DEFAULT_OUT = os.path.join(tempfile.gettempdir(), "burst_run")
 #: --arch CLI value -> (zoo model name, registration grid of the stack)
 ARCHS = {"hr": "burstfusion", "lr": "burstfusion_lr"}
 
@@ -270,7 +273,7 @@ def train_burst(steps: int = 20000, batch: int = 16, lr_patch: int = 24,
                 frames: int = 4, factor: int = 2, n_feats: int = 48,
                 n_resblocks: int = 6, noise: float = 2.0,
                 jitter: float = 0.05, learning_rate: float = 1e-4,
-                loss: str = "l1", out_dir: str = "burst_run",
+                loss: str = "l1", out_dir: str = DEFAULT_OUT,
                 pool_kind: str = "synthetic", pool_images: int = 64,
                 seed: int = 0, eval_every: int = 2000,
                 ckpt_every: int = 1000, resume: bool = True,
@@ -404,7 +407,7 @@ def load_burst_run(run_dir: str, dtype=None, device="cuda"):
     return model.eval().requires_grad_(False), cfg
 
 
-def main(argv=None) -> int:
+def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--steps", type=int, default=20000)
     p.add_argument("--batch", type=int, default=16)
@@ -427,7 +430,7 @@ def main(argv=None) -> int:
     p.add_argument("--learning-rate", type=float, default=1e-4)
     p.add_argument("--loss", default="l1",
                    choices=["l1", "l2", "charbonnier"])
-    p.add_argument("--out", default="burst_run")
+    p.add_argument("--out", default=DEFAULT_OUT)
     p.add_argument("--pool", default=None,
                    choices=["synthetic", "natural", "edges"],
                    help="scene pool (training default: synthetic; "
@@ -458,6 +461,11 @@ def main(argv=None) -> int:
                         "after N data-consistency Landweber iterations")
     p.add_argument("--device", default="cuda", choices=DEVICES,
                    help="where training runs (default cuda; no fallback)")
+    return p
+
+
+def main(argv=None) -> int:
+    p = build_parser()
     args = p.parse_args(argv)
     try:
         device = resolve_device(args.device)

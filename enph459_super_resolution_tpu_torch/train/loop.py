@@ -33,6 +33,7 @@ import json
 import os
 import shutil
 import sys
+import tempfile
 import time
 from typing import Optional
 
@@ -42,7 +43,10 @@ from ..device import DEVICES, resolve_device
 from ..utils.timing import rss_mb
 
 LOG_EVERY = 50  # metrics.jsonl cadence; chunk_size aligns to it
-PARALLEL_LATER = "comes with parallel/ (ROADMAP Queue 1 item 9)"
+PARALLEL_LATER = ("comes with the training meshes of parallel/ (ROADMAP "
+                  "Queue 1 item 9)")
+# the JAX package's /tmp/sr_train, under this process's temp dir
+DEFAULT_OUT = os.path.join(tempfile.gettempdir(), "sr_train")
 
 
 def _ema_model(model: torch.nn.Module, ema_params) -> torch.nn.Module:
@@ -63,7 +67,7 @@ def pre_upsample(model_name: str, scale: int):
 
 def train(model_name: str = "edsr", scale: int = 4, steps: int = 1000,
           batch: int = 16, lr_patch: int = 48, learning_rate: float = 1e-4,
-          loss: str = "l1", out_dir: str = "sr_train",
+          loss: str = "l1", out_dir: str = DEFAULT_OUT,
           data_dir: Optional[str] = None, eval_every: int = 500,
           ckpt_every: int = 500, channels: int = 3, dp: bool = True,
           gan: bool = False, seed: int = 0, resume: bool = True,
@@ -244,7 +248,7 @@ def train(model_name: str = "edsr", scale: int = 4, steps: int = 1000,
     return final
 
 
-def main(argv=None) -> int:
+def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--model", default="edsr",
                    choices=["srcnn", "espcn", "fsrcnn", "edsr", "edsr_moe",
@@ -256,7 +260,7 @@ def main(argv=None) -> int:
     p.add_argument("--learning-rate", type=float, default=1e-4)
     p.add_argument("--loss", default="l1",
                    choices=["l1", "l2", "charbonnier"])
-    p.add_argument("--out", default="sr_train")
+    p.add_argument("--out", default=DEFAULT_OUT)
     p.add_argument("--data-dir", default=None)
     p.add_argument("--channels", type=int, default=3)
     p.add_argument("--gan", action="store_true",
@@ -300,6 +304,11 @@ def main(argv=None) -> int:
     p.add_argument("--no-resume", action="store_true")
     p.add_argument("--device", default="cuda", choices=DEVICES,
                    help="where training runs (default cuda; no fallback)")
+    return p
+
+
+def main(argv=None) -> int:
+    p = build_parser()
     args = p.parse_args(argv)
     if args.mesh:
         p.error(f"--mesh {args.mesh}: device meshes {PARALLEL_LATER}")

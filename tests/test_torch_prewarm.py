@@ -132,3 +132,78 @@ def test_prewarm_without_a_card_writes_nothing(tmp_path, op_cache):
         TP.main(["--workloads", "mono_barcodes", "--build-only"])
     assert exc.value.code == 2
     assert not os.path.exists(op_cache)
+
+
+# The op disk cache's knobs, as the JAX package's tests hold them
+# (tests/test_sr_classical.py::test_op_cache_roundtrip_and_corruption,
+# tests/test_prewarm.py): SRTPU_OP_CACHE_DIR moves the cache and
+# SRTPU_OP_CACHE=0 turns it off.
+
+ARGS = (((0.5, -0.5), (-0.5, 0.5)), 2, (24, 40))
+
+
+def test_op_cache_dir_env_roundtrip_and_corruption(tmp_path, monkeypatch):
+    """A second build is served from disk, bit for bit; a corrupt entry
+    rebuilds."""
+    cache_dir = str(tmp_path / "moved")
+    monkeypatch.setenv("SRTPU_OP_CACHE_DIR", cache_dir)
+    assert TC.op_cache_dir() == cache_dir
+    psf = TC.make_gaussian_psf()
+    built = []
+    orig = TC._host_solve_matrices
+
+    def counting(*a, **k):
+        built.append(1)
+        return orig(*a, **k)
+
+    monkeypatch.setattr(TC, "_host_solve_matrices", counting)
+    first = TC._cached_host_matrices(psf, *ARGS)
+    path = TC._op_cache_path(psf, *ARGS, 1)
+    assert os.path.dirname(path) == cache_dir and os.path.exists(path)
+    assert os.stat(cache_dir).st_mode & 0o777 == 0o700
+    again = TC._cached_host_matrices(psf, *ARGS)
+    assert len(built) == 1  # the second call was served from disk
+    for a, b in zip(first["zoom_r"].blocks, again["zoom_r"].blocks):
+        np.testing.assert_array_equal(a, b)
+
+    with open(path, "wb") as fp:
+        fp.write(b"corrupt")
+    TC._cached_host_matrices(psf, *ARGS)
+    assert len(built) == 2  # rebuilt, not crashed
+
+
+def test_op_cache_off_writes_no_file(tmp_path, monkeypatch, op_cache):
+    monkeypatch.setenv("SRTPU_OP_CACHE", "0")
+    assert TC._op_cache_path(TC.make_gaussian_psf(), *ARGS, 1) is None
+    mats = TC._cached_host_matrices(TC.make_gaussian_psf(), *ARGS)
+    assert mats["zoom_c"].n_out == 80
+    out = TC.solve(np.zeros((2, 24, 40), np.float32),
+                   TC.make_gaussian_psf(), ARGS[0], n_iter=2, device="cpu")
+    assert np.isfinite(out["mse_history"]).all()
+    assert not os.path.exists(op_cache)
+
+
+def test_build_only_fills_the_moved_cache(tiny_session_dir, tmp_path,
+                                          monkeypatch, op_cache, capsys):
+    """``SRTPU_OP_CACHE_DIR`` moves the prewarm's cache: the specs land
+    there and nothing under the temp dir; the full warm path reads it."""
+    cache_dir = str(tmp_path / "opcache")
+    monkeypatch.setenv("SRTPU_OP_CACHE_DIR", cache_dir)
+    TC._device_matrices.cache_clear()
+    assert TP.main(["--workloads", "mono_barcodes", "--data-dir",
+                    tiny_session_dir, "--build-only", "--max-batch", "2",
+                    "--device", "cpu"]) == 0
+    cached = [f for f in os.listdir(cache_dir) if f.endswith(".pkl")]
+    assert len(cached) == 2  # the reps=1 and reps=2 specs
+    assert not os.path.exists(op_cache)
+    assert cache_dir in capsys.readouterr().out
+
+    TC._device_matrices.cache_clear()
+
+    def boom(*a, **k):
+        raise AssertionError("host build ran despite a warm disk cache")
+
+    monkeypatch.setattr(TC, "_host_solve_matrices", boom)
+    assert TP.main(["--workloads", "mono_barcodes", "--data-dir",
+                    tiny_session_dir, "--max-batch", "2", "--ibp-iters",
+                    "2", "--device", "cpu"]) == 0

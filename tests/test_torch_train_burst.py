@@ -322,3 +322,18 @@ def test_train_burst_without_a_card_exits_2_and_writes_nothing(tmp_path):
     with pytest.raises(RuntimeError, match="cuda"):
         TB.train_burst(steps=1, out_dir=str(out))
     assert not out.exists()
+
+
+def test_default_out_dir_is_the_reference():
+    """``train.burst`` writes to ``burst_run`` under the temp dir by
+    default, as the JAX package writes ``/tmp/burst_run``: the CLI's parser
+    and the function agree."""
+    import inspect
+    import tempfile
+
+    ref = inspect.signature(JB.train_burst).parameters["out_dir"].default
+    assert ref == "/tmp/burst_run"
+    want = os.path.join(tempfile.gettempdir(), os.path.basename(ref))
+    assert TB.build_parser().get_default("out") == want
+    assert inspect.signature(TB.train_burst).parameters["out_dir"].default \
+        == want

@@ -352,3 +352,19 @@ def test_evaluate_without_a_card_exits_2(tmp_path):
     with pytest.raises(ValueError, match="Queue 1 item 9"):
         TL.train(steps=1, out_dir=str(tmp_path / "run"), mesh_spec="dp=2",
                  device="cpu")
+
+
+def test_default_out_dir_is_the_reference():
+    """``train.loop`` writes to ``sr_train`` under the temp dir by default,
+    as the JAX package writes ``/tmp/sr_train``: the CLI's parser and the
+    function agree."""
+    import inspect
+    import tempfile
+
+    from enph459_super_resolution_tpu.train import loop as JL
+
+    ref = inspect.signature(JL.train).parameters["out_dir"].default
+    assert ref == "/tmp/sr_train"
+    want = os.path.join(tempfile.gettempdir(), os.path.basename(ref))
+    assert TL.build_parser().get_default("out") == want
+    assert inspect.signature(TL.train).parameters["out_dir"].default == want
