@@ -161,6 +161,27 @@ or of the JAX package.  Phases, one JSON line each:
    within 3 rates, and all but 1 in 10,000 of them outside the two Dense
    biases within 0.01 of the rate (RaGAN leaves some of D's gradients at
    rounding level, ``tests/test_torch_gan.py``).
+19. mesh_train -- the training meshes of ``parallel/`` at full width,
+   the card repeated in the mesh: ``train.loop.train`` of EDSR-baseline x4
+   (16 x 64, batch 16, LR patch 48, L1, the synthetic pool, 20 steps, every
+   step logged) on one device and under dp=2,tp=2 and dp=2,sp=2,tp=2; the
+   scan-trunk EDSR on one device and under dp=2,pp=4 (``train.evaluate``
+   then reads that run's checkpoint); 2 GAN steps on one device and under
+   dp=2,tp=2; EDSRMoE x4 (8 x 64, 4 experts) dense, dense again and under
+   dp=2,ep=4.  Per run: steps/s, peak memory, the device launches and idle
+   share of one profiled step, and the largest relative difference of the
+   loss trajectory from its one-device run: dp/sp/tp/pp and the GAN within
+   rtol 2e-4 (``tests/test_multidevice_cli.py``'s bar); EDSRMoE's bar
+   (rtol 1e-4, atol 1e-5, final PSNR atol 1e-3) is recorded, not raised,
+   as its float32 gradient on the card parts two dense runs too (its first
+   loss must agree within 1e-4), and one float64 step at full width holds
+   dp=2,ep=4 to the dense step within 1e-9 (beside it, the float32
+   gradient's worst tensor as a share of the float64 one).
+   ``dryrun_multichip(8)`` on the card x 8 prints its 8 ``ok:`` lines;
+   ``train.loop --mesh dp=2,tp=2
+   --device cuda`` with fewer than 4 cards exits 2 and writes nothing; no
+   K1-K4 launch.  On a host of 4 or more cards, dp=2,tp=2 (EDSR) and
+   dp=2,ep=2 (EDSRMoE) also run with one position per card.
 
 Then the ``kernels`` summary line, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -2227,6 +2248,304 @@ def phase_train(torch):
     return row
 
 
+MESH_STEPS = 20
+# the reference's bars: dp/sp/tp/pp loss trajectories against one device
+# (tests/test_multidevice_cli.py), the edsr_moe ep run against the dense
+# one (tests/test_moe_parallel.py: losses, and the final eval's PSNR)
+MESH_RTOL = 2e-4
+MOE_RTOL, MOE_ATOL, MOE_PSNR_ATOL = 1e-4, 1e-5, 1e-3
+MOE_KW = {"n_resblocks": 8, "n_feats": 64, "n_experts": 4}
+SCAN_KW = {"scan_trunk": True}
+# name: (model, kwargs, mesh, its single-device run, gan steps or 0)
+MESH_RUNS = {
+    "edsr_single": ("edsr", {}, None, None, 0),
+    "edsr_dp2_tp2": ("edsr", {}, "dp=2,tp=2", "edsr_single", 0),
+    "edsr_dp2_sp2_tp2": ("edsr", {}, "dp=2,sp=2,tp=2", "edsr_single", 0),
+    "edsr_scan_single": ("edsr", SCAN_KW, None, None, 0),
+    "edsr_dp2_pp4": ("edsr", SCAN_KW, "dp=2,pp=4", "edsr_scan_single", 0),
+    "gan_single": ("edsr", {}, None, None, 2),
+    "gan_dp2_tp2": ("edsr", {}, "dp=2,tp=2", "gan_single", 2),
+    "moe_dense": ("edsr_moe", MOE_KW, None, None, 0),
+    "moe_dense_again": ("edsr_moe", MOE_KW, None, "moe_dense", 0),
+    "moe_dp2_ep4": ("edsr_moe", MOE_KW, "dp=2,ep=4", "moe_dense", 0),
+}
+MOE_F64_RTOL = 1e-9  # one float64 step, dense against dp=2,ep=4
+
+
+def _mesh_step(torch, model_name, kwargs, mesh_spec, gan, devices, batch):
+    """One warm train step of a run's configuration, built from the parts
+    ``train.loop.train`` puts together, ready for the profiler."""
+    from enph459_super_resolution_tpu_torch.models import (
+        VGGStyleDiscriminator, create_model)
+    from enph459_super_resolution_tpu_torch.parallel import (
+        make_pipelined_edsr_apply, shard_train_step)
+    from enph459_super_resolution_tpu_torch.train import loop as TL
+    from enph459_super_resolution_tpu_torch.train import state as TS
+    from enph459_super_resolution_tpu_torch.train.losses import \
+        PerceptualLoss
+
+    mesh, axes = TL.train_mesh(mesh_spec, False, "cuda", devices)
+
+    gen = torch.Generator().manual_seed(SEED)
+    model = create_model(model_name, scale=4, channels=3, device="cuda",
+                         generator=gen, **kwargs)
+    cfg = TS.TrainConfig(learning_rate=1e-4,
+                         lr_halve_every=MESH_STEPS // 2)
+    forward = None
+    if mesh is not None:
+        TL.place_params(model, mesh, axes)
+        if axes.get("pp", 1) > 1:
+            forward = make_pipelined_edsr_apply(model, mesh, dp_axis="dp")
+    state = TS.TrainState.create(model, cfg)
+    if gan:
+        disc = VGGStyleDiscriminator(nf=32, device="cuda", generator=gen)
+        if mesh is not None:
+            TL.place_params(disc, mesh, axes)
+        state = TS.GANTrainState(state, disc,
+                                 TS.make_optimizer(cfg, disc.parameters()),
+                                 TS.GANBalance())
+        step = TS.make_gan_train_step(cfg, percep_loss=PerceptualLoss(),
+                                      noise_seed=SEED + 2)
+    else:
+        step = TS.make_train_step(cfg, forward=forward)
+    if mesh is not None:
+        step = shard_train_step(step, mesh,
+                                sp_axis="sp" if "sp" in axes else None)
+    lr, hr = batch
+    step(state, lr, hr)
+    torch.cuda.synchronize()
+    return lambda: (step(state, lr, hr), torch.cuda.synchronize())
+
+
+def _mesh_run(torch, work, name, batch, devices=None, base=None,
+              run=None):
+    """One ``train.loop.train`` run of ``run`` (default ``MESH_RUNS[name]``)
+    at full width: its records, steps/s, peak memory, a profiled step, and
+    its loss trajectory against ``base`` (its single-device run's)."""
+    import contextlib
+    import io
+
+    from enph459_super_resolution_tpu_torch.train import loop as TL
+
+    model_name, kwargs, mesh_spec, base_name, gan = run or MESH_RUNS[name]
+    steps = gan or MESH_STEPS
+    n = 1
+    for part in (mesh_spec or "").split(","):
+        if part:
+            n *= int(part.split("=")[1])
+    if devices is None:
+        devices = [torch.device("cuda", 0)] * n
+    out = work / name
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):  # a line a step
+        final = TL.train(model_name=model_name, scale=4, steps=steps,
+                         batch=16, lr_patch=48, loss="l1", channels=3,
+                         out_dir=str(out), eval_every=steps,
+                         ckpt_every=steps, dp=False, gan=bool(gan),
+                         resume=False, model_kwargs=dict(kwargs),
+                         mesh_spec=mesh_spec, device="cuda",
+                         devices=devices)
+    wall = time.perf_counter() - t0
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    recs = _records(out / "metrics.jsonl")
+    key = "g_loss" if gan else "loss"
+    check([r["step"] for r in recs] == list(range(1, steps + 1))
+          and all(_finite(r) for r in recs) and _finite(final),
+          f"mesh_train {name}: records {recs[-1:]}, final {final}")
+    row = {"phase": "mesh_train", "run": name, "model": model_name,
+           "model_kwargs": kwargs, "mesh": mesh_spec,
+           "devices": [str(d) for d in devices], "batch": 16,
+           "lr_patch": 48, "steps": steps, "gan": bool(gan),
+           "train_call_s": wall,
+           "steps_per_s": _steps_per_s(recs, 1 if gan else 2, steps),
+           "peak_mem_mb": peak_mb, key: [r[key] for r in recs],
+           "final_eval_psnr": final["psnr"]}
+    busy_s, prof_s = phase_profile(
+        torch, _mesh_step(torch, model_name, kwargs, mesh_spec, gan,
+                          devices, batch),
+        f"one {name} train step")
+    row.update(profiled_step_s=prof_s, device_busy_s=busy_s,
+               device_idle_share=1.0 - busy_s / prof_s)
+    if base is not None:
+        rel = max(abs(a[key] - b[key]) / abs(b[key])
+                  for a, b in zip(recs, base["records"]))
+        row[f"{key}_max_rel_vs_single"] = rel
+        if model_name == "edsr_moe":
+            # recorded, not raised: EDSRMoE's float32 gradient on the card
+            # lies far from its float64 value (_moe_f64_step measures how
+            # far), so two float32 runs part within steps, a dense one
+            # against itself too (moe_dense_again; ROADMAP Queue 3); the
+            # ep blend's math is held in float64 (_moe_f64_step)
+            held = all(abs(a[key] - b[key]) <= MOE_ATOL + MOE_RTOL * abs(
+                b[key]) for a, b in zip(recs, base["records"]))
+            psnr_d = abs(final["psnr"] - base["final"]["psnr"])
+            row.update(final_psnr_abs_vs_single=psnr_d,
+                       first_loss_rel_vs_single=abs(
+                           recs[0][key] - base["records"][0][key])
+                       / abs(base["records"][0][key]),
+                       bar=f"rtol {MOE_RTOL}, atol {MOE_ATOL}; PSNR atol "
+                           f"{MOE_PSNR_ATOL}",
+                       bar_held=held and psnr_d <= MOE_PSNR_ATOL)
+            check(row["first_loss_rel_vs_single"] <= MOE_RTOL,
+                  f"mesh_train {name}: first loss {recs[0][key]} against "
+                  f"{base['records'][0][key]}")
+        else:
+            check(rel <= MESH_RTOL, f"mesh_train {name}: {key} trajectory "
+                                    f"{rel} > rtol {MESH_RTOL}")
+    emit(row)
+    return {"records": recs, "final": final, "row": row}
+
+
+def _moe_f64_step(torch, batch) -> dict:
+    """One EDSRMoE x4 train step at full width in float64 on the card,
+    dense and over dp=2,ep=4 (the card repeated): the ep blend's math,
+    free of float32's rounding; and how far the dense float32 gradient
+    lies from the float64 one."""
+    from enph459_super_resolution_tpu_torch.models import create_model
+    from enph459_super_resolution_tpu_torch.parallel import (
+        make_mesh, shard_params_ep_named, shard_train_step)
+    from enph459_super_resolution_tpu_torch.train import state as TS
+    from enph459_super_resolution_tpu_torch.train.losses import l1_loss
+
+    lr, hr = (t.double() for t in batch)
+    out = {}
+    for name in ("dense", "dp2_ep4"):
+        model = create_model(
+            "edsr_moe", scale=4, channels=3, device="cuda",
+            generator=torch.Generator().manual_seed(SEED), **MOE_KW).double()
+        cfg = TS.TrainConfig(learning_rate=1e-4)
+        step = TS.make_train_step(cfg)
+        if name != "dense":
+            mesh = make_mesh({"dp": 2, "ep": 4},
+                             devices=[torch.device("cuda", 0)] * 8)
+            shard_params_ep_named(model, mesh, "ep")
+            step = shard_train_step(step, mesh)
+        met = step(TS.TrainState.create(model, cfg), lr, hr)
+        out[name] = {k: float(met[k]) for k in ("loss", "grad_norm")}
+    rel = max(abs(out["dp2_ep4"][k] - out["dense"][k]) / abs(out["dense"][k])
+              for k in out["dense"])
+    check(rel <= MOE_F64_RTOL, f"EDSRMoE float64 step, dp=2,ep=4 against "
+                               f"dense: {out} ({rel} > {MOE_F64_RTOL})")
+    # why the float32 runs part: the dense float32 gradient against the
+    # float64 one from the same weights, per tensor as a share of its
+    # largest float64 element (the worst tensor)
+    grads = {}
+    for dtype in (torch.float64, torch.float32):
+        model = create_model(
+            "edsr_moe", scale=4, channels=3, device="cuda",
+            generator=torch.Generator().manual_seed(SEED), **MOE_KW).to(dtype)
+        loss = l1_loss(model(lr.to(dtype)), hr.to(dtype))
+        grads[dtype] = dict(zip([n for n, _ in model.named_parameters()],
+                                torch.autograd.grad(loss,
+                                                    list(model.parameters()))))
+    f32_dev = max((float((grads[torch.float32][n].double() - g).abs().max()
+                         / g.abs().max()), n)
+                  for n, g in grads[torch.float64].items())
+    return dict(out, max_rel=rel, rtol=MOE_F64_RTOL,
+                f32_grad_worst_share_of_f64=f32_dev[0],
+                f32_grad_worst_tensor=f32_dev[1])
+
+
+def phase_mesh_train(torch):
+    """The training meshes of ``parallel/`` at full width on the one card
+    (the card repeated in the mesh): EDSR-baseline x4 on one device and
+    under dp=2,tp=2 and dp=2,sp=2,tp=2; the scan-trunk EDSR on one device
+    and under dp=2,pp=4, whose checkpoint ``train.evaluate`` reads; 2 GAN
+    steps on one device and under dp=2,tp=2; EDSRMoE x4 dense and under
+    dp=2,ep=4; ``dryrun_multichip(8)``; ``train.loop --mesh`` without the
+    cards exits 2; on a host of 4 or more cards, dp=2,tp=2 and dp=2,ep=2
+    with one position per card."""
+    import contextlib
+    import io
+
+    from enph459_super_resolution_tpu_torch.parallel.dryrun import \
+        dryrun_multichip
+    from enph459_super_resolution_tpu_torch.train import evaluate as TE
+    from enph459_super_resolution_tpu_torch.train import loop as TL
+    from enph459_super_resolution_tpu_torch.train.data import (
+        PatchConfig, make_patch_sampler, synthetic_scene_pool)
+
+    t_phase = time.perf_counter()
+    work = WORK / "mesh_train"
+    card = torch.device("cuda", 0)
+    pool = synthetic_scene_pool(n_images=32, size=208, channels=3, seed=0)
+    batch = next(make_patch_sampler(pool[4:], PatchConfig(), seed=0,
+                                    device="cuda"))
+    reset_counts()
+    log_every, TL.LOG_EVERY = TL.LOG_EVERY, 1  # every step's loss
+    done = {}
+    try:
+        for name, (_, _, _, base, _) in MESH_RUNS.items():
+            done[name] = _mesh_run(torch, work, name, batch,
+                                   base=done.get(base))
+        multicard = {}
+        if torch.cuda.device_count() >= 4:
+            cards = [torch.device("cuda", i) for i in range(4)]
+            for name, base, spec in (
+                    ("edsr_dp2_tp2", "edsr_single", "dp=2,tp=2"),
+                    ("moe_dp2_ep4", "moe_dense", "dp=2,ep=2")):
+                model_name, kw, _, _, gan = MESH_RUNS[name]
+                key = name.replace("ep4", "ep2") + "_4cards"
+                multicard[key] = _mesh_run(
+                    torch, work, key, batch, devices=cards, base=done[base],
+                    run=(model_name, kw, spec, base, gan))["row"]
+    finally:
+        TL.LOG_EVERY = log_every
+    launches = read_counts()
+    check(not any(launches.values()),
+          f"mesh training launched hand-written kernels: {launches}")
+    moe_f64 = _moe_f64_step(torch, batch)
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = TE.main(["--run", str(work / "edsr_dp2_pp4")])
+    ev = json.loads(out.getvalue().strip().splitlines()[-1])
+    check(rc == 0 and _finite(ev) and ev["step"] == MESH_STEPS,
+          f"train.evaluate of the dp=2,pp=4 run: exit {rc}, {ev}")
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        dryrun_multichip(8, devices=[card] * 8)
+    dryrun_s = time.perf_counter() - t0
+    dryrun = out.getvalue().strip().splitlines()
+    check(sum(" ok:" in ln for ln in dryrun) == 8,
+          f"dryrun_multichip(8): {dryrun}")
+
+    # train.loop --mesh without the cards: exit 2, nothing written
+    n_cards = torch.cuda.device_count()
+    refused = None
+    if n_cards < 4:
+        bad = work / "refused"
+        err = io.StringIO()
+        try:
+            with contextlib.redirect_stderr(err):
+                TL.main(["--mesh", "dp=2,tp=2", "--device", "cuda",
+                         "--steps", "2", "--out", str(bad)])
+            rc = 0
+        except SystemExit as exc:
+            rc = exc.code
+        said = err.getvalue().strip().splitlines()
+        check(rc == 2 and f"needs 4 devices, have {n_cards}" in
+              err.getvalue() and not bad.exists(),
+              f"train.loop --mesh dp=2,tp=2 on {n_cards} card(s): exit "
+              f"{rc}, {said[-1:]}")
+        refused = {"cards": n_cards, "exit": rc, "error": said[-1]}
+    row = {"phase": "mesh_train", "card": nvidia_smi("name,power.limit"),
+           "runs": {k: {f: v["row"][f] for f in (
+               "mesh", "steps_per_s", "peak_mem_mb", "device_idle_share")
+               if f in v["row"]} for k, v in done.items()},
+           "moe_bars_held": {k: v["row"]["bar_held"] for k, v in done.items()
+                             if "bar_held" in v["row"]},
+           "moe_f64_step": moe_f64, "multicard": multicard,
+           "evaluate_dp2_pp4": ev, "dryrun": dryrun, "dryrun_s": dryrun_s,
+           "cli_refusal": refused, "launches": launches,
+           "phase_s": time.perf_counter() - t_phase}
+    emit(row)
+    return row
+
+
 def _summary(name, source, replaces, launches, rows, head, card):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -2277,6 +2596,7 @@ def main() -> int:
         phase_prewarm_watch(torch, mono)
         burst = phase_burst(torch)
         train = phase_train(torch)
+        phase_mesh_train(torch)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 

@@ -81,22 +81,26 @@ def fused_ibp_from_arrays(arrays: Mapping, f_entries, f_groups, b_entries,
         else pack
 
 
+#: flax kernel -> port weight axes, by rank: a dense [in, out] -> [out,
+#: in]; a conv's HWIO -> OIHW, also stacked on a leading dim (the scan
+#: trunk's [n, ...], the vmapped experts' [E, ...])
+KERNEL_AXES = {2: (1, 0), 4: (3, 2, 0, 1), 5: (0, 4, 3, 1, 2)}
+
+
 def flax_state_dict(tree: Mapping) -> Dict[str, torch.Tensor]:
     """A flax parameter tree (``{"params": ...}`` or its contents) as a
     ``state_dict`` of the port's model of the same architecture.
 
     ``a/b/kernel`` becomes ``a.b.weight``: a conv's HWIO ``[kh, kw, in,
     out]`` as OIHW (as ``F.conv2d`` takes it), a ``Dense``'s ``[in, out]``
-    as ``[out, in]`` (as ``nn.Linear`` holds it).  A ``GroupNorm``'s
-    ``scale`` becomes ``weight``; ``bias`` and a PReLU's ``negative_slope``
-    keep their names.  Raises for a scan-layout EDSR tree
-    (``head``/``trunk``/...): the port has the unrolled layout only.
+    as ``[out, in]`` (as ``nn.Linear`` holds it).  Stacked conv kernels (a
+    scan-layout EDSR's ``trunk``, ``[n, kh, kw, in, out]``; an EDSRMoE's
+    ``experts`` from ``nn.vmap``, ``[E, kh, kw, in, out]``) keep their
+    leading dim: ``[n, out, in, kh, kw]``.  A ``GroupNorm``'s ``scale``
+    becomes ``weight``; ``bias`` and a PReLU's ``negative_slope`` keep
+    their names.
     """
     tree = tree.get("params", tree)
-    if "trunk" in tree or "head" in tree:
-        raise ValueError("scan-layout EDSR tree (head/trunk/tail_conv/...): "
-                         "the port takes the unrolled trunk layout "
-                         "(ResBlock_0 .. ResBlock_{n-1}) only")
     out: Dict[str, torch.Tensor] = {}
 
     def walk(node: Mapping, prefix: str) -> None:
@@ -106,12 +110,12 @@ def flax_state_dict(tree: Mapping) -> Dict[str, torch.Tensor]:
                 continue
             a = np.asarray(value, dtype=np.float32)
             if key == "kernel":
-                if a.ndim not in (2, 4):
-                    raise ValueError(f"{prefix}kernel: expected HWIO or "
-                                     f"[in, out], got shape {a.shape}")
+                if a.ndim not in KERNEL_AXES:
+                    raise ValueError(f"{prefix}kernel: expected HWIO (or "
+                                     f"stacked HWIO) or [in, out], got "
+                                     f"shape {a.shape}")
                 out[prefix + "weight"] = torch.from_numpy(
-                    np.ascontiguousarray(a.T if a.ndim == 2
-                                         else a.transpose(3, 2, 0, 1)))
+                    np.ascontiguousarray(a.transpose(KERNEL_AXES[a.ndim])))
             elif key == "scale":
                 out[prefix + "weight"] = torch.from_numpy(a.copy())
             elif key in ("bias", "negative_slope"):

@@ -17,7 +17,7 @@ in float32, the burst models also in bfloat16 (a :class:`Conv`'s compute
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -104,24 +104,48 @@ class Conv(nn.Conv2d):
         nn.init.zeros_(self.weight)
         nn.init.zeros_(self.bias)
 
-    def _same_pad(self, x):
+    @staticmethod
+    def _pads(sizes, kernels, strides):
         pads = []
-        for n, k, s in zip(x.shape[-2:], self.kernel_size, self.stride):
+        for n, k, s in zip(sizes, kernels, strides):
             total = max((-(-n // s) - 1) * s + k - n, 0)
             pads.append((total // 2, total - total // 2))
-        (top, bottom), (left, right) = pads
+        return pads
+
+    def _same_pad(self, x):
+        (top, bottom), (left, right) = self._pads(
+            x.shape[-2:], self.kernel_size, self.stride)
         return F.pad(x, (left, right, top, bottom))
 
     def forward(self, x):
+        if not isinstance(x, torch.Tensor):  # a parallel.spmd.MeshTensor
+            return x.apply_layer(self)
+        return self.conv_nhwc(x, self.weight, self.bias)
+
+    def conv_nhwc(self, x, weight, bias, rows_padded: bool = False):
+        """This conv of NHWC ``x`` with ``weight`` and ``bias`` (its own, or
+        a mesh position's slice of them).  ``rows_padded``: ``x`` already
+        holds the rows its window needs above and below (a row tile
+        extended by its neighbours' rows), so only the columns are
+        padded."""
         no_tf32(x)
         x = x.permute(0, 3, 1, 2)
-        if self.same_by_size:
+        padding = self.padding
+        if rows_padded:
+            if self.same_by_size:
+                (left, right), = self._pads(x.shape[-1:], self.kernel_size[1:],
+                                            self.stride[1:])
+                x = F.pad(x, (left, right))
+                padding = 0
+            else:
+                padding = (0, self.kernel_size[1] // 2)
+        elif self.same_by_size:
             x = self._same_pad(x)
-        if self.compute_dtype == torch.float32:
-            return super().forward(x).permute(0, 2, 3, 1)
         dt = self.compute_dtype
-        return self._conv_forward(x.to(dt), self.weight.to(dt),
-                                  self.bias.to(dt)).permute(0, 2, 3, 1)
+        if dt != torch.float32:
+            x, weight, bias = x.to(dt), weight.to(dt), bias.to(dt)
+        return F.conv2d(x, weight, bias, self.stride, padding).permute(
+            0, 2, 3, 1)
 
 
 class Dense(nn.Linear):
@@ -136,8 +160,15 @@ class Dense(nn.Linear):
         nn.init.zeros_(self.bias)
 
     def forward(self, x):
+        if not isinstance(x, torch.Tensor):  # a parallel.spmd.MeshTensor
+            return x.apply_layer(self)
+        return self.linear(x, self.weight, self.bias)
+
+    def linear(self, x, weight, bias):
+        """This layer on ``x`` with ``weight`` and ``bias`` (its own, or a
+        mesh position's slice of them)."""
         no_tf32(x)
-        return super().forward(x)
+        return F.linear(x, weight, bias)
 
 
 class GroupNorm(nn.GroupNorm):
@@ -149,6 +180,8 @@ class GroupNorm(nn.GroupNorm):
         super().__init__(num_groups, features, eps=eps)
 
     def forward(self, x):
+        if not isinstance(x, torch.Tensor):  # a parallel.spmd.MeshTensor
+            return x.apply_layer(self)
         return super().forward(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
 
 
@@ -178,7 +211,10 @@ def init_flax_default(module: nn.Module, generator: torch.Generator) -> None:
             if getattr(m, "zero_init", False):
                 m.weight.zero_()
                 continue
-            fan_in = m.weight[0].numel()
+            # per slice of a stacked weight [n, ...] (a scanned trunk, the
+            # experts): a conv's in x kh x kw, a dense layer's in
+            fan_in = math.prod(m.weight.shape[-3:] if isinstance(m, Conv)
+                               else m.weight.shape[-1:])
             std = math.sqrt(m.init_variance / fan_in) / _TRUNC_STD
             # inverse-CDF draw of a standard normal truncated to [-2, 2]
             lo = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
@@ -234,3 +270,27 @@ class Upsampler(nn.Module):
         for conv, r in zip(self.convs(), self.stages):
             x = pixel_shuffle(conv(x), r)
         return x
+
+
+def stack_parameters(module: nn.Module, n: int) -> nn.Module:
+    """Give every parameter of ``module`` a leading dim of ``n``: ``n``
+    modules' weights under one module's names, as flax's ``nn.scan`` and
+    ``nn.vmap`` over the params axis 0 lay them out.  Run copy ``i`` with
+    :func:`call_stacked`.  Returns ``module``."""
+    for m in module.modules():
+        for name, p in list(m.named_parameters(recurse=False)):
+            setattr(m, name, nn.Parameter(
+                p.detach().unsqueeze(0).repeat((n,) + (1,) * p.dim())))
+    return module
+
+
+def call_stacked(module: nn.Module, params: Dict[str, torch.Tensor], i: int,
+                 x):
+    """``module`` on ``x`` with slice ``i`` of the stacked ``params``
+    (name -> ``[n, ...]``, e.g. ``dict(module.named_parameters())`` after
+    :func:`stack_parameters`); a slice keeps the placement of the dims it
+    has (``parallel.spmd.index_placed``)."""
+    from ..parallel.spmd import index_placed
+
+    return torch.func.functional_call(
+        module, {k: index_placed(v, i) for k, v in params.items()}, (x,))

@@ -54,6 +54,8 @@ def make_edsr_fused_apply(model, *, dtype: torch.dtype = torch.bfloat16):
     precision of ``dtype`` (float32 or bfloat16).  The weights are packed
     and rounded once, here.
     """
+    if getattr(model, "scan_trunk", False):
+        raise ValueError("fused serving expects the unrolled trunk layout")
     pack = _trunk_pack(model, dtype)
     head = _operands(model.Conv_0, dtype)
     tail = _operands(model.Conv_1, dtype)
@@ -79,6 +81,8 @@ def make_burst_lr_fused_apply(model, *, dtype: torch.dtype = torch.bfloat16):
     """Serving ``fn(phases)`` for a ``models/zoo.py`` BurstFusionLR with the
     fused trunk: phases ``[B, h, w, N*f*f]`` -> HR ``[B, h*f, w*f, 1]``
     float32."""
+    if getattr(model, "scan_trunk", False):
+        raise ValueError("fused serving expects the unrolled trunk layout")
     pack = _trunk_pack(model, dtype)
     head = _operands(model.Conv_0, dtype)
     out = _operands(model.Conv_1, dtype)

@@ -8,12 +8,18 @@ through :func:`..device.resolve_device`) with flax's default
 initialisation drawn from ``generator`` (default: seed 0); trained weights
 come in through :func:`..convert.load_flax_params`.
 
-Ported: SRCNN, ESPCN, FSRCNN, EDSR (unrolled trunk, with ``remat``), the
-ESRGAN generator RRDBNet and its VGG-style discriminator, and the burst
-models BurstFusion and BurstFusionLR with a compute ``dtype`` (float32 or
-bfloat16) as flax's.  EDSR's ``scan_trunk`` and EDSRMoE exist for the
-pipeline- and expert-parallel meshes and come with ``parallel/`` (ROADMAP
-Queue 1 item 9).
+Ported: SRCNN, ESPCN, FSRCNN, EDSR (unrolled trunk or, with
+``scan_trunk``, the stacked trunk of the pp mesh; both with ``remat``),
+EDSRMoE (the gated-expert trunk of the ep mesh), the ESRGAN generator
+RRDBNet and its VGG-style discriminator, and the burst models BurstFusion
+and BurstFusionLR with a compute ``dtype`` (float32 or bfloat16) as
+flax's.
+
+Every model also runs on a ``parallel.spmd.MeshTensor`` (a batch split
+over a training mesh): its layers take their mesh rules from it, and an
+EDSRMoE whose experts were placed over an ep axis
+(``parallel.moe.shard_params_ep_named``) computes each ep position's
+experts there (``parallel.moe.moe_combine``).
 
 ``remat`` recomputes each residual block (EDSR) or RRDB (RRDBNet) in the
 backward pass (``torch.utils.checkpoint``), as flax's ``nn.remat``: the
@@ -23,7 +29,8 @@ block ``CheckpointResBlock_i`` / ``CheckpointRRDB_i``, and so does the port.
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -32,11 +39,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from .common import (Conv, Dense, GroupNorm, MeanShift, PReLU, ResBlock,
-                     Upsampler, init_flax_default, pixel_shuffle)
-
-SCAN_TRUNK_LATER = ("scan_trunk=True (the stacked trunk of the pp mesh) "
-                    "comes with parallel/, ROADMAP Queue 1 item 9")
-
+                     Upsampler, call_stacked, init_flax_default,
+                     pixel_shuffle, stack_parameters)
 
 def _place(model: nn.Module, device, generator: Optional[torch.Generator]):
     """Draw the default initialisation on the CPU, then move to ``device``."""
@@ -130,10 +134,47 @@ class FSRCNN(nn.Module):
         return pixel_shuffle(x, self.scale) * self.rgb_range
 
 
+class ScanTrunk(nn.Module):
+    """flax's ``nn.scan`` over one residual block: ``ResBlock_0``'s
+    parameters are stacked ``[n, ...]`` (block ``i`` is slice ``i``), and
+    the forward runs the blocks in turn, each recomputed in the backward
+    pass with ``remat``."""
+
+    def __init__(self, n: int, features: int, res_scale: float = 1.0,
+                 remat: bool = False):
+        super().__init__()
+        self.n, self.remat = n, remat
+        self.ResBlock_0 = stack_parameters(ResBlock(features, res_scale), n)
+
+    def stacked(self) -> Dict[str, torch.Tensor]:
+        """name -> stacked parameter ``[n, ...]``."""
+        return dict(self.ResBlock_0.named_parameters())
+
+    def run(self, x, params: Optional[Dict[str, torch.Tensor]] = None):
+        """``x`` through the blocks of ``params`` (default: all of this
+        trunk's), a stacked ``[k, ...]`` subset such as one pipeline
+        stage's."""
+        params = self.stacked() if params is None else params
+        count = next(iter(params.values())).shape[0]
+        blocks = [functools.partial(call_stacked, self.ResBlock_0, params, i)
+                  for i in range(count)]
+        return _run_blocks(blocks, x, self.remat)
+
+    def forward(self, x):
+        return self.run(x)
+
+
 class EDSR(nn.Module):
-    """EDSR-baseline: 16 residual blocks, 64 features, res_scale 1.0, with
-    the unrolled trunk layout (``ResBlock_0`` .. ``ResBlock_{n-1}``, or
-    ``CheckpointResBlock_i`` with ``remat``)."""
+    """EDSR-baseline: 16 residual blocks, 64 features, res_scale 1.0.
+
+    The unrolled trunk layout (``ResBlock_0`` .. ``ResBlock_{n-1}``, or
+    ``CheckpointResBlock_i`` with ``remat``) is the default.
+    ``scan_trunk=True`` is flax's stacked layout: named submodules
+    ``head``, ``trunk`` (:class:`ScanTrunk`, leaves ``[n_resblocks,
+    ...]``), ``tail_conv``, ``upsampler``, ``out_conv`` -- the same
+    function, the layout that pipeline parallelism splits over a pp axis
+    (``parallel.pipeline.make_pipelined_edsr_apply``).  The two layouts'
+    checkpoints are not interchangeable, as in the JAX package."""
 
     def __init__(self, scale: int = 4, channels: int = 3,
                  n_resblocks: int = 16, n_feats: int = 64,
@@ -141,18 +182,119 @@ class EDSR(nn.Module):
                  remat: bool = False, scan_trunk: bool = False, *,
                  device="cuda", generator: Optional[torch.Generator] = None):
         super().__init__()
-        if scan_trunk:
-            raise ValueError(SCAN_TRUNK_LATER)
         self.scale, self.channels = scale, channels
         self.n_resblocks, self.n_feats = n_resblocks, n_feats
         self.res_scale, self.rgb_range = res_scale, rgb_range
-        self.remat = remat
-        self.block_prefix = "CheckpointResBlock" if remat else "ResBlock"
+        self.remat, self.scan_trunk = remat, scan_trunk
+        self.MeanShift_0 = MeanShift(sign=-1, scale=rgb_range)
+        if scan_trunk:
+            self.head = Conv(channels, n_feats, 3)
+            self.trunk = ScanTrunk(n_resblocks, n_feats, res_scale, remat)
+            self.tail_conv = Conv(n_feats, n_feats, 3)
+            self.upsampler = Upsampler(scale, n_feats)
+            self.out_conv = Conv(n_feats, channels, 3)
+        else:
+            self.block_prefix = "CheckpointResBlock" if remat else "ResBlock"
+            self.Conv_0 = Conv(channels, n_feats, 3)
+            for i in range(n_resblocks):
+                self.add_module(f"{self.block_prefix}_{i}",
+                                ResBlock(n_feats, res_scale))
+            self.Conv_1 = Conv(n_feats, n_feats, 3)
+            self.Upsampler_0 = Upsampler(scale, n_feats)
+            self.Conv_2 = Conv(n_feats, channels, 3)
+        self.MeanShift_1 = MeanShift(sign=+1, scale=rgb_range)
+        _place(self, device, generator)
+
+    def blocks(self):
+        if self.scan_trunk:
+            raise ValueError("the scan-trunk layout has one stacked block "
+                             "(EDSR.trunk); blocks() is the unrolled one's")
+        return [getattr(self, f"{self.block_prefix}_{i}")
+                for i in range(self.n_resblocks)]
+
+    def forward(self, x):
+        if self.scan_trunk:
+            x = head = self.head(self.MeanShift_0(x))
+            x = self.tail_conv(self.trunk(x)) + head
+            return self.MeanShift_1(self.out_conv(self.upsampler(x)))
+        x = head = self.Conv_0(self.MeanShift_0(x))
+        x = _run_blocks(self.blocks(), x, self.remat)
+        x = self.Conv_1(x) + head
+        x = self.Conv_2(self.Upsampler_0(x))
+        return self.MeanShift_1(x)
+
+
+class _ExpertBranch(nn.Module):
+    """One expert's residual branch (conv-relu-conv, no skip: the skip and
+    res_scale live in :class:`MoEResBlock`, so the gated blend stays a pure
+    residual)."""
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.Conv_0 = Conv(features, features, 3)
+        self.Conv_1 = Conv(features, features, 3)
+
+    def forward(self, x):
+        return self.Conv_1(torch.relu(self.Conv_0(x)))
+
+
+class MoEResBlock(nn.Module):
+    """Spatially gated mixture-of-experts residual block: a 1x1 ``gate``
+    conv and a softmax over experts (in float32) give each pixel its
+    weights; ``experts`` (flax's ``nn.vmap``: one :class:`_ExpertBranch`
+    whose parameters are stacked ``[n_experts, ...]``) all see the whole
+    input, and the blend is ``einsum("ebhwc,bhwe->bhwc")``.
+
+    On a ``MeshTensor`` whose experts are placed over a mesh axis, each
+    position of that axis computes its ``n_experts / ep`` experts and the
+    gated partial blends are added up (``parallel.moe.moe_combine``)."""
+
+    def __init__(self, features: int, n_experts: int = 4,
+                 res_scale: float = 1.0):
+        super().__init__()
+        self.n_experts, self.res_scale = n_experts, res_scale
+        self.gate = Conv(features, n_experts, 1)
+        self.experts = stack_parameters(_ExpertBranch(features), n_experts)
+
+    def forward(self, x):
+        # softmax in float32, as the JAX package's, then the trunk's type
+        gate = torch.softmax(self.gate(x).float(), dim=-1).to(x.dtype)
+        params = dict(self.experts.named_parameters())
+        if isinstance(x, torch.Tensor):
+            ys = torch.stack([call_stacked(self.experts, params, e, x)
+                              for e in range(self.n_experts)])
+            r = torch.einsum("ebhwc,bhwe->bhwc", ys, gate)
+        else:
+            from ..parallel.moe import expert_axis, moe_combine
+
+            r = moe_combine(
+                functools.partial(call_stacked, self.experts, params),
+                gate, x, axis=expert_axis(params.values(), x.mesh))
+        return x + r * self.res_scale
+
+
+class EDSRMoE(nn.Module):
+    """EDSR-class network with gated mixture-of-experts residual blocks:
+    :class:`EDSR`'s head, tail and upsampler, every trunk block a
+    :class:`MoEResBlock`.  8 blocks x 64 features x 4 experts by default.
+    The expert-parallel product surface (``train.loop --model edsr_moe
+    --mesh dp=2,ep=4``), not a quality recommendation (RESULTS.md's
+    matched-FLOP ablation)."""
+
+    def __init__(self, scale: int = 4, channels: int = 3,
+                 n_resblocks: int = 8, n_feats: int = 64, n_experts: int = 4,
+                 res_scale: float = 1.0, rgb_range: float = 255.0, *,
+                 device="cuda", generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.scale, self.channels = scale, channels
+        self.n_resblocks, self.n_feats = n_resblocks, n_feats
+        self.n_experts, self.res_scale = n_experts, res_scale
+        self.rgb_range = rgb_range
         self.MeanShift_0 = MeanShift(sign=-1, scale=rgb_range)
         self.Conv_0 = Conv(channels, n_feats, 3)
         for i in range(n_resblocks):
-            self.add_module(f"{self.block_prefix}_{i}",
-                            ResBlock(n_feats, res_scale))
+            self.add_module(f"MoEResBlock_{i}",
+                            MoEResBlock(n_feats, n_experts, res_scale))
         self.Conv_1 = Conv(n_feats, n_feats, 3)
         self.Upsampler_0 = Upsampler(scale, n_feats)
         self.Conv_2 = Conv(n_feats, channels, 3)
@@ -160,15 +302,15 @@ class EDSR(nn.Module):
         _place(self, device, generator)
 
     def blocks(self):
-        return [getattr(self, f"{self.block_prefix}_{i}")
+        return [getattr(self, f"MoEResBlock_{i}")
                 for i in range(self.n_resblocks)]
 
     def forward(self, x):
         x = head = self.Conv_0(self.MeanShift_0(x))
-        x = _run_blocks(self.blocks(), x, self.remat)
+        for block in self.blocks():
+            x = block(x)
         x = self.Conv_1(x) + head
-        x = self.Conv_2(self.Upsampler_0(x))
-        return self.MeanShift_1(x)
+        return self.MeanShift_1(self.Conv_2(self.Upsampler_0(x)))
 
 
 class DenseBlock(nn.Module):
@@ -397,6 +539,7 @@ MODELS = {
     "burstfusion": BurstFusion,
     "burstfusion_lr": BurstFusionLR,
     "edsr": EDSR,
+    "edsr_moe": EDSRMoE,
     "rrdbnet": RRDBNet,
 }
 

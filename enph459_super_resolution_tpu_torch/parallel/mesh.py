@@ -1,7 +1,6 @@
-"""Device meshes and the CLI's mesh specs.
+"""Device meshes, the CLI's mesh specs, and the sharded train step.
 
-Counterpart of the spatial half of ``enph459_super_resolution_tpu/
-parallel/mesh.py`` (``make_mesh``, ``parse_mesh_spec``, ``parse_sp_spec``).
+Counterpart of ``enph459_super_resolution_tpu/parallel/mesh.py``.
 The reference builds a ``jax.sharding.Mesh`` and lets one program run on
 every device of it (single-controller SPMD).  Here a :class:`Mesh` is the
 same named grid of devices, held by one Python process that runs each
@@ -13,15 +12,18 @@ device more than once (``make_mesh({"sp": 4}, devices=["cuda"] * 4)``).
 The mesh positions that share a device then run one after another on it.
 This is how 4 tiles run on one card, and how the CPU tests run 2-8 tiles.
 
-The data- and tensor-parallel shardings (``batch_sharding``,
-``replicated``, ``shard_params_tp``, ``shard_params_leading``,
-``shard_train_step``) come with the training meshes (ROADMAP Queue 1
-item 9).
+The training meshes: :func:`batch_sharding` and :func:`replicated` return
+a :class:`~.spmd.Sharding` (``NamedSharding``'s counterpart: "dim d over
+axis a"); :func:`shard_params_tp` and :func:`shard_params_leading` record
+one on each parameter of a model (the tensors stay whole on the mesh's
+first device, see :mod:`.spmd`); :func:`shard_train_step` lays a batch out
+over dp (and its rows over sp) as a :class:`~.spmd.MeshTensor` and runs
+the step on it.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -42,10 +44,37 @@ class Mesh:
                              f"{tuple(axis_names)}")
         self.devices = devices
         self.axis_names = tuple(axis_names)
+        self._positions = None
 
     @property
     def shape(self) -> Dict[str, int]:
         return dict(zip(self.axis_names, self.devices.shape))
+
+    @property
+    def positions(self) -> List[Tuple[int, ...]]:
+        """Every position's index into ``devices``, in row-major order."""
+        if self._positions is None:
+            self._positions = list(np.ndindex(*self.devices.shape))
+        return self._positions
+
+    @property
+    def owner(self) -> torch.device:
+        """The first position's device: where whole parameters, plain
+        reductions and gathers live."""
+        return self.devices.flat[0]
+
+    def axis_index(self, axis: str) -> int:
+        return self.axis_names.index(axis)
+
+    def take(self, axis: str, j: int) -> "Mesh":
+        """The mesh of the positions at index ``j`` of ``axis``, without
+        that axis."""
+        k = self.axis_index(axis)
+        sub = np.empty(self.devices.shape[:k] + self.devices.shape[k + 1:],
+                       dtype=object)
+        for pos in np.ndindex(*sub.shape):
+            sub[pos] = self.devices[pos[:k] + (j,) + pos[k:]]
+        return Mesh(sub, self.axis_names[:k] + self.axis_names[k + 1:])
 
 
 def make_mesh(axes: Optional[Dict[str, int]] = None,
@@ -147,3 +176,110 @@ def sp_mesh(sp, device) -> Tuple[Mesh, Tuple[str, ...]]:
         devices = [device] * n
     axes = {"sp": sph} if spw == 1 else {"sp": sph, "spw": spw}
     return make_mesh(axes, devices=devices), tuple(axes)
+
+
+# --------------------------------------------------------------------------
+# training meshes
+# --------------------------------------------------------------------------
+
+def batch_sharding(mesh: Mesh, axis: str = "dp"):
+    """Split the leading (batch) dim over ``axis``, replicate the rest."""
+    from .spmd import Sharding
+
+    return Sharding(mesh, (axis,))
+
+
+def replicated(mesh: Mesh):
+    from .spmd import Sharding
+
+    return Sharding(mesh, ())
+
+
+def _out_dim(module: torch.nn.Module, name: str, p: torch.Tensor) -> int:
+    """The dim of ``p`` that holds output features (flax's last axis): an
+    OIHW conv weight's O, a ``[out, in]`` dense weight's out, else the last
+    (a bias, a norm's scale); stacked leaves ``[n, ...]`` add one in
+    front."""
+    from ..models.common import Conv, Dense
+
+    if name == "weight" and isinstance(module, Conv):
+        return p.dim() - 4
+    if name == "weight" and isinstance(module, Dense):
+        return p.dim() - 2
+    return p.dim() - 1
+
+
+def _named_leaves(params):
+    """``(full name, owning module, local name, tensor)`` of a module's
+    parameters, or of a ``{name: tensor}`` mapping (no owning module)."""
+    if isinstance(params, torch.nn.Module):
+        for mname, mod in params.named_modules():
+            for pname, p in mod.named_parameters(recurse=False):
+                yield (f"{mname}.{pname}" if mname else pname), mod, pname, p
+    else:
+        from .spmd import tree_leaves
+
+        for name, p in params.items():
+            for leaf in tree_leaves(p):
+                yield name, None, name.rsplit(".", 1)[-1], leaf
+
+
+def shard_params_tp(params, mesh: Mesh, axis: str = "tp") -> dict:
+    """Tensor-parallel layout: a parameter's output-feature dim is split
+    over ``axis`` when it divides by tp and is at least 8 * tp (the JAX
+    rule, on PyTorch's layouts: dim 0 of an OIHW conv weight or a dense
+    weight, a bias's only dim); every other parameter is replicated.
+
+    ``params`` is a model; each parameter gets its :class:`~.spmd.Sharding`
+    recorded (:func:`~.spmd.place`), which the conv and dense layers read
+    under a :class:`~.spmd.MeshTensor`.  Returns name -> sharding."""
+    from .spmd import Sharding, place
+
+    tp = mesh.shape[axis]
+    out = {}
+    for name, mod, pname, p in _named_leaves(params):
+        spec = ()
+        if p.dim() >= 1:
+            d = _out_dim(mod, pname, p) if mod is not None else p.dim() - 1
+            if p.shape[d] % tp == 0 and p.shape[d] >= tp * 8:
+                spec = (None,) * d + (axis,)
+        out[name] = Sharding(mesh, spec)
+        place(p, out[name])
+    return out
+
+
+def shard_params_leading(stacked_params, mesh: Mesh, axis: str) -> dict:
+    """Every parameter's LEADING dim split over ``axis``, the rest
+    replicated: the layout of pipeline stages (``[pp, ...]``) and MoE
+    experts (``[E, ...]``).  ``stacked_params``: a model or a name ->
+    tensor mapping.  Returns name -> sharding."""
+    from .spmd import Sharding, place
+
+    out = {}
+    for name, _, _, p in _named_leaves(stacked_params):
+        out[name] = Sharding(mesh, (axis,))
+        place(p, out[name])
+    return out
+
+
+def shard_train_step(step_fn, mesh: Mesh, dp_axis: str = "dp",
+                     sp_axis: Optional[str] = None):
+    """Run ``step_fn(state, lr, hr) -> metrics`` with the batch split over
+    ``dp_axis`` (and, when ``sp_axis`` is given, the patch rows over it:
+    each conv exchanges its window's rows between the tiles), as
+    :class:`~.spmd.MeshTensor` s; the parameters' layouts are the ones
+    recorded on them (replicated by default, tp-split after
+    :func:`shard_params_tp`).  Returns ``step(state, lr, hr) -> metrics``;
+    ``step.data_sharding`` is the batch's layout."""
+    from .spmd import Sharding
+
+    dims = [dp_axis if dp_axis in mesh.shape else None]
+    if sp_axis and sp_axis in mesh.shape:
+        dims.append(sp_axis)
+    data = Sharding(mesh, tuple(dims))
+
+    def step(state, lr, hr):
+        return step_fn(state, data.shard(lr), data.shard(hr))
+
+    step.data_sharding = data
+    return step

@@ -11,7 +11,10 @@ no directory is given), on CUDA unless ``--device cpu`` is given.
       [--interp-run runs/gan --alpha 0.8]
 
 ``--model``, ``--scale``, ``--channels`` and the model's kwargs default to
-the run's ``config.json``; explicit flags override.  ``--interp-run``
+the run's ``config.json`` (with the ``scan_trunk=True`` a pp mesh run
+records, or an ``edsr_moe`` run's expert count); explicit flags override.
+A meshed run's checkpoint holds whole tensors and evaluates on one
+device.  ``--interp-run``
 evaluates the ESRGAN *network interpolation* (Wang et al. 2018 §3.4):
 blend the PSNR-oriented pretrain (``--run``) with the adversarial
 fine-tune (``--interp-run``) in parameter space, theta = (1 - alpha) *
@@ -56,7 +59,8 @@ def interpolate_weights(psnr_weights, gan_weights, alpha):
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--model", default=None,
-                   choices=["srcnn", "espcn", "fsrcnn", "edsr", "rrdbnet"],
+                   choices=["srcnn", "espcn", "fsrcnn", "edsr", "edsr_moe",
+                            "rrdbnet"],
                    help="(default: the run's recorded model, else edsr)")
     p.add_argument("--scale", type=int, default=None,
                    help="(default: the run's recorded scale, else 4)")

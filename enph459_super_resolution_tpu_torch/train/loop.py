@@ -8,8 +8,9 @@ CLI:
       [--gan]
 
 Covers the BASELINE.json training configs (SRCNN / ESPCN / FSRCNN / EDSR /
-ESRGAN fine-tune) on one device: CUDA unless ``--device cpu`` is given (no
-fallback).  A run directory holds ``config.json`` (the JAX package's
+ESRGAN fine-tune, and EDSRMoE) on CUDA unless ``--device cpu`` is given
+(no fallback), on one device or over a mesh (``--mesh``, below).  A run
+directory holds ``config.json`` (the JAX package's
 keys), ``metrics.jsonl`` (every 50 steps and the first and last),
 ``eval.jsonl``, ``final_eval.json`` (the EMA weights scored by
 :func:`~.data.evaluate_sr`) and ``ckpt/<step>/state.pt`` (the newest two;
@@ -21,8 +22,18 @@ checkpoint or eval boundary, and metrics are logged at chunk ends), and its
 k steps run one after another, so the trajectory is the k = 1 one.  The
 random streams (flips, rotations, the device sampler's crops, the
 instance noise) differ from JAX's for the same seed; the host sampler's
-crops are JAX's.  ``--mesh`` (dp/sp/tp/pp/ep meshes) and ``--model
-edsr_moe`` come with ``parallel/`` (ROADMAP Queue 1 item 9).
+crops are JAX's.
+
+``--mesh "dp=2,tp=2"`` (axes dp/sp/tp/pp/ep) trains over a mesh of the
+first N cards (``--device cpu``: N positions on the host; the library
+call also takes an explicit device list, which may repeat a device): the
+batch split over dp, the patch rows over sp, conv output channels over tp
+(``parallel.shard_params_tp``); pp (EDSR only) switches to the scan-trunk
+layout and trains through the GPipe pipeline; ep (edsr_moe only) splits
+the expert stacks.  Without ``--mesh``, ``dp=True`` trains data-parallel
+over every device when there is more than one.  The state stays whole on
+the mesh's first device, so checkpoints resume on one device and the
+reverse.
 """
 
 from __future__ import annotations
@@ -35,16 +46,15 @@ import shutil
 import sys
 import tempfile
 import time
-from typing import Optional
+from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 from ..device import DEVICES, resolve_device
 from ..utils.timing import rss_mb
 
 LOG_EVERY = 50  # metrics.jsonl cadence; chunk_size aligns to it
-PARALLEL_LATER = ("comes with the training meshes of parallel/ (ROADMAP "
-                  "Queue 1 item 9)")
 # the JAX package's /tmp/sr_train, under this process's temp dir
 DEFAULT_OUT = os.path.join(tempfile.gettempdir(), "sr_train")
 
@@ -65,6 +75,81 @@ def pre_upsample(model_name: str, scale: int):
     return lambda lr: bicubic_upsample(lr, scale)
 
 
+def train_mesh(mesh_spec: Optional[str], dp: bool, device,
+               devices: Optional[Sequence] = None):
+    """``(mesh, axes)`` of a training run, or ``(None, {})`` for one
+    device: an explicit ``mesh_spec`` over the first devices, else dp over
+    every device when ``dp`` and there is more than one.  The devices are
+    ``devices`` when given, else every CUDA card for a CUDA ``device`` and
+    the host, repeated as often as the spec needs, for the CPU.  Fewer
+    devices than the spec needs raise ``make_mesh``'s error."""
+    from ..parallel import make_mesh, parse_mesh_spec
+
+    device = torch.device(device)
+    if devices is not None:
+        pool = [torch.device(d) for d in devices]
+    elif device.type == "cuda":
+        pool = [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    else:
+        pool = None  # the host, as often as asked
+    if mesh_spec:
+        axes = parse_mesh_spec(mesh_spec)
+        n = int(np.prod(list(axes.values())))
+        pool = [device] * n if pool is None else pool[:n]
+        return make_mesh(axes, devices=pool), axes
+    if dp and pool is not None and len(pool) > 1:
+        axes = {"dp": len(pool)}
+        return make_mesh(axes, devices=pool), axes
+    return None, {}
+
+
+def check_mesh(model_name: str, axes: dict, gan: bool,
+               model_kwargs: Optional[dict]) -> None:
+    """The model/mesh combinations the reference refuses, with its
+    messages."""
+    tp_on = axes.get("tp", 1) > 1
+    pp_on = axes.get("pp", 1) > 1
+    ep_on = axes.get("ep", 1) > 1
+    if pp_on and model_name != "edsr":
+        raise ValueError("pipeline parallelism (pp mesh axis) is wired for "
+                         "--model edsr (scan-trunk layout)")
+    if pp_on and gan:
+        raise ValueError("pp + --gan is not supported (pipeline the "
+                         "pretrain, fine-tune on dp/tp)")
+    if pp_on and tp_on:
+        raise ValueError("pp + tp in one mesh is not supported (the pp "
+                         "param placement would override the tp layout); "
+                         "combine pp with dp")
+    if ep_on and model_name != "edsr_moe":
+        raise ValueError("expert parallelism (ep mesh axis) is wired for "
+                         "--model edsr_moe (gated-expert trunk); use "
+                         "dp/sp/tp/pp for dense models")
+    if ep_on and (tp_on or pp_on):
+        raise ValueError("ep composes with dp/sp only (a tp/pp param "
+                         "placement would override the expert layout)")
+    if ep_on:
+        n_experts = int((model_kwargs or {}).get("n_experts", 4))
+        if n_experts % axes["ep"] != 0:
+            raise ValueError(f"n_experts={n_experts} not divisible by "
+                             f"ep={axes['ep']}")
+
+
+def place_params(module: torch.nn.Module, mesh, axes: dict) -> None:
+    """Record the training layout of ``module``'s parameters on ``mesh``:
+    conv and dense outputs split over tp, the scan trunk's blocks over pp,
+    the expert stacks over ep (the JAX package's ``maybe_tp``)."""
+    from ..parallel import (shard_edsr_pp_params, shard_params_ep_named,
+                            shard_params_tp)
+
+    if axes.get("tp", 1) > 1:
+        shard_params_tp(module, mesh, "tp")
+    if axes.get("pp", 1) > 1:
+        shard_edsr_pp_params(module, mesh)
+    if axes.get("ep", 1) > 1:
+        shard_params_ep_named(module, mesh, "ep")
+
+
 def train(model_name: str = "edsr", scale: int = 4, steps: int = 1000,
           batch: int = 16, lr_patch: int = 48, learning_rate: float = 1e-4,
           loss: str = "l1", out_dir: str = DEFAULT_OUT,
@@ -81,12 +166,23 @@ def train(model_name: str = "edsr", scale: int = 4, steps: int = 1000,
           d_every: int = 1,
           instance_noise: float = 0.0,
           mesh_spec: Optional[str] = None,
-          device="cuda") -> dict:
+          device="cuda", devices: Optional[Sequence] = None) -> dict:
     """Train a zoo model on ``device``; returns the final eval metrics.
 
-    The JAX package's signature: ``dp`` (data parallelism over every
-    visible device there) is accepted and the port trains on one device;
-    ``mesh_spec`` raises, as meshes come with ``parallel/``.  ``gan``
+    The JAX package's signature, plus ``device`` and ``devices``.
+    ``mesh_spec`` (e.g. ``"dp=2,tp=2"``, ``"dp=2,sp=2,tp=2"``,
+    ``"dp=2,pp=4"`` or ``"dp=2,ep=4"``) trains over a mesh
+    (:func:`train_mesh`: the first devices of ``devices``, else of the
+    CUDA cards, else the host repeated): the batch split over dp (and the
+    patch rows over sp), parameters tp-split over tp
+    (``parallel.shard_params_tp``; a GAN's discriminator too); pp (EDSR
+    only) switches the model to the stacked scan-trunk layout
+    (``config.json`` records ``scan_trunk``) and trains through the GPipe
+    pipeline (``parallel.make_pipelined_edsr_apply``; the batch must divide
+    by the microbatching); ep (edsr_moe only) splits the expert stacks
+    (``parallel.moe.shard_params_ep_named``).  Without it, ``dp`` trains
+    data-parallel over every device when there is more than one.  A mesh
+    forces ``steps_per_dispatch`` to 1, as in the JAX package.  ``gan``
     fine-tunes ESRGAN-style against a ``VGGStyleDiscriminator(nf=32)``
     (:func:`~.state.make_gan_train_step`; the perceptual term is VGG19
     conv5_4 with ``vgg_weights``, else the weight-free gradient features);
@@ -97,6 +193,7 @@ def train(model_name: str = "edsr", scale: int = 4, steps: int = 1000,
     arguments, not the checkpoint.
     """
     from ..models import VGGStyleDiscriminator, create_model
+    from ..parallel import make_pipelined_edsr_apply, shard_train_step
     from .data import (POOL_KINDS, PatchConfig, evaluate_sr,
                        image_pool_from_dir, make_patch_sampler)
     from .losses import PerceptualLoss
@@ -104,15 +201,19 @@ def train(model_name: str = "edsr", scale: int = 4, steps: int = 1000,
                         latest_step, load_checkpoint, make_gan_train_step,
                         make_optimizer, make_train_step, save_checkpoint)
 
-    if mesh_spec:
-        raise ValueError(f"--mesh {mesh_spec!r}: device meshes "
-                         f"{PARALLEL_LATER}")
-    if model_name == "edsr_moe":
-        raise ValueError(f"model edsr_moe {PARALLEL_LATER}")
     device = resolve_device(device) if isinstance(device, str) else device
+    # the mesh first (a pp axis changes the model's trunk layout)
+    mesh, mesh_axes = train_mesh(mesh_spec, dp, device, devices)
+    check_mesh(model_name, mesh_axes, gan, model_kwargs)
+    pp_on = mesh_axes.get("pp", 1) > 1
+    if mesh is not None:
+        device = mesh.owner  # the whole parameters and the batches
+        steps_per_dispatch = 1  # as the reference's sharded path
     os.makedirs(out_dir, exist_ok=True)
 
     kwargs = dict(model_kwargs or {})
+    if pp_on:
+        kwargs.setdefault("scan_trunk", True)
     init = dict(device=device, generator=torch.Generator().manual_seed(seed))
     if model_name == "srcnn":
         kwargs.setdefault("channels", channels)
@@ -147,6 +248,15 @@ def train(model_name: str = "edsr", scale: int = 4, steps: int = 1000,
         print(f"initialized generator from {init_from} "
               f"step {latest_step(src_dir)}")
 
+    forward = None
+    if mesh is not None:
+        place_params(model, mesh, mesh_axes)
+        if pp_on:
+            # train through the pipeline; evaluation calls the model itself
+            forward = make_pipelined_edsr_apply(
+                model, mesh,
+                dp_axis="dp" if mesh_axes.get("dp", 1) > 1 else None)
+
     g_state = TrainState.create(model, cfg)
     if init_ema is not None:
         g_state.ema_params = {n: e.to(device, copy=True)
@@ -155,6 +265,8 @@ def train(model_name: str = "edsr", scale: int = 4, steps: int = 1000,
         disc = VGGStyleDiscriminator(
             nf=32, channels=channels, device=device,
             generator=torch.Generator().manual_seed(seed + 1))
+        if mesh is not None:
+            place_params(disc, mesh, mesh_axes)
         feat_fn = None  # default: weight-free gradient features
         if vgg_weights:
             # paper-exact ESRGAN perceptual term (pre-activation conv5_4)
@@ -171,7 +283,10 @@ def train(model_name: str = "edsr", scale: int = 4, steps: int = 1000,
                                       noise_seed=seed + 2)
     else:
         state = g_state
-        step_fn = make_train_step(cfg)
+        step_fn = make_train_step(cfg, forward=forward)
+    if mesh is not None:
+        step_fn = shard_train_step(
+            step_fn, mesh, sp_axis="sp" if "sp" in mesh_axes else None)
 
     start_step = 0
     latest = latest_step(ckpt_dir)
@@ -300,7 +415,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "(the JAX package's cadence; the steps run one "
                         "after another)")
     p.add_argument("--mesh", default=None, metavar="SPEC",
-                   help=f"device mesh: {PARALLEL_LATER}")
+                   help='explicit device mesh, e.g. "dp=2,tp=2", '
+                        '"dp=2,sp=2,tp=2", "dp=2,pp=4" or "dp=2,ep=4": '
+                        'batch over dp, patch rows over sp, conv feature '
+                        'dims over tp, EDSR trunk stages pipelined over '
+                        'pp, edsr_moe experts split over ep; the first N '
+                        'cards (--device cpu: N positions on the host)')
     p.add_argument("--no-resume", action="store_true")
     p.add_argument("--device", default="cuda", choices=DEVICES,
                    help="where training runs (default cuda; no fallback)")
@@ -310,13 +430,15 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     p = build_parser()
     args = p.parse_args(argv)
-    if args.mesh:
-        p.error(f"--mesh {args.mesh}: device meshes {PARALLEL_LATER}")
-    if args.model == "edsr_moe":
-        p.error(f"--model edsr_moe {PARALLEL_LATER}")
+    model_kwargs = json.loads(args.model_kwargs) if args.model_kwargs \
+        else None
     try:
         device = resolve_device(args.device)
-    except RuntimeError as exc:
+        # a mesh the devices cannot hold, or that the model refuses, exits
+        # here, before anything is written
+        _, axes = train_mesh(args.mesh, True, device)
+        check_mesh(args.model, axes, args.gan, model_kwargs)
+    except (RuntimeError, ValueError) as exc:
         p.error(str(exc))
 
     final = train(model_name=args.model, scale=args.scale, steps=args.steps,
@@ -327,12 +449,11 @@ def main(argv=None) -> int:
                   resume=not args.no_resume, pool_images=args.pool_images,
                   pool_kind=args.pool,
                   vgg_weights=args.vgg_weights, init_from=args.init_from,
-                  model_kwargs=(json.loads(args.model_kwargs)
-                                if args.model_kwargs else None),
+                  model_kwargs=model_kwargs,
                   steps_per_dispatch=args.steps_per_dispatch,
                   gan_weight=args.gan_weight, d_lr_scale=args.d_lr_scale,
                   d_every=args.d_every, instance_noise=args.instance_noise,
-                  device=device)
+                  mesh_spec=args.mesh, device=device)
     print(json.dumps(final))
     return 0
 

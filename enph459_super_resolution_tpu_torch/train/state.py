@@ -27,6 +27,15 @@ discriminator and its own optimizer.  JAX keeps the balance knobs in the
 jitted state to avoid recompiles; eager PyTorch has none to avoid, so
 :class:`GANBalance` is a plain dataclass.
 
+Both steps take the batch as plain tensors or, under a training mesh, as
+``parallel.spmd.MeshTensor`` s (``parallel.shard_train_step`` lays it out):
+the model's forward runs over the mesh, the loss and metrics are the
+global batch's (reductions add up the tiles' partial sums), and
+``backward`` sums every position's gradients onto the whole parameters,
+so the update, the EMA and the gradient clip run once per parameter.  The
+state, and so every checkpoint, holds whole tensors under the unsharded
+names: a meshed run resumes on one device and the reverse.
+
 Checkpoints are the port's own: ``<ckpt_dir>/<step>/state.pt`` written by
 ``torch.save`` (tensors and plain containers only), read with
 ``torch.load(weights_only=True)``; the newest two are kept.  A GAN
@@ -141,12 +150,15 @@ def global_norm(tensors) -> torch.Tensor:
 
 
 def make_train_step(cfg: TrainConfig,
-                    extra_loss: Optional[Callable] = None):
+                    extra_loss: Optional[Callable] = None,
+                    forward: Optional[Callable] = None):
     """Build ``step(state, lr_batch, hr_batch) -> metrics``: one update of
     ``state`` in place, returning ``loss``, ``psnr`` and ``grad_norm`` (the
     gradients' global norm before clipping) as 0-d tensors on the state's
     device.  ``extra_loss(sr, hr) -> scalar`` is an optional additive term
-    (e.g. perceptual)."""
+    (e.g. perceptual); ``forward(lr) -> sr`` replaces ``state.model(lr)``
+    (the pipelined forward of ``parallel.make_pipelined_edsr_apply``, over
+    the same parameters: the reference's ``apply_fn``)."""
     pixel_loss = PIXEL_LOSSES[cfg.loss]
 
     def step(state: TrainState, lr, hr) -> Dict[str, torch.Tensor]:
@@ -154,7 +166,7 @@ def make_train_step(cfg: TrainConfig,
         for group in state.optimizer.param_groups:
             group["lr"] = learning_rate(cfg, state.step)
         state.optimizer.zero_grad(set_to_none=False)
-        sr = state.model(lr)
+        sr = (state.model if forward is None else forward)(lr)
         loss = pixel_loss(sr, hr)
         if extra_loss is not None:
             loss = loss + extra_loss(sr, hr)

@@ -64,12 +64,13 @@ def test_every_port_module_imports_with_jax_blocked():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     names = set(res.stdout.split())
-    assert len(names) >= 45  # every module was walked
+    assert len(names) >= 49  # every module was walked
     for mod in ("ops.conv", "ops.resample", "sr.prewarm", "sr.hybrid_bound",
                 "ops.resize", "sr.fusion", "eval.metrics", "train.burst",
                 "train.data", "train.losses", "train.state", "train.vgg",
                 "train.loop", "train.evaluate", "parallel", "parallel.mesh",
-                "parallel.tiled"):
+                "parallel.tiled", "parallel.spmd", "parallel.pipeline",
+                "parallel.moe", "parallel.dryrun"):
         assert f"enph459_super_resolution_tpu_torch.{mod}" in names, mod
 
 

@@ -216,7 +216,8 @@ def test_models_default_to_cuda():
 
 def test_create_model_and_registry():
     assert set(TZ.MODELS) == {"srcnn", "espcn", "fsrcnn", "edsr",
-                              "burstfusion", "burstfusion_lr", "rrdbnet"}
+                              "edsr_moe", "burstfusion", "burstfusion_lr",
+                              "rrdbnet"}
     assert set(TZ.MODELS) <= set(JZ.MODELS)
     m = TZ.create_model("espcn", scale=2, channels=3, device="cpu")
     assert isinstance(m, TZ.ESPCN) and m.scale == 2
@@ -233,11 +234,32 @@ def test_converter_maps_names_and_layouts():
 
 
 def test_converter_refuses_scan_layout_and_mismatches():
+    """The scan-layout tree (stacked ``trunk`` leaves ``[n, kh, kw, in,
+    out]``) converts to the port's scan-trunk EDSR, leaf for leaf, and the
+    two forwards match; a tree of the other layout, or of another depth,
+    is refused by the strict load."""
     x = jnp.zeros((1, 6, 6, 3))
-    scan = JZ.EDSR(n_resblocks=2, n_feats=16, scan_trunk=True).init(
-        jax.random.PRNGKey(0), x)
-    with pytest.raises(ValueError, match="scan-layout"):
-        convert.flax_state_dict(_numpy_tree(scan))
+    scan = _numpy_tree(JZ.EDSR(n_resblocks=2, n_feats=16,
+                               scan_trunk=True).init(
+        jax.random.PRNGKey(0), x))
+    state = convert.flax_state_dict(scan)
+    k = scan["params"]["trunk"]["ResBlock_0"]["Conv_1"]["kernel"]
+    w = state["trunk.ResBlock_0.Conv_1.weight"]
+    assert w.shape == (2, 16, 16, 3, 3)  # [n, out, in, kh, kw]
+    np.testing.assert_array_equal(w[1, 5, 2, 0, 1], k[1, 0, 1, 2, 5])
+    port = convert.load_flax_params(
+        TZ.EDSR(n_resblocks=2, n_feats=16, scan_trunk=True, device="cpu"),
+        scan)
+    xin = np.random.default_rng(1).uniform(0, 255, (1, 6, 6, 3)).astype(
+        np.float32)
+    want = np.asarray(JZ.EDSR(n_resblocks=2, n_feats=16,
+                              scan_trunk=True).apply(scan, xin))
+    with torch.no_grad():
+        got = port(torch.from_numpy(xin)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-3)
+    with pytest.raises(RuntimeError):  # scan tree into the unrolled layout
+        convert.load_flax_params(TZ.EDSR(n_resblocks=2, n_feats=16,
+                                         device="cpu"), scan)
     tree = _numpy_tree(JZ.EDSR(n_resblocks=2, n_feats=16).init(
         jax.random.PRNGKey(0), x))
     with pytest.raises(RuntimeError):  # 2 blocks into a 3-block model

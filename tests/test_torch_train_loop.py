@@ -328,16 +328,26 @@ def test_evaluate_srcnn_tiled_on_the_fixtures(tmp_path, capsys):
     ["--mesh", "dp=2"], ["--model", "edsr_moe"], []],
     ids=["mesh", "edsr_moe", "cuda_without_a_card"])
 def test_cli_refusals_exit_2_and_write_nothing(tmp_path, capsys, flags):
-    if not flags and torch.cuda.is_available():
-        pytest.skip("a CUDA card is present: the default device is valid")
+    """Without a card, ``--device cuda`` (the default) exits 2 and writes
+    nothing, a mesh too (no CPU fallback); ``--model edsr_moe --device
+    cpu`` trains."""
     out = tmp_path / "run"
-    device = ["--device", "cpu"] if flags else []
+    if flags[:1] != ["--model"] and torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    if flags[:1] == ["--model"]:
+        assert TL.main(["--steps", "2", "--out", str(out), "--scale", "2",
+                        "--batch", "2", "--lr-patch", "8", "--pool-images",
+                        "4", "--model-kwargs",
+                        '{"n_resblocks": 1, "n_feats": 8}', "--device",
+                        "cpu"] + flags) == 0
+        assert json.load(open(out / "config.json"))["model"] == "edsr_moe"
+        return
     with pytest.raises(SystemExit) as exc:
-        TL.main(["--steps", "2", "--out", str(out)] + flags + device)
+        TL.main(["--steps", "2", "--out", str(out), "--device", "cuda"]
+                + flags)
     assert exc.value.code == 2
     assert not out.exists()
-    err = capsys.readouterr().err
-    assert ("Queue 1 item 9" in err) if flags else ("cuda" in err)
+    assert "cuda" in capsys.readouterr().err
 
 
 def test_evaluate_without_a_card_exits_2(tmp_path):
@@ -349,9 +359,9 @@ def test_evaluate_without_a_card_exits_2(tmp_path):
     with pytest.raises(RuntimeError, match="cuda"):
         TL.train(steps=1, out_dir=str(tmp_path / "run"))
     assert not (tmp_path / "run").exists()
-    with pytest.raises(ValueError, match="Queue 1 item 9"):
-        TL.train(steps=1, out_dir=str(tmp_path / "run"), mesh_spec="dp=2",
-                 device="cpu")
+    with pytest.raises(RuntimeError, match="cuda"):
+        TL.train(steps=1, out_dir=str(tmp_path / "run"), mesh_spec="dp=2")
+    assert not (tmp_path / "run").exists()
 
 
 def test_default_out_dir_is_the_reference():

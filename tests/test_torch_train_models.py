@@ -170,8 +170,32 @@ def test_edsr_remat_tree_is_flax_layout():
 
 
 def test_scan_trunk_is_refused_with_the_roadmap_item():
-    with pytest.raises(ValueError, match="Queue 1 item 9"):
-        TZ.EDSR(scan_trunk=True, device="cpu")
+    """``scan_trunk=True`` builds the stacked layout (``trunk`` leaves
+    ``[n, ...]``), and on the unrolled model's weights, stacked, its
+    forward equals the unrolled model's.  A scale RRDBNet has no stages
+    for is still refused."""
+    plain = TZ.EDSR(scale=2, n_resblocks=3, n_feats=16, device="cpu")
+    scan = TZ.EDSR(scale=2, n_resblocks=3, n_feats=16, scan_trunk=True,
+                   device="cpu")
+    assert scan.trunk.ResBlock_0.Conv_0.weight.shape == (3, 16, 16, 3, 3)
+    with pytest.raises(ValueError, match="stacked block"):
+        scan.blocks()
+    sd = plain.state_dict()
+    moved = {"head": "Conv_0", "tail_conv": "Conv_1", "out_conv": "Conv_2",
+             "upsampler": "Upsampler_0"}
+    new = {}
+    for k in scan.state_dict():
+        top, rest = k.split(".", 1)
+        if top == "trunk":
+            leaf = rest.split(".", 1)[1]  # ResBlock_0.<leaf>
+            new[k] = torch.stack([sd[f"ResBlock_{i}.{leaf}"]
+                                  for i in range(3)])
+        else:
+            new[k] = sd[f"{moved[top]}.{rest}"]
+    scan.load_state_dict(new, strict=True)
+    x = torch.from_numpy(_lr((2, 6, 7, 3), 4))
+    with torch.no_grad():
+        torch.testing.assert_close(scan(x), plain(x), rtol=1e-6, atol=1e-4)
     with pytest.raises(ValueError, match="scale"):
         TZ.RRDBNet(scale=3, device="cpu")
 
