@@ -44,6 +44,25 @@ or of the JAX package.  Phases, one JSON line each:
    ``scipy.ndimage.zoom(order=3)``, ``SAA_IBP`` within +-1 of the same
    solve with the plain versions on the card; warm and cold solve times
    and one profiled solve (device busy time and idle share).
+   analyses -- the rig's analyses.  A second synthetic center+4 session
+   at the same size, a chart with a dark bar slanted 40 degrees (two step
+   edges) inside the mono_cal_target preset's ROI-2 and bars crossing its
+   profile column, blurred by the workload's PSF and shifted by
+   ``CENTER_SHIFT_FILES`` on the card, through ``sr.run`` (K1's launches as
+   above), then
+   ``eval.cal_target_analysis --preset mono_cal_target --no-figures`` with
+   ``--device cuda`` and ``--device cpu``: MTF50/MTF10 per method and the
+   seconds of each, the card within ``ANALYSES_RTOL`` of the host, SAA+IBP's
+   MTF50 above Native-2x's.  ``psf.analyze --pixel-pitch-um 3.45
+   --no-figures`` of a flat-layout folder of 1536x2048 pinhole frames,
+   9 positions of 10 reps and pos4 of 30 (sigma 0.73 px, jittered centres,
+   read noise), on cuda and on the host: every ``summary.json`` number
+   within ``ANALYSES_RTOL``, pos4's sigma within 0.02 px of the truth, and
+   the batched Gaussian fit of pos4's 30 PSFs timed alone on each.
+   ``eval.barcode_analysis artifacts/rgb_barcodes/results --rois rgb
+   --decoder code128 --figure none``: its records equal the committed
+   ``decode_confidence.json``.  No hand-written kernel runs in the three
+   CLIs (their launch counts are read and must be 0).
 5. mono_bf16 -- the same session through ``sr.run --band-store bf16``
    (auto: the fused kernels): artifacts, launches (K1-bf16 7, K2 80, K3
    80, nothing else), ``SAA_IBP`` within +-2 of the plain-version solve on
@@ -2546,6 +2565,286 @@ def phase_mesh_train(torch):
     return row
 
 
+ANALYSES_RTOL = 1e-4          # the analyses on the card against the host
+CAL_CHART_BLUR = 1.5          # HR px: the synthetic chart's print and lens
+CAL_NOISE_DN = 0.5            # the synthetic session's read noise
+# the calibration folder: pos4 has its 30 reps (SURVEY.md: pos4 n=30),
+# the other 8 positions are cut to 10 to keep the phase near a minute
+PSF_POSITIONS, PSF_REPS = 9, 10
+PSF_TRUTH_POS, PSF_TRUTH_REPS = 4, 30
+PSF_SHAPE = (1536, 2048)
+PSF_SIGMA_PX = 0.73           # SURVEY.md: pos4 sigma 0.725 / 0.731 px
+PSF_SIGMA_ATOL = 0.02
+PSF_CROP = 50                 # psf.analyze's default --crop-radius
+
+
+def _cal_target_scene(torch):
+    """HR 3072x4096 chart on the card for the mono_cal_target preset: a
+    dark bar 40 HR px wide slanted 40 degrees from the columns through
+    ROI-2 (HR 1900:2100, 2560:2760; LR 950:1050, 1280:1380), as the real
+    chart's ROI-2 line, its two step edges inside the ROI; bars of 16, 10,
+    6 and 4 HR px period crossing HR column 2700 at rows 1240:1560 (LR
+    column 1350, rows 620:780); a flat background; all softened by a
+    Gaussian of ``CAL_CHART_BLUR`` HR px (the print and the lens), before
+    the workload's PSF."""
+    import math
+
+    from enph459_super_resolution_tpu_torch.ops.conv import gaussian_filter
+
+    h, w = 3072, 4096
+    yy = torch.arange(h, device="cuda", dtype=torch.float32)[:, None]
+    xx = torch.arange(w, device="cuda", dtype=torch.float32)[None, :]
+    a = math.radians(40.0)
+    across = (xx - 2660) * math.cos(a) - (yy - 2000) * math.sin(a)
+    line = torch.where(across.abs() < 20, 40.0, 210.0)
+    box = (yy >= 1850) & (yy < 2150) & (xx >= 2500) & (xx < 2820)
+    hr = torch.where(box, line, torch.full_like(line, 120.0))
+    period = torch.where(yy < 1320, 16.0, torch.where(
+        yy < 1400, 10.0, torch.where(yy < 1480, 6.0, 4.0)))
+    bars = torch.where(torch.remainder(yy, period) < period / 2, 220.0, 30.0)
+    region = (yy >= 1200) & (yy < 1600) & (xx >= 2600) & (xx < 2800)
+    return gaussian_filter(torch.where(region, bars, hr), CAL_CHART_BLUR)
+
+
+def _save_pngs(items) -> None:
+    """Write (uint8 image, path) pairs on 8 threads (PIL's encoder lets go
+    of the GIL)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from enph459_super_resolution_tpu_torch.data.io import save_png
+
+    with ThreadPoolExecutor(8) as pool:
+        for f in [pool.submit(save_png, img, str(path))
+                  for img, path in items]:
+            f.result()
+
+
+def _analysis_rel(a, b) -> float:
+    """Largest relative difference of two finite-or-nan numbers."""
+    if np.isnan(a) and np.isnan(b):
+        return 0.0
+    return abs(a - b) / max(abs(b), 1e-300)
+
+
+def _cli(main, argv):
+    """One CLI run with every launch count zeroed just before it: (exit
+    code, seconds, launches, its standard output)."""
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = main(argv)
+    return rc, time.perf_counter() - t0, read_counts(), out.getvalue()
+
+
+def _analyses_cal_target(torch) -> dict:
+    from enph459_super_resolution_tpu_torch.data.sessions import \
+        CENTER_SHIFT_FILES
+    from enph459_super_resolution_tpu_torch.eval import cal_target_analysis
+    from enph459_super_resolution_tpu_torch.sr.classical import (
+        forward_model, make_gaussian_psf)
+    from enph459_super_resolution_tpu_torch.sr.config import WORKLOADS
+
+    cfg = WORKLOADS["mono_cal_target"]
+    psf = make_gaussian_psf(cfg.psf_size, cfg.psf_sigma)
+    work = WORK / "analyses"
+    sdir = work / "cal" / "data" / "session0"
+    hr = _cal_target_scene(torch)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    frames = []
+    for fname, shift in CENTER_SHIFT_FILES:
+        lr = forward_model(hr, psf, shift, 2)
+        lr = lr + CAL_NOISE_DN * torch.randn(lr.shape, device="cuda",
+                                             generator=gen)
+        frames.append((torch.clamp(torch.round(lr), 0, 255).to(
+            torch.uint8).cpu().numpy(), sdir / fname))
+    check(frames[0][0].shape == (1536, 2048), f"LR {frames[0][0].shape}")
+    _save_pngs(frames)
+    run_s, launches = _sr_run("mono_cal_target", sdir.parent,
+                              work / "cal" / "results")
+    expected = expected_launches("f32", False, _rank(psf), 5,
+                                 cfg.ibp_iterations)
+    check(launches == expected,
+          f"launches {launches}, solve structure implies {expected}")
+    unit = work / "cal" / "results" / "session0"
+    runs = {}
+    for device in ("cuda", "cpu"):
+        out_dir = work / "cal" / f"analysis_{device}"
+        rc, secs, counts, _ = _cli(cal_target_analysis.main, [
+            str(unit), "--preset", "mono_cal_target", "--no-figures",
+            "--device", device, "--out-dir", str(out_dir)])
+        check(rc == 0, f"cal_target_analysis --device {device} exited {rc}")
+        check(not any(counts.values()),
+              f"cal_target_analysis launched hand-written kernels: {counts}")
+        methods = json.loads((out_dir / "analysis.json").read_text())[
+            "methods"]
+        runs[device] = {"s": secs, "methods": {
+            m: {k: rec[k] for k in ("mtf50", "mtf10", "mtf50_full",
+                                   "mtf10_full", "contrast_peak",
+                                   "contrast_mean", "edge_angle_deg")}
+            for m, rec in methods.items()}}
+    cuda, cpu = runs["cuda"]["methods"], runs["cpu"]["methods"]
+    check(sorted(cuda) == ["LR bicubic 2x", "Native-2x", "SAA", "SAA+IBP"],
+          f"methods {sorted(cuda)}")
+    rel = max(_analysis_rel(cuda[m][k], cpu[m][k])
+              for m in cpu for k in cpu[m])
+    check(rel <= ANALYSES_RTOL,
+          f"cal target, card against host: {rel} > {ANALYSES_RTOL}")
+    check(all(np.isfinite(cuda[m]["mtf50"]) for m in cuda),
+          f"non-finite MTF50: {cuda}")
+    check(cuda["SAA+IBP"]["mtf50"] > cuda["Native-2x"]["mtf50"],
+          f"SAA+IBP MTF50 {cuda['SAA+IBP']['mtf50']} <= Native-2x's "
+          f"{cuda['Native-2x']['mtf50']}")
+    return {"sr_run_s": run_s, "sr_run_launches": launches,
+            "analysis_s": {d: r["s"] for d, r in runs.items()},
+            "mtf50": {m: [cuda[m]["mtf50"], cpu[m]["mtf50"]] for m in cpu},
+            "mtf10": {m: [cuda[m]["mtf10"], cpu[m]["mtf10"]] for m in cpu},
+            "contrast_peak": {m: cuda[m]["contrast_peak"] for m in cuda},
+            "card_vs_host_max_rel": rel}
+
+
+def _pinhole_frames(torch, root):
+    """The flat-layout calibration folder: PSF_POSITIONS positions of
+    PSF_REPS frames (PSF_TRUTH_REPS at PSF_TRUTH_POS)
+    ``sweepx_tilt0.28000_repNN_posK.png`` of PSF_SHAPE, one Gaussian pinhole
+    spot of sigma PSF_SIGMA_PX (amplitude 200 over a dark level of 8, read
+    noise 0.5 DN) per frame, at position K's place on a 3 x 3 grid plus a
+    jitter.  At PSF_TRUTH_POS the jitter is whole pixels (up to 3): the
+    cubic-spline alignment of a sub-pixel jitter broadens an undersampled
+    spot's fitted sigma (by 0.04 px at sigma 0.73 in the reference and the
+    port alike, ``tests/test_torch_psf.py``), so only there the truth is
+    the sigma drawn; elsewhere up to 1.5 px in any sub-pixel phase."""
+    h, w = PSF_SHAPE
+    rng = np.random.default_rng(SEED + 17)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    yy = torch.arange(h, device="cuda", dtype=torch.float64)[:, None]
+    xx = torch.arange(w, device="cuda", dtype=torch.float64)[None, :]
+    items = []
+    for pos in range(PSF_POSITIONS):
+        base = np.array([h * (1 + pos // 3) // 4, w * (1 + pos % 3) // 4],
+                        np.float64)
+        truth = pos == PSF_TRUTH_POS
+        for rep in range(PSF_TRUTH_REPS if truth else PSF_REPS):
+            if truth:
+                cy, cx = base + rng.integers(-3, 4, 2)
+            else:
+                cy, cx = base + rng.uniform(-1.5, 1.5, 2)
+            img = 8.0 + 200.0 * torch.exp(-((yy - cy) ** 2 + (xx - cx) ** 2)
+                                          / (2 * PSF_SIGMA_PX ** 2))
+            img = img + 0.5 * torch.randn((h, w), device="cuda",
+                                          dtype=torch.float64, generator=gen)
+            items.append((torch.clamp(torch.round(img), 0, 255).to(
+                torch.uint8).cpu().numpy(),
+                root / f"sweepx_tilt0.28000_rep{rep:02d}_pos{pos}.png"))
+    t0 = time.perf_counter()
+    _save_pngs(items)
+    return time.perf_counter() - t0
+
+
+def _analyses_psf(torch) -> dict:
+    from enph459_super_resolution_tpu_torch.data.io import load_gray
+    from enph459_super_resolution_tpu_torch.psf import analyze
+    from enph459_super_resolution_tpu_torch.psf import toolkit as tk
+
+    work = WORK / "analyses" / "psf"
+    root = work / "data"
+    root.mkdir(parents=True)
+    write_s = _pinhole_frames(torch, root)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        out_dir = work / f"out_{device}"
+        rc, secs, counts, _ = _cli(analyze.main, [
+            str(root), "--pixel-pitch-um", "3.45", "--no-figures",
+            "--device", device, "--output-dir", str(out_dir)])
+        check(rc == 0, f"psf.analyze --device {device} exited {rc}")
+        check(not any(counts.values()),
+              f"psf.analyze launched hand-written kernels: {counts}")
+        runs[device] = {"s": secs, "summary": json.loads(
+            (out_dir / "summary.json").read_text())}
+        check((out_dir / "psf_mtf_by_position_data.npz").exists(),
+              "psf.analyze wrote no npz")
+    cuda, cpu = runs["cuda"]["summary"], runs["cpu"]["summary"]
+    check(sorted(cuda) == [f"pos{p}" for p in range(PSF_POSITIONS)],
+          f"positions {sorted(cuda)}")
+    rel = max(_analysis_rel(cuda[p][k], cpu[p][k])
+              for p in cpu for k in cpu[p])
+    check(rel <= ANALYSES_RTOL,
+          f"psf.analyze, card against host: {rel} > {ANALYSES_RTOL}")
+    truth = cuda[f"pos{PSF_TRUTH_POS}"]
+    sigma_err = max(abs(truth["sigma_x"] - PSF_SIGMA_PX),
+                    abs(truth["sigma_y"] - PSF_SIGMA_PX))
+    check(truth["n"] == PSF_TRUTH_REPS and sigma_err <= PSF_SIGMA_ATOL,
+          f"pos{PSF_TRUTH_POS} sigma {truth} against {PSF_SIGMA_PX}")
+
+    # the batched fit alone: one position's PSF_TRUTH_REPS PSFs, the card's
+    # warm time (median of 3) and the host's
+    stack = []
+    for rep in range(PSF_TRUTH_REPS):
+        img = load_gray(str(root / f"sweepx_tilt0.28000_rep{rep:02d}_pos"
+                                   f"{PSF_TRUTH_POS}.png"), dtype=np.float64)
+        stack.append(tk.extract_psf(img, tk.find_peak(img, device="cuda"),
+                                    PSF_CROP))
+    stack = np.stack(stack)
+    fit_s = {}
+    for device, reps in (("cuda", 3), ("cpu", 1)):
+        times = []
+        for _ in range(reps + (device == "cuda")):
+            t0 = time.perf_counter()
+            params = tk.fit_gaussian_psf_batch(stack, device=device)
+            times.append(time.perf_counter() - t0)
+        fit_s[device] = sorted(times[-reps:])[reps // 2]
+        check(np.all(np.isfinite(params)), f"fit on {device}: {params}")
+    return {"frames": {"positions": PSF_POSITIONS, "reps": PSF_REPS,
+                       f"reps_pos{PSF_TRUTH_POS}": PSF_TRUTH_REPS,
+                       "shape": list(PSF_SHAPE)},
+            "png_write_s": write_s,
+            "analyze_s": {d: r["s"] for d, r in runs.items()},
+            "pos4": truth, "pos4_sigma_err_px": sigma_err,
+            "mtf50": {p: cuda[p]["mtf50"] for p in cuda},
+            "mtf50_naive": {p: cuda[p]["mtf50_naive"] for p in cuda},
+            "card_vs_host_max_rel": rel,
+            "fit_batch_s": fit_s, "fit_batch": list(stack.shape)}
+
+
+def _analyses_barcodes() -> dict:
+    from enph459_super_resolution_tpu_torch.eval import barcode_analysis
+
+    results = REPO / "artifacts" / "rgb_barcodes" / "results"
+    out = WORK / "analyses" / "decode_confidence.json"
+    rc, secs, counts, _ = _cli(barcode_analysis.main, [
+        str(results), "--rois", "rgb", "--decoder", "code128",
+        "--figure", "none", "--out", str(out)])
+    check(rc == 0, f"barcode_analysis exited {rc}")
+    got = json.loads(out.read_text())
+    want = json.loads((results / "decode_confidence.json").read_text())
+    check(got == want, "barcode_analysis records differ from the committed "
+                       "decode_confidence.json")
+    recs = [r for s in got["sessions"] for r in s["records"]]
+    return {"s": secs, "records": len(recs), "launches": counts,
+            "conf_4mil_saa_ibp": [r["confidence"] for r in recs
+                                  if r["label"] == "4 mil"
+                                  and r["method"] == "SAA+IBP"]}
+
+
+def phase_analyses(torch):
+    """The rig's analyses on the card: the cal-target slanted-edge MTF of
+    a fused synthetic session (``eval.cal_target_analysis --preset
+    mono_cal_target``), ``psf.analyze`` of a flat-layout pinhole folder,
+    each on cuda and on the host, and ``eval.barcode_analysis`` of the
+    committed real-session SR outputs."""
+    t_phase = time.perf_counter()
+    row = {"phase": "analyses", "card": nvidia_smi("name,power.limit"),
+           "cal_target": _analyses_cal_target(torch),
+           "psf": _analyses_psf(torch),
+           "barcodes": _analyses_barcodes(),
+           "phase_s": time.perf_counter() - t_phase}
+    emit(row)
+    return row
+
+
 def _summary(name, source, replaces, launches, rows, head, card):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -2580,6 +2879,7 @@ def main() -> int:
         fused_rows = phase_fused(torch, f32_peak, host)
         del host
         mono = phase_mono(torch)
+        phase_analyses(torch)
         bf16_launches = phase_mono_bf16(torch, mono)
         modes = phase_modes(torch, mono)
         phase_rgb(torch)

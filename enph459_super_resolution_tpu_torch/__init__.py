@@ -16,8 +16,10 @@ path (SRCNN, ESPCN, FSRCNN, EDSR, BurstFusionLR, the fused-trunk serving
 functions and tiled inference) on ``csrc/trunk.cu``; and the learned burst
 engine (``ops.resize``, ``sr.fusion``, ``train.burst``, BurstFusion, served
 through ``sr.run --fusion-run``), whose refine and banded registration run
-``csrc/banded_rows.cu``; the SR training loop; and spatial sharding
-(``parallel``: meshes of tiles with halo exchange, ``sr.run --sp``).
+``csrc/banded_rows.cu``; the SR training loop; ``parallel`` (meshes of
+tiles with halo exchange, ``sr.run --sp``, the dp/sp/tp/pp/ep training
+meshes); and the rig's analyses (barcode decode confidence, slanted-edge
+MTF, the PSF toolkit and its CLIs).
 
 Subpackages
 -----------
@@ -29,9 +31,10 @@ models neural model zoo, fused-trunk serving, tiled inference
 train  SR and burst-engine training: losses, train state, samplers and
        scene pools, trainers, evaluation
 parallel  device meshes, spatially-sharded (halo-exchange) compute
-eval   image quality metrics
+eval   image quality metrics, slanted-edge MTF, the cal-target and
+       barcode analyses, Code 128 and EAN-13 decoders
 data   PNG IO (PIL or a stdlib zlib codec), session layouts
-psf    Gaussian and measured PSF kernels
+psf    Gaussian and measured PSF kernels, PSF/MTF characterization
 utils  stage timing
 """
 

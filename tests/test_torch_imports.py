@@ -64,13 +64,16 @@ def test_every_port_module_imports_with_jax_blocked():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     names = set(res.stdout.split())
-    assert len(names) >= 49  # every module was walked
+    assert len(names) >= 58  # every module was walked
     for mod in ("ops.conv", "ops.resample", "sr.prewarm", "sr.hybrid_bound",
                 "ops.resize", "sr.fusion", "eval.metrics", "train.burst",
                 "train.data", "train.losses", "train.state", "train.vgg",
                 "train.loop", "train.evaluate", "parallel", "parallel.mesh",
                 "parallel.tiled", "parallel.spmd", "parallel.pipeline",
-                "parallel.moe", "parallel.dryrun"):
+                "parallel.moe", "parallel.dryrun", "eval", "eval.decode",
+                "eval.code128", "eval.ean13", "eval.barcode_analysis",
+                "eval.slanted_edge", "eval.cal_target_analysis", "psf",
+                "psf.toolkit", "psf.analyze", "psf.cli"):
         assert f"enph459_super_resolution_tpu_torch.{mod}" in names, mod
 
 

@@ -345,3 +345,50 @@ def test_edsr_moe_ep_rejects_bad_configs(tmp_path, case):
     assert str(got.value) == str(want.value)
     assert ("edsr_moe" if case == "ep_on_edsr" else "divisible") in str(
         got.value)
+
+
+def test_edsr_moe_float32_gradient_error_is_jax_own():
+    """EDSRMoE x4 at the card's width (8 x 64, 4 experts; batch 2, LR patch
+    24, seed 0, flax's init carried across by ``convert``): each package's
+    float32 gradient at init against its own float64 gradient, as the
+    worst tensor's max|diff| over that tensor's max|float64|.  The port's
+    error is at most 2x JAX's: the float32 trajectory that parts on the
+    card is the model's conditioning, which the reference shares (both
+    near 4.6 % here, the worst tensor an expert conv)."""
+    from enph459_super_resolution_tpu.train.losses import l1_loss as j_l1
+    from enph459_super_resolution_tpu_torch.train.losses import l1_loss
+
+    kw = dict(scale=4, channels=3, n_resblocks=8, n_feats=64, n_experts=4)
+    rng = np.random.default_rng(0)
+    lr = rng.uniform(0, 255, (2, 24, 24, 3))
+    hr = rng.uniform(0, 255, (2, 96, 96, 3))
+    params = jax.tree.map(lambda a: np.asarray(a, np.float32), JZ.EDSRMoE(
+        **kw).init(jax.random.PRNGKey(0), jnp.asarray(lr[:1], jnp.float32)))
+
+    def jax_grad(dtype):
+        m = JZ.EDSRMoE(**kw, dtype=dtype)
+        g = jax.jit(jax.grad(lambda p: j_l1(
+            m.apply(p, jnp.asarray(lr, dtype)), jnp.asarray(hr, dtype))))(
+            jax.tree.map(lambda a: jnp.asarray(a, dtype), params))
+        return {jax.tree_util.keystr(k): np.asarray(v, np.float64)
+                for k, v in jax.tree_util.tree_flatten_with_path(g)[0]}
+
+    def port_grad(dtype):
+        m = convert.load_flax_params(TZ.EDSRMoE(**kw, device="cpu"),
+                                     params).to(dtype)
+        loss = l1_loss(m(torch.as_tensor(lr, dtype=dtype)),
+                       torch.as_tensor(hr, dtype=dtype))
+        return {n: g.double().numpy() for (n, _), g in zip(
+            m.named_parameters(),
+            torch.autograd.grad(loss, list(m.parameters())))}
+
+    def worst(g32, g64):
+        return max(float(np.abs(g32[n] - g).max() / np.abs(g).max())
+                   for n, g in g64.items())
+
+    jax_err = worst(jax_grad(jnp.float32), jax_grad(jnp.float64))
+    port_err = worst(port_grad(torch.float32), port_grad(torch.float64))
+    print(f"EDSRMoE float32 gradient error at init: port {port_err:.4%}, "
+          f"JAX {jax_err:.4%}")
+    assert 0 < jax_err and 0 < port_err
+    assert port_err <= 2 * jax_err, (port_err, jax_err)
