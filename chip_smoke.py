@@ -35,8 +35,10 @@ or of the JAX package.  Phases, one JSON line each:
    of elements that differ from the plain version at all; with the
    kernel's time (per call, and on the device alone as for K1), the plain
    version's and the unfused step's (K1 + the column applies) times and the
-   bound.  No single PyTorch call computes K2 or K3, so they have no
-   library time.
+   bound; for the f32 K3 also its tiles per CUDA block (``strip_tiles``)
+   and the LR columns of the widest strip's union window (``union_w``).
+   No single PyTorch call computes K2 or K3, so they have no library
+   time.
 4. mono_cal_target at full size -- a synthetic center+4 session (5 x
    1536x2048 -> 3072x4096, 80 IBP iterations) through ``sr.run`` on cuda,
    f32: artifacts, falling MSE, K1's launches against the count the solve's
@@ -624,6 +626,11 @@ def phase_fused(torch, f32_peak, host):
                        "unfused_ms": time_ms(torch, unfused, 5),
                        "library_ms": None, **_bound(flops, nbytes, peak),
                        "kernel_tflops": flops / kernel_ms / 1e9}
+                if kernel == "fused_bwd" and not low:
+                    # the f32 K3's strips: tiles per CUDA block that its
+                    # launch takes, LR columns of the widest strip's union
+                    row["strip_tiles"] = pack.strip_tiles()
+                    row["union_w"] = pack.strip_union(row["strip_tiles"])
                 emit(row)
                 rows.append(row)
         del pack32, hr, lr32

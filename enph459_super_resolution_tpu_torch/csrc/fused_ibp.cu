@@ -50,27 +50,60 @@
 //   conflict-free.  The epilogue of a whole tile issues every load of lr
 //   or hr before its first store.
 // * float32 bands run strict f32 (CUDA-core FMA only: no tensor cores, no
-//   TF32, no --use_fast_math): the row operator's block as f32 in shared
+//   TF32, no --use_fast_math).  K2: the row operator's block as f32 in shared
 //   memory, the input window streamed in 32-column chunks, each unique row
 //   product formed once per chunk into shared memory and consumed at once
 //   by every column operator that uses it, per-output 4x4 register tiles.
+//   K3 (fused_bwd_f32_kernel): a CUDA block owns a strip of NT = 4 adjacent
+//   64-column tiles of one 64-row strip and walks the union of their column
+//   windows (176 LR columns at the mono pack, against 4 x 80 windows) in
+//   chunks of 16, chunk outer and plan inner.  Each group's row product
+//   bandr[u] @ err[f] is formed once per chunk into a k-major buffer by two
+//   warps, one per 32-row half, on 4 x 4 register tiles over the k range
+//   where that half of the operator is nonzero; then each tile's two warps,
+//   one per 32-column half, add its product with bandc[c] on K1's 8 x 8 f32
+//   register tile, for the chunks that overlap the tile's own window, and
+//   skip a column operator whose chunk is zero in their half.  Every row
+//   operator stays resident, k-major.  Each chunk of every frame's err and
+//   of every column operator for the strip's tiles lands once per block in
+//   a ring of TMA boxes (cp.async.bulk.tensor, a box per lane of warp 0,
+//   completion counted on an mbarrier per stage); rows and columns outside
+//   the image or a tile's window land as zeros.  Where the TMA cannot
+//   describe err (rows off 16 bytes) the chunks come by cp.async.  A strip
+//   whose windows spread wider than NT windows (unordered starts) takes
+//   NT = 1; a plan whose operators do not all fit is walked one group at a
+//   time.  The row product comes first, then the column product, as in the
+//   reference; only the order within each sum differs.  NT = 4 measured
+//   faster than 2, which is not built (PERF.md); ptxas: 230 registers at
+//   NT 4, 178 at 1, no spill.
 //
 // What bounds it.  At LR 1536x2048 -> HR 3072x4096 with 5 frames and 3
-// unique row operators, K2's dense-window work is ~2 * 7.3 G FMA and K3's
-// ~2 * 6.3 G.  In f32 that is bound by the CUDA cores (SMs x 128 FMA/clk,
+// unique row operators, K2's dense-window work is ~2 * 7.3 G FMA.  K3's
+// true work is 18.3 GFLOP: 6.1 of row products, formed once over the LR
+// width, and 12.2 of column products.  The f32 K3 forms 6.2 GFLOP of row
+// products over the strips' union windows (less after the k ranges) and
+// 10.1 of column products over the tiles' windows (less after the zero
+// chunks).  In f32 both are bound by the CUDA cores (SMs x 128 FMA/clk,
 // ~67 TFLOP/s at 700 W: 0.27-0.30 ms), not by the ~0.2 GB each launch
-// moves.  With bf16 bands the bound is the bytes (hr, lr and err, ~117 MB
-// for K2 and ~135 MB for K3 at 3.35 TB/s: 0.035-0.040 ms); the products
-// (~24 GFLOP each, with the padded windows and K2's doubled row product)
-// take about as long at a third of the tensor cores' 989 TFLOP/s.  On an
-// H100 at 700 W the kernels are bound by neither: they run at 0.23-0.25 ms
-// per launch at that size, held by the latency of their chains of
-// dependent ldmatrix and mma.sync steps and of the staging between them
-// (PERF.md gives the breakdown).
+// moves.  The f32 K3 reaches about 40 % of that bound.  Its 220 KB of
+// shared memory leave one CTA, eight warps, per SM.  The row product's
+// 4 x 4 tiles need one 16-byte shared load per 8 FMA, and the column
+// product idles the warps of tiles whose window misses the chunk, about
+// half of them (PERF.md gives the breakdown).  With bf16 bands the bound
+// is the bytes (hr, lr and err, ~117 MB for K2 and ~135 MB for K3 at
+// 3.35 TB/s: 0.035-0.040 ms); the products (~24 GFLOP each, with the
+// padded windows and K2's doubled row product) take about as long at a
+// third of the tensor cores' 989 TFLOP/s.  On an H100 at 700 W the bf16
+// kernels are bound by neither: they run at 0.23-0.25 ms per launch at
+// that size, held by the latency of their chains of dependent ldmatrix
+// and mma.sync steps and of the staging between them.
 
+#include <cstddef>
 #include <cstdint>
+#include <initializer_list>
 #include <type_traits>
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -258,34 +291,6 @@ fused_fwd_kernel(Ops<BandT> p, const float* __restrict__ hr,
         const size_t at = (static_cast<size_t>(o) * h + row + i) * w + col + c;
         err[at] = lr[at] - acc[o][i][c];
       }
-}
-
-template <typename BandT>
-__global__ void __launch_bounds__(THREADS)
-fused_bwd_kernel(Ops<BandT> p, const BandT* __restrict__ err,
-                 const float* __restrict__ hr, float* __restrict__ out, int H,
-                 int W, float scale, float lo, float hi) {
-  const Tile t = tile_of(p.blk_r, p.tile_c);
-  float acc[1][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[0][i][c] = 0.f;
-  mainloop<BandT, BandT, 1>(acc, p, err, t.b, t.r_off, t.j, t.c_off);
-
-  const int tid = threadIdx.x;
-  const int row = t.b * p.blk_r + t.r_off + (tid / 16) * 4;
-  const int col = t.j * p.tile_c + t.c_off + (tid % 16) * 4;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      if (row + i >= H || col + c >= W) continue;
-      const size_t at = static_cast<size_t>(row + i) * W + col + c;
-      // hr + scale * z, rounded after each step as the plain version does
-      const float v = __fadd_rn(hr[at], __fmul_rn(scale, acc[0][i][c]));
-      out[at] = fminf(fmaxf(v, lo), hi);
-    }
 }
 
 // ---------------------------------------------------------------------------
@@ -767,6 +772,561 @@ fused_bwd_mma_kernel(Ops<bf16> p, int n_res, int n_cols, int per_cta,
 }
 
 // ---------------------------------------------------------------------------
+// float32 bands, K3: a strip of NT column tiles over one union window
+// ---------------------------------------------------------------------------
+
+constexpr int K3_NT = 4;      // tiles per strip (fused_ibp.py K3_STRIP_TILES)
+constexpr int K3_UNITS = 4;   // row products formed at once, 64 threads each
+constexpr int YS = BM + 4;    // row stride of the k-major operator and ys
+constexpr int K3_MAX_STAGES = 4;
+constexpr int K3_BOX = KS * TN;  // floats of one column-operator chunk
+
+__host__ __device__ constexpr int round4(int v) { return (v + 3) / 4 * 4; }
+__host__ __device__ constexpr size_t round128(size_t v) {
+  return (v + 127) / 128 * 128;
+}
+
+// Shared-memory layout of the f32 K3, byte offsets from the base: the
+// resident row operators [res][kr][YS] (k-major, the window padded to 4);
+// the row products of one pass [K3_UNITS][KS][YS] (k-major); the ring of
+// `stages` stages (128-byte aligned), each the err chunks of `frames`
+// frames [frames][kr][KS] then the chunks of `cops` column operators for
+// the strip's tiles [cops][nt][KS][TN]; one mbarrier per stage; then each
+// resident op's nonzero k range for either half of its rows, and the row
+// op, frame and column op of each slot (ints).  `whole`: every row op,
+// frame and column op of the plan (res = n_u, frames = n_frames, cops =
+// n_c, one set); else one of each, one plan group per set.
+struct K3Layout {
+  int kr, res, frames, cops, nt, stages, whole;
+  size_t ys, ring, bc, stage, bar, tab, total;
+};
+
+__host__ __device__ inline K3Layout k3_layout(bool whole, int nt, int stages,
+                                              int n_u, int n_frames, int n_c,
+                                              int win_r) {
+  K3Layout l;
+  l.kr = round4(win_r);
+  l.whole = whole;
+  l.res = whole ? n_u : 1;
+  l.frames = whole ? n_frames : 1;
+  l.cops = whole ? n_c : 1;
+  l.nt = nt;
+  l.stages = stages;
+  l.ys = sizeof(float) * l.res * l.kr * YS;
+  l.ring = round128(l.ys + sizeof(float) * K3_UNITS * KS * YS);
+  l.bc = sizeof(float) * l.frames * l.kr * KS;
+  l.stage = l.bc + sizeof(float) * l.cops * nt * K3_BOX;
+  l.bar = l.ring + stages * l.stage;
+  l.tab = l.bar + sizeof(uint64_t) * stages;
+  l.total = l.tab + sizeof(int2) * 2 * l.res +
+            sizeof(int) * (l.res + l.frames + l.cops);
+  return l;
+}
+
+// The layout the launch takes: K3_NT tiles per strip where the widest such
+// strip's union window `union_w` is at most K3_NT * win_c (else 1), the
+// whole plan in one set where that fits (else one plan group per set), the
+// deepest ring of 2..K3_MAX_STAGES that fits MAX_SMEM; where no ring fits
+// at that many tiles, 1 tile.  stages == 0 if none fits.
+// ops/fused_ibp.py _k3_f32_layout mirrors it.
+inline K3Layout k3_pick(int union_w, int n_u, int n_frames, int n_c,
+                        int win_r, int win_c) {
+  const int nt = union_w <= K3_NT * win_c ? K3_NT : 1;
+  for (bool whole : {true, false})
+    for (int t : {nt, 1})
+      for (int s = K3_MAX_STAGES; s >= 2; --s) {
+        const K3Layout l =
+            k3_layout(whole, t, s, n_u, n_frames, n_c, win_r);
+        if (l.total <= static_cast<size_t>(MAX_SMEM)) return l;
+      }
+  K3Layout none{};
+  return none;
+}
+
+// The TMA (cp.async.bulk.tensor) and its mbarriers: a tensor map describes
+// a global array and a box, one thread asks for the box at some element
+// coordinates, the hardware copies it into shared memory (zeros where it
+// lies outside the array) and counts its bytes on an mbarrier.
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+                   mma_bf16::smem_addr(bar)));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          mma_bf16::smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "K3_WAIT_%=:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra K3_WAIT_%=;\n"
+      "}\n" ::"r"(mma_bf16::smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// Orders this thread's earlier shared-memory accesses (and, after a
+// barrier, the block's) before its next TMA writes.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            int c0, int c1, int c2,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(
+          mma_bf16::smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(mma_bf16::smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            int c0, int c1, int c2, int c3,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(
+          mma_bf16::smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(mma_bf16::smem_addr(bar))
+      : "memory");
+}
+
+// rows x n floats from src (element offset off0, row stride ss) into dst
+// (row stride ds) by cp.async, for packs the TMA cannot describe; rows
+// outside [rlo, rhi) and columns >= vcols are zero-filled.  `vec`: 16-byte
+// copies (n, vcols and off0 + r * ss multiples of 4, src 16-byte aligned);
+// otherwise 4-byte ones.
+__device__ __forceinline__ void k3_stage(float* dst, int ds, const float* src,
+                                         ptrdiff_t off0, ptrdiff_t ss,
+                                         int rows, int n, int rlo, int rhi,
+                                         int vcols, bool vec) {
+  using namespace mma_bf16;
+  if (vec) {
+    const int per = n / 4;
+    for (int e = threadIdx.x; e < rows * per; e += THREADS) {
+      const int r = e / per;
+      const int c = (e - r * per) * 4;
+      const bool in = r >= rlo && r < rhi && c < vcols;
+      cp_async16(dst + r * ds + c, in ? src + off0 + r * ss + c : src,
+                 in ? 16 : 0);
+    }
+  } else {
+    for (int e = threadIdx.x; e < rows * n; e += THREADS) {
+      const int r = e / n;
+      const int c = e - r * n;
+      const bool in = r >= rlo && r < rhi && c < vcols;
+      cp_async4(dst + r * ds + c, in ? src + off0 + r * ss + c : src,
+                in ? 4 : 0);
+    }
+  }
+}
+
+__device__ __forceinline__ void cp_async_wait_n(int n) {
+  using namespace mma_bf16;
+  switch (n) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    default: cp_async_wait<2>(); break;
+  }
+}
+
+// One CUDA block: the 64-row strip r_off of row block b and NT adjacent
+// 64-column tiles (fewer at the end of a row).  The strip's union window
+// [u0, u1) of err columns runs from the least of its tiles' window starts,
+// moved back to a multiple of 4, to the greatest window end.  Chunk outer,
+// plan inner: for each 16-column chunk of the union, every group's row
+// product bandr[u] @ err[f] is formed once (K3_UNITS groups at a time,
+// each by two warps, one per 32-row half, on 4 x 4 register tiles, over
+// the k range where the half's rows are nonzero) into ys, and each warp of
+// a tile adds ys @ bandc[c] over its TN / WPT columns of the tile for the
+// chunks that overlap the tile's own window, unless bandc[c]'s chunk is
+// zero in those columns (its rows outside the window land as zeros).
+// Thread tile of the column product: 8 rows x 2*NT columns, summed over
+// the whole union in registers.  Warp 0 asks the TMA for each chunk
+// (tensor maps tm_err [n_frames, h, w] and tm_bc [nt, n_c, win_c, tile_c],
+// `tma`); otherwise every thread copies its share by cp.async.  The plan
+// is walked in one set (L.whole) or one group at a time, in which case
+// each group must list one consumer, as K3's plan does.
+template <int NT>
+__global__ void __launch_bounds__(THREADS, 1)
+fused_bwd_f32_kernel(Ops<float> p, K3Layout L, int n_cols,
+                     const float* __restrict__ err, int n_frames,
+                     const float* __restrict__ hr, float* __restrict__ out,
+                     int H, int W, float scale, float lo, float hi, int tma,
+                     const __grid_constant__ CUtensorMap tm_err,
+                     const __grid_constant__ CUtensorMap tm_bc) {
+  constexpr int WPT = 8 / NT;          // warps per tile
+  constexpr int TC = 2 * NT;           // columns per thread
+  constexpr int V = TC < 4 ? TC : 4;   // columns per vector
+  constexpr int NV = TC / V;           // vectors per thread row
+  extern __shared__ __align__(128) char k3_smem[];
+  float* a_s = reinterpret_cast<float*>(k3_smem);
+  float* ys_s = reinterpret_cast<float*>(k3_smem + L.ys);
+  char* ring = k3_smem + L.ring;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(k3_smem + L.bar);
+  int2* krange = reinterpret_cast<int2*>(k3_smem + L.tab);  // [res][2]
+  int* u_of = reinterpret_cast<int*>(krange + 2 * L.res);   // [res]
+  int* f_of = u_of + L.res;                                 // [frames]
+  int* c_of = f_of + L.frames;                              // [cops]
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const Strip st = strip_of(p.blk_r, n_cols, NT);
+  const int per_tile = p.tile_c / TN;
+  const int row0 = p.sr[st.b];
+  const int vrows = min(p.win_r, p.src_rows - row0);
+  const size_t plane = static_cast<size_t>(p.src_rows) * p.src_cols;
+  const int4* groups = reinterpret_cast<const int4*>(p.groups);
+
+  // the union window, from a multiple of 4 (16 bytes of err), and each
+  // tile's window start in it
+  int u0 = 1 << 30, u1 = -(1 << 30);
+  for (int jx = 0; jx < st.n_tiles; ++jx) {
+    const int s = p.sc[(st.jt0 + jx) / per_tile];
+    u0 = min(u0, s);
+    u1 = max(u1, s + p.win_c);
+  }
+  u0 = u0 / 4 * 4;
+  const int n_chunks = (u1 - u0 + KS - 1) / KS;
+  int toff[NT];
+#pragma unroll
+  for (int jx = 0; jx < NT; ++jx)
+    toff[jx] = jx < st.n_tiles ? p.sc[(st.jt0 + jx) / per_tile] - u0 : 0;
+  auto overlap = [&](int off, int t) {
+    return t * KS < off + p.win_c && t * KS + KS > off;
+  };
+  auto active = [&](int jx, int t) {
+    return jx < st.n_tiles && overlap(toff[jx], t);
+  };
+
+  // this thread's tile of the column product
+  const int jj = warp / WPT;
+  const bool has_tile = jj < st.n_tiles;
+  const int jt = st.jt0 + jj;
+  const int j = has_tile ? jt / per_tile : 0;
+  const int c_off = (jt % per_tile) * TN;
+  const int t_off = has_tile ? p.sc[j] - u0 : 0;  // own window in the union
+  // a warp of the tile owns its TN / WPT adjacent columns from wcol: lane
+  // (rg, cg) rows rg*4..+3 and 32 + rg*4..+3, columns wcol + cg*TC ..
+  constexpr int WCOLS = TN / WPT;
+  const int wcol = (warp % WPT) * WCOLS;
+  const int rg = lane >> 2;
+  const int cg = lane & 3;
+  // this thread's tile of the row product: unit (a group of the pass),
+  // rows half * 32 + rq * 4 .. +3, columns cq * 4 .. +3
+  const int unit = warp >> 1;
+  const int half = warp & 1;
+  const int rq = lane >> 2;
+  const int cq = lane & 3;
+
+  const bool x_vec = (reinterpret_cast<uintptr_t>(err) & 15) == 0 &&
+                     p.src_cols % 4 == 0;
+  const bool bc_vec = (reinterpret_cast<uintptr_t>(p.bandc) & 15) == 0;
+
+  if (tma && tid == 0) {
+    for (int i = 0; i < L.stages; ++i) mbar_init(bars + i);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                     reinterpret_cast<uint64_t>(&tm_err))
+                 : "memory");
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                     reinterpret_cast<uint64_t>(&tm_bc))
+                 : "memory");
+  }
+
+  float acc[8][TC];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int c = 0; c < TC; ++c) acc[i][c] = 0.f;
+
+  int seq = 0;  // chunks loaded before this set: their stages and phases
+  for (int g0 = 0, g1; g0 < p.n_groups; g0 = g1) {
+    // the set: the whole plan, its slots the row op, frame and column op
+    // indices; or plan group g0 alone, every slot 0
+    g1 = L.whole ? p.n_groups : g0 + 1;
+    const int s_nu = L.res, s_nf = L.frames, s_nc = L.cops;
+    auto slot = [&](int i) { return L.whole ? i : 0; };
+    __syncthreads();  // every reader of the previous set is done
+    if (tid < 2 * s_nu) krange[tid] = make_int2(L.kr, -1);
+    if (tid < s_nu) u_of[tid] = L.whole ? tid : groups[g0].y;
+    if (tid < s_nf) f_of[tid] = L.whole ? tid : groups[g0].x;
+    if (tid < s_nc) c_of[tid] = L.whole ? tid : p.cons[2 * groups[g0].z];
+    __syncthreads();
+
+    // chunk t of every err frame and column operator of the set
+    auto load_chunk = [&](int t) {
+      const int sq = seq + t;
+      char* stage = ring + (sq % L.stages) * L.stage;
+      float* bc = reinterpret_cast<float*>(stage + L.bc);
+      const int k0 = t * KS;
+      const int col = u0 + k0;
+      if (tma) {
+        // warp 0, one box per lane: every frame's err chunk, then each
+        // column operator's chunk for each tile that reads this chunk
+        if (warp != 0) return;
+        int n_act = 0;
+#pragma unroll
+        for (int jx = 0; jx < NT; ++jx) n_act += active(jx, t);
+        uint64_t* bar = bars + sq % L.stages;
+        if (lane == 0)
+          mbar_expect_tx(bar, sizeof(float) * (s_nf * L.kr * KS +
+                                               n_act * s_nc * K3_BOX));
+        for (int i = lane; i < s_nf + n_act * s_nc; i += 32) {
+          if (i < s_nf) {
+            tma_load_3d(reinterpret_cast<float*>(stage) + i * L.kr * KS,
+                        &tm_err, col, row0, f_of[i], bar);
+            continue;
+          }
+          const int s = (i - s_nf) % s_nc;
+          int a = (i - s_nf) / s_nc, jx = 0, off = 0;
+          for (;; ++jx) {
+            off = p.sc[(st.jt0 + jx) / per_tile] - u0;
+            if (overlap(off, t) && a-- == 0) break;
+          }
+          const int jtx = st.jt0 + jx;
+          tma_load_4d(bc + (s * NT + jx) * K3_BOX, &tm_bc,
+                      (jtx % per_tile) * TN, k0 - off, c_of[s],
+                      jtx / per_tile, bar);
+        }
+        return;
+      }
+      for (int s = 0; s < s_nf; ++s)
+        k3_stage(reinterpret_cast<float*>(stage) + s * L.kr * KS, KS, err,
+                 f_of[s] * plane + static_cast<ptrdiff_t>(row0) * p.src_cols +
+                     col,
+                 p.src_cols, L.kr, KS, 0, vrows, p.src_cols - col, x_vec);
+      for (int jx = 0; jx < st.n_tiles; ++jx) {
+        const int jtx = st.jt0 + jx;
+        const int off = p.sc[jtx / per_tile] - u0;
+        if (!overlap(off, t)) continue;  // never read
+        for (int s = 0; s < s_nc; ++s)
+          k3_stage(bc + (s * NT + jx) * K3_BOX, TN, p.bandc,
+                   ((static_cast<ptrdiff_t>(jtx / per_tile) * p.n_c +
+                     c_of[s]) * p.win_c + k0 - off) * p.tile_c +
+                       (jtx % per_tile) * TN,
+                   p.tile_c, KS, TN, off - k0, off + p.win_c - k0, TN,
+                   bc_vec);
+      }
+    };
+
+    if (tma && warp == 0) fence_proxy_async();
+#pragma unroll 1
+    for (int s = 0; s < L.stages - 1; ++s) {
+      if (s < n_chunks) load_chunk(s);
+      mma_bf16::cp_async_commit();
+    }
+
+    // the set's row operators, resident and k-major for the whole union,
+    // by coalesced loads sixteen at a time per thread, and the k range
+    // where either half of each one's rows is nonzero; err is finite, so
+    // the zeros skipped later add nothing
+    for (int s = 0; s < s_nu; ++s) {
+      const float* src =
+          p.bandr + ((static_cast<size_t>(st.b) * p.n_u + u_of[s]) * p.blk_r +
+                     st.r_off) * p.win_r;
+      float* dst = a_s + s * L.kr * YS;
+      const int n = BM * L.kr;
+      int lo0 = L.kr, hi0 = -1, lo1 = L.kr, hi1 = -1;  // rows < 32, >= 32
+      for (int e0 = tid; e0 < n; e0 += 16 * THREADS) {
+        float v[16];
+#pragma unroll
+        for (int i = 0; i < 16; ++i) {
+          const int e = e0 + i * THREADS;
+          const int r = e / L.kr;
+          const int k = e - r * L.kr;
+          v[i] = e < n && k < p.win_r ? src[r * p.win_r + k] : 0.f;
+        }
+#pragma unroll
+        for (int i = 0; i < 16; ++i) {
+          const int e = e0 + i * THREADS;
+          if (e >= n) break;
+          const int r = e / L.kr;
+          const int k = e - r * L.kr;
+          dst[k * YS + r] = v[i];
+          if (v[i] != 0.f && r < 32) {
+            lo0 = min(lo0, k);
+            hi0 = max(hi0, k);
+          } else if (v[i] != 0.f) {
+            lo1 = min(lo1, k);
+            hi1 = max(hi1, k);
+          }
+        }
+      }
+      lo0 = __reduce_min_sync(0xffffffffu, lo0);
+      hi0 = __reduce_max_sync(0xffffffffu, hi0);
+      lo1 = __reduce_min_sync(0xffffffffu, lo1);
+      hi1 = __reduce_max_sync(0xffffffffu, hi1);
+      if (lane == 0) {
+        atomicMin(&krange[2 * s].x, lo0);
+        atomicMax(&krange[2 * s].y, hi0);
+        atomicMin(&krange[2 * s + 1].x, lo1);
+        atomicMax(&krange[2 * s + 1].y, hi1);
+      }
+    }
+
+#pragma unroll 1
+    for (int t = 0; t < n_chunks; ++t) {
+      const int sq = seq + t;
+      if (tma)
+        mbar_wait(bars + sq % L.stages, (sq / L.stages) & 1);
+      else
+        cp_async_wait_n(L.stages - 2);
+      // chunk t has landed for every thread, and every thread is done with
+      // chunk t - 1, whose stage is refilled next
+      __syncthreads();
+      if (tma && warp == 0) fence_proxy_async();
+      if (t + L.stages - 1 < n_chunks) load_chunk(t + L.stages - 1);
+      mma_bf16::cp_async_commit();
+      const char* stage = ring + (sq % L.stages) * L.stage;
+      const float* xs = reinterpret_cast<const float*>(stage);
+      const float* bc = reinterpret_cast<const float*>(stage + L.bc);
+      const bool overlaps = has_tile && overlap(t_off, t);
+      // the column-op slots whose chunk is nonzero in this warp's columns
+      unsigned nz = 0;
+      if (overlaps) {
+        for (int s = 0; s < s_nc && s < 32; ++s) {
+          const float* blk = bc + (s * NT + jj) * K3_BOX + wcol;
+          bool any = false;
+#pragma unroll
+          for (int e = lane; e < KS * WCOLS; e += 32)
+            any |= blk[(e / WCOLS) * TN + e % WCOLS] != 0.f;
+          if (__any_sync(0xffffffffu, any)) nz |= 1u << s;
+        }
+      }
+
+#pragma unroll 1
+      for (int gp = g0; gp < g1; gp += K3_UNITS) {
+        if (gp > g0) __syncthreads();  // the last pass's ys readers are done
+        const int gi = gp + unit;
+        if (gi < g1) {
+          // ys[unit] = bandr[u] @ err[f] over this chunk, this half's rows
+          const int4 gr = groups[gi];
+          const int us = slot(gr.y);
+          const int2 kr = krange[2 * us + half];
+          const float* a = a_s + us * L.kr * YS + half * 32 + rq * 4;
+          const float* x = xs + slot(gr.x) * L.kr * KS + cq * 4;
+          float y[4][4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) y[i][c] = 0.f;
+#pragma unroll 2
+          for (int k = kr.x / 4 * 4; k <= kr.y; k += 4) {
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) {
+              const float4 av =
+                  *reinterpret_cast<const float4*>(a + (k + kk) * YS);
+              const float4 xv =
+                  *reinterpret_cast<const float4*>(x + (k + kk) * KS);
+              const float ai[4] = {av.x, av.y, av.z, av.w};
+              const float xc[4] = {xv.x, xv.y, xv.z, xv.w};
+#pragma unroll
+              for (int i = 0; i < 4; ++i)
+#pragma unroll
+                for (int c = 0; c < 4; ++c)
+                  y[i][c] = fmaf(ai[i], xc[c], y[i][c]);
+            }
+          }
+          float* yo = ys_s + unit * KS * YS + half * 32 + rq * 4;
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            *reinterpret_cast<float4*>(yo + (cq * 4 + c) * YS) =
+                make_float4(y[0][c], y[1][c], y[2][c], y[3][c]);
+        }
+        __syncthreads();  // ys ready
+        if (!overlaps) continue;
+        // acc += ys[k] @ bandc[c] for this warp's columns of its tile
+        const int n_units = min(K3_UNITS, g1 - gp);
+        for (int k = 0; k < n_units; ++k) {
+          const int4 gr = groups[gp + k];
+          const float* ya = ys_s + k * KS * YS + rg * 4;
+          for (int q = gr.z; q < gr.w; ++q) {
+            const int cs = slot(p.cons[2 * q]);
+            if (cs < 32 && !(nz >> cs & 1u)) continue;  // adds zeros
+            const float* cb =
+                bc + (cs * NT + jj) * K3_BOX + wcol + cg * TC;
+#pragma unroll
+            for (int kc = 0; kc < KS; ++kc) {
+              const float4 a0 =
+                  *reinterpret_cast<const float4*>(ya + kc * YS);
+              const float4 a1 =
+                  *reinterpret_cast<const float4*>(ya + kc * YS + 32);
+              const float av[8] = {a0.x, a0.y, a0.z, a0.w,
+                                   a1.x, a1.y, a1.z, a1.w};
+              float bv[TC];
+#pragma unroll
+              for (int v = 0; v < NV; ++v) {
+                const float* b = cb + kc * TN + v * V;
+                if constexpr (V == 4) {
+                  const float4 w4 = *reinterpret_cast<const float4*>(b);
+                  bv[4 * v] = w4.x; bv[4 * v + 1] = w4.y;
+                  bv[4 * v + 2] = w4.z; bv[4 * v + 3] = w4.w;
+                } else {
+                  const float2 w2 = *reinterpret_cast<const float2*>(b);
+                  bv[2 * v] = w2.x; bv[2 * v + 1] = w2.y;
+                }
+              }
+#pragma unroll
+              for (int i = 0; i < 8; ++i)
+#pragma unroll
+                for (int c = 0; c < TC; ++c)
+                  acc[i][c] = fmaf(av[i], bv[c], acc[i][c]);
+            }
+          }
+        }
+      }
+    }
+    seq += n_chunks;
+  }
+
+  if (!has_tile) return;
+  const bool out_vec = V == 4 && W % 4 == 0 &&
+                       ((reinterpret_cast<uintptr_t>(hr) |
+                         reinterpret_cast<uintptr_t>(out)) & 15) == 0;
+  const int orow = st.b * p.blk_r + st.r_off;
+  const int ocol = j * p.tile_c + c_off + wcol + cg * TC;
+  // hr + scale * z, rounded after each step as the plain version does
+  auto update = [&](float x, float z) {
+    return fminf(fmaxf(__fadd_rn(x, __fmul_rn(scale, z)), lo), hi);
+  };
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int row = orow + (i / 4) * 32 + rg * 4 + i % 4;
+    if (row >= H) continue;
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      const int col = ocol + v * V;
+      const size_t at = static_cast<size_t>(row) * W + col;
+      if (out_vec && col + 3 < W) {
+        const float4 x = *reinterpret_cast<const float4*>(hr + at);
+        *reinterpret_cast<float4*>(out + at) =
+            make_float4(update(x.x, acc[i][4 * v]),
+                        update(x.y, acc[i][4 * v + 1]),
+                        update(x.z, acc[i][4 * v + 2]),
+                        update(x.w, acc[i][4 * v + 3]));
+      } else {
+#pragma unroll
+        for (int c = 0; c < V; ++c)
+          if (col + c < W) out[at + c] = update(hr[at + c], acc[i][V * v + c]);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
 
@@ -842,20 +1402,98 @@ int fwd(const Ops<BandT>& p, int nb, int nt, const float* hr, const void* lr,
   }
 }
 
-int bwd(const Ops<float>& p, int nb, int nt, const void* err, int,
+// The driver's cuTensorMapEncodeTiled, through the runtime; null where the
+// driver has none.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
+                                     cudaEnableDefault, &found);
+    return found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(f)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A float32 tensor map of `rank` dims (innermost first, densely strided)
+// and box: 1 when built, 0 where the TMA cannot describe the array (a base
+// not 16-byte aligned, a row not a multiple of 16 bytes, a box edge over
+// 256), -1 where the driver gives no encoder or refuses the map.
+int tensor_map(CUtensorMap* m, const void* base, int rank,
+               const cuuint64_t* dims, const cuuint32_t* box) {
+  if ((reinterpret_cast<uintptr_t>(base) & 15) != 0) return 0;
+  cuuint64_t strides[4];
+  cuuint64_t stride = sizeof(float);
+  for (int i = 0; i < rank; ++i) {
+    if (box[i] == 0 || box[i] > 256) return 0;
+    if (i + 1 == rank) break;
+    stride *= dims[i];
+    if (stride % 16 != 0) return 0;
+    strides[i] = stride;
+  }
+  const EncodeTiled fn = encode_tiled();
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  if (fn == nullptr ||
+      fn(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, rank, const_cast<void*>(base),
+         dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+         CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return -1;
+  return 1;
+}
+
+// f32: K3_NT adjacent 64-column tiles per CUDA block where the widest
+// strip's union window union_w allows (k3_pick).  Err rows the TMA cannot
+// describe come by cp.async.
+int bwd(const Ops<float>& p, int nb, int nt, const void* err, int n_frames,
         const float* hr, float* out, int H, int W, float scale, float lo,
-        float hi, cudaStream_t s) {
-  const size_t smem = smem_bytes(p.win_r);
+        float hi, int union_w, cudaStream_t s) {
+  if (n_frames <= 0 || union_w <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const K3Layout L =
+      k3_pick(union_w, p.n_u, n_frames, p.n_c, p.win_r, p.win_c);
+  if (L.stages == 0) return static_cast<int>(cudaErrorInvalidValue);
   dim3 grid;
-  const int rc = check(p, nb, nt, smem, &grid);
+  const int rc = check(p, nb, nt, L.total, &grid);
   if (rc != 0) return rc;
-  return launch(fused_bwd_kernel<float>, grid, smem, s, p,
-                static_cast<const float*>(err), hr, out, H, W, scale, lo, hi);
+  const int n_cols = static_cast<int>(grid.x);
+  grid.x = (n_cols + L.nt - 1) / L.nt;
+  const float* e = static_cast<const float*>(err);
+  // err [n_frames, h, w] in boxes of [kr][KS], bandc [nt, n_c, win_c,
+  // tile_c] in boxes of [KS][TN]
+  CUtensorMap tm_err{}, tm_bc{};
+  const cuuint64_t err_dims[3] = {static_cast<cuuint64_t>(p.src_cols),
+                                  static_cast<cuuint64_t>(p.src_rows),
+                                  static_cast<cuuint64_t>(n_frames)};
+  const cuuint32_t err_box[3] = {KS, static_cast<cuuint32_t>(L.kr), 1};
+  const cuuint64_t bc_dims[4] = {static_cast<cuuint64_t>(p.tile_c),
+                                 static_cast<cuuint64_t>(p.win_c),
+                                 static_cast<cuuint64_t>(p.n_c),
+                                 static_cast<cuuint64_t>(nt)};
+  const cuuint32_t bc_box[4] = {TN, KS, 1, 1};
+  int tma = tensor_map(&tm_err, e, 3, err_dims, err_box);
+  if (tma == 1) tma = tensor_map(&tm_bc, p.bandc, 4, bc_dims, bc_box);
+  if (tma < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (L.nt == K3_NT)
+    return launch(fused_bwd_f32_kernel<K3_NT>, grid, L.total, s, p, L,
+                  n_cols, e, n_frames, hr, out, H, W, scale, lo, hi, tma,
+                  tm_err, tm_bc);
+  return launch(fused_bwd_f32_kernel<1>, grid, L.total, s, p, L, n_cols, e,
+                n_frames, hr, out, H, W, scale, lo, hi, tma, tm_err, tm_bc);
 }
 
 int bwd(const Ops<bf16>& p, int nb, int nt, const void* err, int n_frames,
         const float* hr, float* out, int H, int W, float scale, float lo,
-        float hi, cudaStream_t s) {
+        float hi, int, cudaStream_t s) {
   const int n_res =
       n_frames > 0
           ? resident_ops(p.n_u, p.win_r, p.n_c, n_frames, false, BWD_STAGES)
@@ -909,7 +1547,10 @@ extern "C" int fused_fwd_launch(int bf16, const void* bandr, const int* sr,
 
 // K3 on `stream`: err [n_frames, h, w] of the band type, hr and out [H, W]
 // float32, out = clip(hr + scale * z, lo, hi).  Same packs and return code
-// as fused_fwd_launch.
+// as fused_fwd_launch; the plan lists one consumer per group
+// (FusedIBP.plan("bwd")).  float32 bands: union_w is the widest union
+// window of a strip of K3_NT column tiles (the bf16 kernel walks BWD_TILES
+// and ignores it).
 extern "C" int fused_bwd_launch(int bf16, const void* bandr, const int* sr,
                                 int nb, int n_u, int blk_r, int win_r,
                                 const void* bandc, const int* sc, int nt,
@@ -918,13 +1559,16 @@ extern "C" int fused_bwd_launch(int bf16, const void* bandr, const int* sr,
                                 const int* cons, const void* err,
                                 int n_frames, int h, int w, const float* hr,
                                 float* out, int H, int W, float scale,
-                                float lo, float hi, void* stream) {
+                                float lo, float hi, int union_w,
+                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
     return bwd(ops<__nv_bfloat16>(bandr, sr, n_u, blk_r, win_r, bandc, sc, n_c,
                                   win_c, tile_c, groups, n_groups, cons, h, w),
-               nb, nt, err, n_frames, hr, out, H, W, scale, lo, hi, s);
+               nb, nt, err, n_frames, hr, out, H, W, scale, lo, hi,
+               union_w, s);
   return bwd(ops<float>(bandr, sr, n_u, blk_r, win_r, bandc, sc, n_c, win_c,
                         tile_c, groups, n_groups, cons, h, w),
-             nb, nt, err, n_frames, hr, out, H, W, scale, lo, hi, s);
+             nb, nt, err, n_frames, hr, out, H, W, scale, lo, hi, union_w,
+             s);
 }

@@ -13,7 +13,9 @@ kernels of ``csrc/fused_ibp.cu``.  This module holds
   multiples of ``WIN_ALIGN`` (16 bytes of bf16) wherever the input's width
   allows, so the kernels stage them with 16-byte copies;
 * :class:`FusedIBP` (``build``, ``fwd_err``, ``bwd_update``,
-  ``astype_bands``) and :func:`fused_eligible`;
+  ``astype_bands``; ``strip_tiles`` and ``strip_union``, the column tiles
+  one CUDA block of the f32 K3 walks over their union window) and
+  :func:`fused_eligible`;
 * the wrappers :func:`fused_fwd_err` / :func:`fused_bwd_update`, which
   launch the kernel for CUDA tensors (counting launches per band type in
   ``.launches`` and ``.launches_bf16``), run the plain version for CPU
@@ -52,12 +54,19 @@ COLS = 64
 WIN_ALIGN = 8
 MAX_FRAMES = 8  # frames of one K2 launch (MAX_OUT in csrc/fused_ibp.cu)
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
+# The f32 K3: adjacent 64-column tiles per CUDA block (a strip), row
+# products formed at once, chunk width and deepest ring (K3_NT, K3_UNITS,
+# KS and K3_MAX_STAGES in csrc/fused_ibp.cu).
+K3_STRIP_TILES = 4
+K3_UNITS = 4
+K3_CHUNK = 16
+K3_MAX_STAGES = 4
 
 # C signatures in csrc/fused_ibp.cu (pointers and the stream as c_void_p).
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _PACK = [_I, _P, _P, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I, _P, _I, _P]
 _FWD_ARGTYPES = _PACK + [_P, _I, _I, _P, _P, _I, _I, _I, _P]
-_BWD_ARGTYPES = _PACK + [_P, _I, _I, _I, _P, _P, _I, _I, _F, _F, _F, _P]
+_BWD_ARGTYPES = _PACK + [_P, _I, _I, _I, _P, _P, _I, _I, _F, _F, _F, _I, _P]
 
 
 def _round_up(x: int, m: int) -> int:
@@ -178,6 +187,7 @@ class FusedIBP:
         self.lr_shape = tuple(int(v) for v in lr_shape)
         self.hr_shape = tuple(int(v) for v in hr_shape)
         self._plans: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
+        self._unions: Dict[int, int] = {}
 
     @classmethod
     def build(cls, frames, device, block: int = ROWS,
@@ -254,6 +264,29 @@ class FusedIBP:
         """``clip(hr + scale * sum_f back_project_f(err[f]))`` (K3)."""
         fn = fused_bwd_update_reference if plain else fused_bwd_update
         return fn(self, hr, err_stack, scale, clip)
+
+    def strip_union(self, strip_tiles: int) -> int:
+        """The widest union window of the back-projection pack's column
+        windows over strips of ``strip_tiles`` adjacent 64-column tiles (the
+        f32 K3's CUDA blocks, the last of a row shorter): from the least
+        window start of a strip's tiles to the greatest window end."""
+        if strip_tiles not in self._unions:
+            tile, win = self.b_bandc.shape[-1], self.b_bandc.shape[-2]
+            starts = np.repeat(self.b_sc.cpu().numpy().astype(np.int64),
+                               tile // COLS)
+            self._unions[strip_tiles] = max(
+                int(starts[i: i + strip_tiles].max()
+                    - starts[i: i + strip_tiles].min()) + win
+                for i in range(0, len(starts), strip_tiles))
+        return self._unions[strip_tiles]
+
+    def strip_tiles(self) -> int:
+        """Tiles per strip the f32 K3's launch takes (the first of
+        :func:`_k3_layout`): ``K3_STRIP_TILES`` where no such strip's union
+        window is wider than that many tile windows and its layout fits,
+        else 1 (the tile's own window), so no pack forms more of a row
+        product than one window per tile."""
+        return _k3_layout(self)[0]
 
     def plan(self, kind: str) -> Tuple[torch.Tensor, torch.Tensor]:
         """The kernels' term lists on the pack's device: ``groups[g] =
@@ -360,25 +393,84 @@ def fused_bwd_update_reference(pack: FusedIBP, hr: torch.Tensor,
     return torch.clamp(out, float(clip[0]), float(clip[1]))
 
 
+def _k3_f32_layout(n_u: int, n_frames: int, n_c: int, win_r: int,
+                   win_c: int, union_w: int):
+    """The shared-memory layout the f32 K3's launch takes (``k3_pick`` and
+    ``k3_layout`` in csrc/fused_ibp.cu): ``(tiles per strip, resident row
+    ops, frames, column ops, stages, bytes)``; where none fits
+    ``SMEM_LIMIT``, the least of them (which the launch refuses).
+
+    Tiles per strip: ``K3_STRIP_TILES`` where the widest such strip's
+    union window ``union_w`` is at most that many column windows, else 1.
+    Then, first
+    with every row operator, frame and column operator of the plan in one
+    set, else one plan group per set, at those tiles and then at 1, the
+    deepest ring of ``K3_MAX_STAGES`` down to 2 that fits: the resident row
+    operators and the row products of ``K3_UNITS`` groups (both k-major,
+    the window padded to 4, rows padded by 4), each stage (128-byte
+    aligned) every frame's err chunk and every column operator's chunk for
+    the strip's tiles and its mbarrier, each resident row operator's
+    nonzero k range for either half of its rows, and the set's tables."""
+    kr = _round_up(win_r, 4)
+    nt = K3_STRIP_TILES if union_w <= K3_STRIP_TILES * win_c else 1
+    for res, frames, cops in ((n_u, n_frames, n_c), (1, 1, 1)):
+        for t in dict.fromkeys((nt, 1)):
+            for stages in range(K3_MAX_STAGES, 1, -1):
+                ring = _round_up(4 * (res * kr + K3_UNITS * K3_CHUNK)
+                                 * (ROWS + 4), 128)
+                total = (ring + stages * (4 * (frames * kr * K3_CHUNK
+                                               + cops * K3_CHUNK * t * COLS)
+                                          + 8)
+                         + 16 * res + 4 * (res + frames + cops))
+                if total <= SMEM_LIMIT:
+                    return t, res, frames, cops, stages, total
+    return t, res, frames, cops, stages, total
+
+
 def _smem_bytes(band_dtype: torch.dtype, win_r: int, n_c: int, n_src: int,
-                f32_src: bool) -> int:
-    """The least dynamic shared memory one CUDA block needs (``smem_bytes``
-    and ``layout`` in csrc/fused_ibp.cu).  float32 bands: the row operator's
-    block, an input chunk, a row-product chunk and a column-operator chunk,
-    all f32.  bfloat16 bands: one row operator's block resident (the kernel
-    keeps as many as fit and walks the window once per set), rows padded to
-    16 plus 8 elements, and a ring of stages, each an input chunk and a
+                f32_src: bool, n_u: int = 1, win_c: int = 0,
+                union_w: int = 0) -> int:
+    """The least dynamic shared memory one CUDA block needs (``smem_bytes``,
+    ``layout`` and ``k3_layout`` in csrc/fused_ibp.cu).  float32 bands, K2
+    (``f32_src``): the row operator's block, an input chunk, a row-product
+    chunk and a column-operator chunk, all f32.  float32 bands, K3: the
+    layout of :func:`_k3_f32_layout` for ``n_u`` row ops, ``n_src`` frames
+    and ``n_c`` column ops, ``union_w`` the widest strip's union window.
+    bfloat16
+    bands: one row operator's block resident (the kernel keeps as many as
+    fit and walks the window once per set), rows padded to 16 plus 8
+    elements, and a ring of stages, each an input chunk and a
     column-operator chunk: K2 two stages, its f32 hr chunk rounded into one
     more bf16 buffer; K3 three, one bf16 chunk per frame, each stage at
     least the 16 KB through which its two warp sets add their sums."""
-    if band_dtype == torch.float32:
+    if band_dtype == torch.float32 and f32_src:
         return 4 * (win_r * (ROWS + 4) + win_r * 32 + 32 * (ROWS + 4)
                     + 32 * COLS)
+    if band_dtype == torch.float32:
+        return _k3_f32_layout(n_u, n_src, n_c, win_r, win_c,
+                              union_w or win_c)[-1]
     kr = _round_up(win_r, 16)
     bc = 2 * n_c * 16 * (COLS + 8)
     if f32_src:
         return 2 * ROWS * (kr + 8) + 2 * kr * 24 + 2 * (4 * kr * 16 + bc)
     return 2 * ROWS * (kr + 8) + 3 * max(2 * n_src * kr * 24 + bc, 16384)
+
+
+def _k3_union(pack: FusedIBP) -> int:
+    """The widest union window of the f32 K3's strips of
+    ``K3_STRIP_TILES`` tiles, which its launch takes; 0 for bfloat16
+    bands, whose K3 does not."""
+    if pack.band_dtype != torch.float32:
+        return 0
+    return pack.strip_union(K3_STRIP_TILES)
+
+
+def _k3_layout(pack: FusedIBP):
+    """:func:`_k3_f32_layout` of the pack's back-projection operators."""
+    n_u, win_r = pack.b_bandr.shape[1], pack.b_bandr.shape[-1]
+    n_c, win_c = pack.b_bandc.shape[1], pack.b_bandc.shape[-2]
+    return _k3_f32_layout(n_u, pack.n_frames, n_c, win_r, win_c,
+                          pack.strip_union(K3_STRIP_TILES))
 
 
 def _pack_args(pack: FusedIBP, prefix: str, kind: str) -> list:
@@ -390,8 +482,10 @@ def _pack_args(pack: FusedIBP, prefix: str, kind: str) -> list:
     if blk % ROWS or tile % COLS:
         raise ValueError(f"row block {blk} / column tile {tile} is no "
                          f"multiple of {ROWS} / {COLS}")
+    union = _k3_union(pack) if kind == "bwd" else 0
     smem = _smem_bytes(bandr.dtype, win_r, n_c,
-                       1 if kind == "fwd" else pack.n_frames, kind == "fwd")
+                       1 if kind == "fwd" else pack.n_frames, kind == "fwd",
+                       n_u=n_u, win_c=win_c, union_w=union)
     if smem > SMEM_LIMIT:
         raise ValueError(f"row window {win_r} needs {smem} B of shared "
                          f"memory, more than {SMEM_LIMIT}")
@@ -466,7 +560,7 @@ def fused_bwd_update(pack: FusedIBP, hr: torch.Tensor,
                 pack.n_frames, h, w,
                 hr.data_ptr(), out.data_ptr(), pack.hr_shape[0],
                 pack.hr_shape[1], float(scale), float(clip[0]),
-                float(clip[1]),
+                float(clip[1]), _k3_union(pack),
                 torch.cuda.current_stream(hr.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused_bwd kernel launch failed: CUDA error {rc}")

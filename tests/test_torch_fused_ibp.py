@@ -211,6 +211,179 @@ def test_bf16_kernels_fit_two_blocks_per_sm_at_the_solve_packs():
             assert every + 1024 <= 228 * 1024 // 2, (prefix, every)
 
 
+def _emulate_k3_strips(pack, hr, err, scale, clip):
+    """Plain-torch emulation of the f32 K3's loop (csrc/fused_ibp.cu
+    ``fused_bwd_f32_kernel``): per 64-row strip and per strip of
+    ``pack.strip_tiles()`` adjacent 64-column tiles, the union window of
+    the tiles' column windows (its start moved back to a multiple of 4)
+    walked in 16-column chunks, err zero-filled
+    past the image and the row window; each group's row product
+    ``bandr[u] @ err[f]`` formed once per chunk, then each tile's column
+    product over the chunk, its column operator's rows outside the tile's
+    own window zero-filled.  Row product first, then column."""
+    _, _, blk, win_r = pack.b_bandr.shape
+    _, _, win_c, tile = pack.b_bandc.shape
+    per_tile = tile // TF.COLS
+    n_sub = pack.b_bandc.shape[0] * per_tile
+    nt = pack.strip_tiles()
+    h, w = pack.lr_shape
+    sr, sc = pack.b_sr.tolist(), pack.b_sc.tolist()
+    groups, cons = (a.tolist() for a in pack.plan("bwd"))
+    # err with a zero border past the image, so chunks read zeros there
+    pad = torch.zeros((pack.n_frames, h + win_r, w + 4 * win_c + TF.COLS))
+    pad[:, :h, :w] = err
+    rows = []
+    for b in range(len(sr)):
+        x_rows = pad[:, sr[b]: sr[b] + win_r]
+        for r_off in range(0, blk, TF.ROWS):
+            strip_out = []
+            for s0 in range(0, n_sub, nt):
+                tiles = range(s0, min(s0 + nt, n_sub))
+                starts = [sc[jt // per_tile] for jt in tiles]
+                # from a multiple of 4 columns, as the kernel's TMA boxes
+                u0, u1 = min(starts) // 4 * 4, max(starts) + win_c
+                acc = torch.zeros((len(tiles), TF.ROWS, TF.COLS))
+                for k0 in range(0, u1 - u0, TF.K3_CHUNK):
+                    x = x_rows[..., u0 + k0: u0 + k0 + TF.K3_CHUNK]
+                    for f, u, q0, q1 in groups:
+                        br = pack.b_bandr[b, u, r_off: r_off + TF.ROWS]
+                        ys = br @ x[f]                      # [64, 16]
+                        for jj, jt in enumerate(tiles):
+                            k = k0 - (starts[jj] - u0) + torch.arange(
+                                TF.K3_CHUNK)
+                            inside = (k >= 0) & (k < win_c)
+                            if not bool(inside.any()):
+                                continue
+                            c_off = (jt % per_tile) * TF.COLS
+                            for q in range(q0, q1):
+                                bc = torch.zeros((TF.K3_CHUNK, TF.COLS))
+                                bc[inside] = pack.b_bandc[
+                                    jt // per_tile, cons[q][0], k[inside],
+                                    c_off: c_off + TF.COLS]
+                                acc[jj] += ys @ bc
+                strip_out.extend(acc)
+            rows.append(torch.cat(strip_out, dim=1))
+    z = torch.cat(rows, dim=0)[: pack.hr_shape[0], : pack.hr_shape[1]]
+    return torch.clamp(hr + float(scale) * z, float(clip[0]),
+                       float(clip[1]))
+
+
+def _k3_inputs(pack, seed):
+    rng = np.random.default_rng(seed)
+    hr = torch.as_tensor(rng.uniform(0, 255, pack.hr_shape),
+                         dtype=torch.float32)
+    lr = torch.as_tensor(rng.uniform(0, 255, (pack.n_frames,)
+                                     + pack.lr_shape), dtype=torch.float32)
+    return hr, TF.fused_fwd_err_reference(pack, hr, lr)
+
+
+@pytest.mark.parametrize("reps", [1, 3])
+@pytest.mark.parametrize("layout", ["port", "wide", "ragged"])
+def test_k3_strip_emulation_matches_plain(layout, reps):
+    """The f32 K3's strip loop, emulated in plain torch, against the plain
+    version at the card test's layouts, with the tiles per strip that the
+    launch takes: the port's pack walks 4 tiles per strip over a union
+    window of 3 tile strides plus one window; the wide pack's strips of 4
+    would span one window, but at its 88-row and 152-column windows they
+    do not fit in shared memory, so it takes 1."""
+    from test_torch_fused_ibp_cuda import LAYOUTS, SHIFTS as CARD_SHIFTS
+
+    lr_shape, block, tile = LAYOUTS[layout]
+    frames = TC._host_solve_matrices(JC.make_gaussian_psf(), CARD_SHIFTS,
+                                     FACTOR, lr_shape, reps=reps)["frames"]
+    pack = TF.FusedIBP.build(frames, "cpu", block=block, tile=tile)
+    win_c = pack.b_bandc.shape[-2]
+    assert pack.strip_union(TF.K3_STRIP_TILES) <= 4 * win_c
+    assert pack.strip_tiles() == (1 if layout == "wide" else 4)
+    hr, err = _k3_inputs(pack, 5)
+    scale = 0.5 / pack.n_frames
+    want = TF.fused_bwd_update_reference(pack, hr, err, scale, CLIP)
+    got = _emulate_k3_strips(pack, hr, err, scale, CLIP)
+    assert got.shape == want.shape
+    assert (got - want).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("case, strip", [("unaligned", 1),
+                                         ("unaligned_odd_k", 1),
+                                         ("frames8_terms2", 4)])
+def test_k3_strip_emulation_random_packs(case, strip):
+    """Random packs of the card test, whose column windows start in no
+    order, off 16 bytes, and overhang the input: where a strip's union runs
+    wider than 4 windows the launch takes 1 tile per strip; frames8_terms2's
+    fits in 4 windows, with 16 plan groups."""
+    from test_torch_fused_ibp_cuda import RANDOM_CASES, _random_pack
+
+    n, lr_shape, wins, aligned, terms = RANDOM_CASES[case]
+    pack = _random_pack(torch.device("cpu"), torch.float32, n, lr_shape,
+                        wins, aligned, 21, terms)
+    sc = pack.b_sc.numpy()
+    assert (np.diff(sc) < 0).any()  # not monotone
+    wide = pack.strip_union(TF.K3_STRIP_TILES) > TF.K3_STRIP_TILES * wins[3]
+    assert wide == (strip == 1)
+    assert pack.strip_tiles() == strip
+    assert pack.strip_union(1) == wins[3]
+    hr, err = _k3_inputs(pack, 6)
+    scale = 0.5 / pack.n_frames
+    want = TF.fused_bwd_update_reference(pack, hr, err, scale, CLIP)
+    got = _emulate_k3_strips(pack, hr, err, scale, CLIP)
+    assert (got - want).abs().max().item() <= 1e-4
+
+
+def _solve_pack(name, block=TF.ROWS, tile=TF.COLS):
+    from enph459_super_resolution_tpu_torch.data.sessions import (
+        CENTER_SHIFT_FILES, CORNER_SHIFTS_LR)
+
+    shifts, lr_shape, reps = {
+        "mono": (tuple(s for _, s in CENTER_SHIFT_FILES), (1536, 2048), 1),
+        "rgb": (CORNER_SHIFTS_LR, (768, 1024), 4)}[name]
+    frames = TC._host_solve_matrices(JC.make_gaussian_psf(), shifts, FACTOR,
+                                     lr_shape, reps=reps)["frames"]
+    return TF.FusedIBP.build(frames, "cpu", block=block, tile=tile)
+
+
+@pytest.mark.parametrize("name, block, tile, strip, stages", [
+    ("mono", 64, 64, 4, 2), ("rgb", 64, 64, 4, 3),
+    ("mono", 128, 256, 1, 2), ("rgb", 128, 256, 4, 2)],
+    ids=["mono", "rgb", "mono_tpu", "rgb_tpu"])
+def test_k3_f32_layout_fits_the_solve_packs(name, block, tile, strip,
+                                             stages):
+    """The f32 K3's shared memory fits ``SMEM_LIMIT`` at the mono and 4-rep
+    rgb packs, the port's and the TPU's 128-row / 256-column ones, with
+    every row operator, frame and column operator resident in one set; the
+    mono pack's strips of 4 tiles span a union of 176 LR columns.  The TPU
+    mono pack's strips of 4 do not fit, so its launch, and ``strip_tiles``,
+    take 1.  K2 f32's size is today's formula."""
+    pack = _solve_pack(name, block, tile)
+    _, n_u, _, win_r = pack.b_bandr.shape
+    _, n_c, win_c, _ = pack.b_bandc.shape
+    if (name, block) == ("mono", 64):
+        assert (win_r, win_c, n_u, n_c) == (72, 80, 3, 3)
+        assert pack.strip_union(4) == 176 and pack.strip_tiles() == 4
+    union = pack.strip_union(TF.K3_STRIP_TILES)
+    assert union <= TF.K3_STRIP_TILES * win_c
+    nt, res, frames, cops, n_stages, total = TF._k3_f32_layout(
+        n_u, pack.n_frames, n_c, win_r, win_c, union)
+    assert (nt, n_stages) == (strip, stages)
+    assert pack.strip_tiles() == nt
+    assert (res, frames, cops) == (n_u, pack.n_frames, n_c)
+    assert total <= TF.SMEM_LIMIT
+    assert TF._smem_bytes(torch.float32, win_r, n_c, pack.n_frames, False,
+                          n_u=n_u, win_c=win_c, union_w=union) == total
+    fwin_r = pack.f_bandr.shape[-1]
+    assert TF._smem_bytes(torch.float32, fwin_r, pack.f_bandc.shape[1], 1,
+                          True) == 4 * (fwin_r * 68 + fwin_r * 32 + 32 * 68
+                                        + 32 * 64)
+
+
+def test_k3_f32_layout_falls_back_to_one_group_per_set():
+    """Where every row operator and column operator of the plan does not
+    fit (a full-rank 7x7 PSF at the mono pack's windows: 21 of each), the
+    layout keeps one plan group per set, which always fits."""
+    got = TF._k3_f32_layout(21, 5, 21, 72, 80, 176)
+    assert got[:5] == (4, 1, 1, 1, 4) and got[-1] <= TF.SMEM_LIMIT
+    assert TF._k3_f32_layout(3, 5, 3, 72, 80, 400)[0] == 1
+
+
 def test_dedup_matches_jax_terms():
     """Operators equal by content pack once: the center+4 shifts need three
     row and three column operators, as in the JAX pack."""

@@ -8,9 +8,11 @@ tests/test_torch_fused_ibp_cuda.py -q``.  Cases: the port's 64-row /
 tile, which each CUDA block covers in parts) and a ragged one (LR 96x200:
 a short last row block and column tile), one and three reps stacked along
 H, float32 and bfloat16 bands; the 4-rep rgb pack at full size; a rank-2
-PSF, whose frames sum terms from two row operators; random packs with row
+PSF, whose frames sum terms from two row operators, and a full-rank one
+(more operators than the f32 K3 holds at once); random packs with row
 and column windows that are no multiple of 16, run past the input and start
-at unaligned columns, with 1 to 8 frames; for K1, the bf16 bands on the
+at unaligned columns, with 1 to 8 frames, and LR rows that are no
+multiple of 16 bytes; for K1, the bf16 bands on the
 edge cases of the f32 kernel's tests (short blocks inside rep-tiled
 operators, windows that overhang the input, widths off the 128-column
 tile).
@@ -163,6 +165,23 @@ def test_fused_kernels_rank2_psf(cuda, layout, dtype):
     _check_pair(pack, hr, lr, dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_fused_kernels_full_rank_psf(cuda, dtype):
+    """A random 7x7 PSF of full rank: 7 terms a frame, 21 row and 21 column
+    operators, more than the f32 K3 holds at once, so it walks the plan one
+    group at a time (and the bf16 kernels their row operators in sets)."""
+    rng = np.random.default_rng(3)
+    psf = rng.uniform(0.1, 1.0, (7, 7))
+    psf = (psf / psf.sum()).astype(np.float32)
+    assert len(psf_separable_factors(psf)[0]) == 7
+    frames = _host_solve_matrices(psf, SHIFTS, 2, (128, 256))["frames"]
+    pack = FusedIBP.build(frames, cuda).astype_bands(dtype)
+    assert pack.b_bandr.shape[1] > 7 and len(pack.b_entries) == 28
+    hr, lr = _inputs(cuda, pack, dtype, 14)
+    _check_pair(pack, hr, lr, dtype)
+
+
 def _random_side(rng, n_blocks, blk, n_ops, n_in, win, aligned):
     """Window starts and random bands for one side of a random pack: starts
     at any column (or multiples of 8), the last window running past the
@@ -218,6 +237,9 @@ RANDOM_CASES = {
     "frames8": (8, (128, 256), (40, 56, 24, 40), True, 1),
     "frames8_terms2": (8, (64, 128), (40, 56, 24, 40), False, 2),
     "one_frame": (1, (64, 128), (24, 24, 16, 16), False, 1),
+    # LR rows of 130 floats, no multiple of 16 bytes: the f32 K3 copies by
+    # cp.async where its tensor maps cannot describe err
+    "cols_off_16b": (3, (64, 130), (24, 40, 16, 24), False, 1),
 }
 
 
