@@ -36,7 +36,10 @@ or of the JAX package.  Phases, one JSON line each:
    kernel's time (per call, and on the device alone as for K1), the plain
    version's and the unfused step's (K1 + the column applies) times and the
    bound; for the f32 K3 also its tiles per CUDA block (``strip_tiles``)
-   and the LR columns of the widest strip's union window (``union_w``).
+   and the LR columns of the widest strip's union window (``union_w``);
+   for the f32 K2 the layout its launch takes (threads, ring stages, one
+   set or one plan group per set) and the FLOPs it performs, with their
+   share of the f32 peak.
    No single PyTorch call computes K2 or K3, so they have no library
    time.
 4. mono_cal_target at full size -- a synthetic center+4 session (5 x
@@ -532,20 +535,62 @@ def _unfused_bwd(torch, ops, hr, err, step):
     return torch.clamp(hr + step * corr / len(ops), 0.0, 255.0)
 
 
+def _nonzeros(op) -> int:
+    """Nonzero entries of an op's band blocks."""
+    return sum(int(np.count_nonzero(b)) for b in op.blocks)
+
+
 def _fused_work(frames, pack):
-    """True band FLOPs of K2 and K3 on this pack's shapes: K2 forms each
-    unique row operator's product of hr once and each term's column product;
-    K3 forms every term's row and column products of its frame's error."""
+    """The FLOPs K2 and K3 need on this pack: a multiply-add for each
+    nonzero band entry and each column (row) it meets.  K2 forms each
+    unique row operator's product of hr once and each term's column
+    product; K3 forms every term's row and column products of its frame's
+    error.  The packs' 64-row tiles over whole windows perform more (the
+    f32 K2's count is :func:`_k2_f32_flops`)."""
     from enph459_super_resolution_tpu_torch.ops.fused_ibp import _dedup
 
     h, w = pack.lr_shape
     hh, hw = pack.hr_shape
     rows_u, _ = _dedup([op for fr in frames for op in fr[0]])
-    k2 = (sum(2.0 * _true_window(op) * hw for op in rows_u)
-          + sum(2.0 * _true_window(op) * h for fr in frames for op in fr[1]))
-    k3 = sum(2.0 * _true_window(r) * w + 2.0 * _true_window(c) * hh
+    k2 = (sum(2.0 * _nonzeros(op) * hw for op in rows_u)
+          + sum(2.0 * _nonzeros(op) * h for fr in frames for op in fr[1]))
+    k3 = sum(2.0 * _nonzeros(r) * w + 2.0 * _nonzeros(c) * hh
              for fr in frames for r, c in zip(fr[2], fr[3]))
     return k2, k3
+
+
+def _k2_f32_flops(pack):
+    """FLOPs the f32 K2 performs on this pack (csrc/fused_ibp.cu
+    ``fused_fwd_f32_kernel``), as (row products, column products): per
+    64 x 64 tile and 16-column chunk of its window (from a multiple of 4),
+    each plan group's row product over each 32-row half's nonzero k range
+    (from a multiple of 4, as its loop steps), and each term's column
+    product in each 32-column half where the column operator's chunk is
+    nonzero."""
+    import torch
+
+    ks = 16
+    bandr, bandc = pack.f_bandr.float().cpu(), pack.f_bandc.float().cpu()
+    nb, _, blk, win_r = bandr.shape
+    nt, n_c, win_c, tile = bandc.shape
+    sc = pack.f_sc.cpu().tolist()
+    chunks = [-(-(s % 4 + win_c) // ks) for s in sc]
+    nz = bandr.reshape(nb, -1, blk // 32, 32, win_r).ne(0).any(dim=3)
+    k = torch.arange(win_r)
+    lo = torch.where(nz, k, win_r).amin(dim=-1)
+    hi = torch.where(nz, k, -1).amax(dim=-1)
+    klen = torch.where(hi >= 0, (hi // 4 - lo // 4 + 1) * 4, 0)
+    row = (2.0 * 32 * ks * float(klen[:, list(pack.f_groups)].sum())
+           * sum(chunks) * (tile // 64))
+    col = 0.0
+    for j in range(nt):
+        pad = torch.zeros((n_c, chunks[j] * ks, tile))
+        pad[:, sc[j] % 4: sc[j] % 4 + win_c] = bandc[j]
+        live = pad.reshape(n_c, chunks[j], ks, tile // 32, 32).ne(0).any(
+            dim=4).any(dim=2).sum(dim=(1, 2))            # [n_c]
+        col += sum(float(live[c]) for _, _, c in pack.f_entries)
+    col *= 2.0 * 64 * 32 * ks * nb * (blk // 64)
+    return row, col
 
 
 def phase_fused(torch, f32_peak, host):
@@ -631,17 +676,29 @@ def phase_fused(torch, f32_peak, host):
                     # launch takes, LR columns of the widest strip's union
                     row["strip_tiles"] = pack.strip_tiles()
                     row["union_w"] = pack.strip_union(row["strip_tiles"])
+                if kernel == "fused_fwd" and not low:
+                    # what the f32 K2's launch takes, and the FLOPs it
+                    # performs (k ranges and zero chunks skipped) as a
+                    # share of the f32 peak
+                    row["layout"] = pack.k2_f32_layout()
+                    k2_row, k2_col = _k2_f32_flops(pack)
+                    row["kernel_gflop"] = (k2_row + k2_col) / 1e9
+                    row["kernel_gflop_row_col"] = [k2_row / 1e9,
+                                                   k2_col / 1e9]
+                    row["kernel_share_of_peak"] = (
+                        (k2_row + k2_col) / (kernel_ms * 1e-3) / peak)
                 emit(row)
                 rows.append(row)
         del pack32, hr, lr32
     return rows
 
 
-def phase_profile(torch, run_solve, what: str):
+def phase_profile(torch, run_solve, what: str, by_kernel=None):
     """Where one warm full-size solve spends the card's time: device time
     by kernel (torch.profiler) against the same solve's wall clock, whose
     ratio is the device's idle share (the profiler's own host overhead is
-    in that wall time)."""
+    in that wall time).  ``by_kernel``, a dict, receives every kernel's
+    device ms by name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -659,6 +716,8 @@ def phase_profile(torch, run_solve, what: str):
                and not getattr(e, "is_user_annotation", False)
                and e.self_device_time_total > 0]
     busy_us = sum(t for _, t, _ in kernels)
+    if by_kernel is not None:
+        by_kernel.update((k, t / 1e3) for k, t, _ in kernels)
     top = sorted(kernels, key=lambda k: -k[1])[:12]
     busy_s = busy_us / 1e6
     emit({"phase": "profile", "what": what,

@@ -50,10 +50,29 @@
 //   conflict-free.  The epilogue of a whole tile issues every load of lr
 //   or hr before its first store.
 // * float32 bands run strict f32 (CUDA-core FMA only: no tensor cores, no
-//   TF32, no --use_fast_math).  K2: the row operator's block as f32 in shared
-//   memory, the input window streamed in 32-column chunks, each unique row
-//   product formed once per chunk into shared memory and consumed at once
-//   by every column operator that uses it, per-output 4x4 register tiles.
+//   TF32, no --use_fast_math).  K2 (fused_fwd_f32_kernel<NOUT>): a CUDA
+//   block owns one 64 x 64 tile, every frame, with two warps per frame
+//   (64 * NOUT threads), one per 32-column half, each lane on K1's 8 x 8
+//   f32 register tile (64 accumulators whatever NOUT is).  Every row
+//   operator stays resident, k-major, with its nonzero k range per 32-row
+//   half.  The tile's column window, from a multiple of 4, is walked in
+//   16-column chunks, one step per chunk and one more: step s forms every
+//   plan group's row product bandr[u] @ hr of chunk s into one of two
+//   k-major buffers, each 32-row half by one warp on 4 x 4 tiles over its
+//   k range, while every warp adds its frame's terms ys_u @ bandc[c] of
+//   chunk s - 1 from the other buffer, skipping a column operator whose
+//   chunk is zero in its 32 columns; so the warps without a row task (4 of
+//   10 at the mono pack) do their column products meanwhile, and one
+//   barrier a step parts the buffers.  The row tasks go first to the
+//   warps of the SM sub-partitions (warp % 4) that hold fewer of the
+//   block's warps, which measured faster at the mono pack than dealing
+//   them in warp order.  Each step's hr chunk and column-operator chunks
+//   come through K3's ring of TMA boxes on mbarriers (by cp.async where hr's
+//   rows are off 16 bytes); a plan whose row operators do not all fit is
+//   walked one group per set, the frames' sums live across sets.  ptxas:
+//   163 registers at NOUT 5 and 6, 203 at 4, 181 at 3, 203 at 1 and 2, no
+//   spill; 128 at NOUT 7 and 8 (448 and 512 threads), which spill (204 /
+//   360 bytes stored): slower, not wrong.
 //   K3 (fused_bwd_f32_kernel): a CUDA block owns a strip of NT = 4 adjacent
 //   64-column tiles of one 64-row strip and walks the union of their column
 //   windows (176 LR columns at the mono pack, against 4 x 80 windows) in
@@ -78,18 +97,27 @@
 //   NT 4, 178 at 1, no spill.
 //
 // What bounds it.  At LR 1536x2048 -> HR 3072x4096 with 5 frames and 3
-// unique row operators, K2's dense-window work is ~2 * 7.3 G FMA.  K3's
-// true work is 18.3 GFLOP: 6.1 of row products, formed once over the LR
-// width, and 12.2 of column products.  The f32 K3 forms 6.2 GFLOP of row
-// products over the strips' union windows (less after the k ranges) and
-// 10.1 of column products over the tiles' windows (less after the zero
-// chunks).  In f32 both are bound by the CUDA cores (SMs x 128 FMA/clk,
-// ~67 TFLOP/s at 700 W: 0.27-0.30 ms), not by the ~0.2 GB each launch
-// moves.  The f32 K3 reaches about 40 % of that bound.  Its 220 KB of
-// shared memory leave one CTA, eight warps, per SM.  The row product's
-// 4 x 4 tiles need one 16-byte shared load per 8 FMA, and the column
-// product idles the warps of tiles whose window misses the chunk, about
-// half of them (PERF.md gives the breakdown).  With bf16 bands the bound
+// unique row operators, the bands' nonzeros need 2.7 GFLOP in K2 and 6.5
+// in K3: at ~67 TFLOP/s of f32 FMA (SMs x 128 FMA/clk at 700 W) 0.040
+// and 0.097 ms, against ~0.18 GB each launch moves at 3.35 TB/s (0.055
+// ms), so the least time K2 could take is its bytes' and K3's its
+// operations' (chip_smoke.py _fused_work).  Dense 64-row tiles over whole
+// windows perform more.  K2's dense-window work is ~2 * 7.3 G FMA; the
+// f32 K2 performs 8.9 GFLOP of it: 5.4 of row products over the k ranges
+// of 11 chunks of 16 columns, 3.5 of column products after the zero
+// chunks (chip_smoke.py _k2_f32_flops; the loop it replaced did 15.6 over
+// 32-column chunks padded to 192 and whole windows).  It is held by the
+// CUDA cores' FMA issue: 10 warps, one CTA per SM (209 KB of shared
+// memory), row products 16 FMA per 2 shared loads, column products 64
+// per 4, about a quarter of the f32 peak on that work and a tenth of its
+// bound (PERF.md).  The f32 K3 forms 6.2 GFLOP of row products over the
+// strips' union windows (less after the k ranges) and 10.1 of column
+// products over the tiles' windows (less after the zero chunks), about
+// 15 % of its bound.  Its 220 KB of shared memory leave one CTA, eight
+// warps, per SM.  The row product's 4 x 4 tiles need one 16-byte shared
+// load per 8 FMA, and the column product idles the warps of tiles whose
+// window misses the chunk, about half of them (PERF.md gives the
+// breakdown).  With bf16 bands the bound
 // is the bytes (hr, lr and err, ~117 MB for K2 and ~135 MB for K3 at
 // 3.35 TB/s: 0.035-0.040 ms); the products (~24 GFLOP each, with the
 // padded windows and K2's doubled row product) take about as long at a
@@ -113,8 +141,6 @@ namespace {
 
 constexpr int BM = 64;        // output rows per CUDA block (fused_ibp.py ROWS)
 constexpr int TN = 64;        // output columns per CUDA block (fused_ibp.py COLS)
-constexpr int KC = 32;        // intermediate columns per chunk
-constexpr int BMP = BM + 4;   // padded row stride of the k-major tiles
 constexpr int THREADS = 256;  // 16 x 16 threads
 constexpr int MAX_OUT = 8;    // frames of one K2 launch (fused_ibp.py MAX_FRAMES)
 constexpr int MAX_SMEM = 232448;
@@ -134,120 +160,6 @@ struct Ops {
   int src_rows, src_cols;  // one input image
 };
 
-size_t smem_bytes(int win_r) {
-  return sizeof(float) *
-         (static_cast<size_t>(win_r) * BMP + static_cast<size_t>(win_r) * KC +
-          KC * BMP + KC * TN);
-}
-
-// Accumulates into acc[o] (rows zr..zr+3, columns zc..zc+3 of this block's
-// tile, zr = (tid / 16) * 4, zc = (tid % 16) * 4) every term of the plan.
-template <typename BandT, typename SrcT, int NOUT>
-__device__ __forceinline__ void mainloop(float (&acc)[NOUT][4][4],
-                                         const Ops<BandT>& p,
-                                         const SrcT* __restrict__ src, int b,
-                                         int r_off, int j, int c_off) {
-  extern __shared__ __align__(16) float smem[];
-  float* br_s = smem;                      // [win_r][BMP] row op, k-major
-  float* xs_s = br_s + p.win_r * BMP;      // [win_r][KC] input chunk
-  float* ys_s = xs_s + p.win_r * KC;       // [KC][BMP] row product, k-major
-  float* bc_s = ys_s + KC * BMP;           // [KC][TN] column op chunk
-
-  const int tid = threadIdx.x;
-  const int yr = (tid % 16) * 4;  // row product: rows yr..yr+3
-  const int yc = (tid / 16) * 2;  //              columns yc, yc+1
-  const int zr = (tid / 16) * 4;
-  const int zc = (tid % 16) * 4;
-  const int row0 = p.sr[b];
-  const int col0 = p.sc[j];
-  const size_t plane = static_cast<size_t>(p.src_rows) * p.src_cols;
-
-  for (int g = 0; g < p.n_groups; ++g) {
-    const int in = p.groups[4 * g];
-    const int u = p.groups[4 * g + 1];
-    const int q0 = p.groups[4 * g + 2];
-    const int q1 = p.groups[4 * g + 3];
-    const BandT* br = p.bandr +
-        ((static_cast<size_t>(b) * p.n_u + u) * p.blk_r + r_off) * p.win_r;
-    const SrcT* x = src + in * plane;
-
-    __syncthreads();  // the previous group's readers of br_s are done
-    for (int e = tid; e < BM * p.win_r; e += THREADS) {
-      const int r = e / p.win_r;
-      const int k = e % p.win_r;
-      br_s[k * BMP + r] = br[static_cast<size_t>(r) * p.win_r + k];
-    }
-
-    for (int kc = 0; kc < p.win_c; kc += KC) {
-      for (int e = tid; e < p.win_r * KC; e += THREADS) {
-        const int k = e / KC;
-        const int cc = e % KC;
-        const int xr = row0 + k;
-        const int xc = col0 + kc + cc;
-        xs_s[e] = (xr < p.src_rows && xc < p.src_cols && kc + cc < p.win_c)
-                      ? x[static_cast<size_t>(xr) * p.src_cols + xc]
-                      : 0.f;
-      }
-      __syncthreads();  // br_s and xs_s ready
-
-      float y[4][2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) y[i][0] = y[i][1] = 0.f;
-      for (int k = 0; k < p.win_r; ++k) {
-        const float4 a = *reinterpret_cast<const float4*>(&br_s[k * BMP + yr]);
-        const float2 v = *reinterpret_cast<const float2*>(&xs_s[k * KC + yc]);
-        const float av[4] = {a.x, a.y, a.z, a.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          y[i][0] = fmaf(av[i], v.x, y[i][0]);
-          y[i][1] = fmaf(av[i], v.y, y[i][1]);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < 2; ++c)
-          ys_s[(yc + c) * BMP + yr + i] = y[i][c];
-      __syncthreads();  // ys_s ready; xs_s free
-
-      for (int q = q0; q < q1; ++q) {
-        const int cop = p.cons[2 * q];
-        const int o = p.cons[2 * q + 1];
-        const BandT* bc = p.bandc +
-            ((static_cast<size_t>(j) * p.n_c + cop) * p.win_c + kc) * p.tile_c +
-            c_off;
-        for (int e = tid; e < KC * TN; e += THREADS) {
-          const int cc = e / TN;
-          const int n = e % TN;
-          bc_s[e] = kc + cc < p.win_c
-                        ? bc[static_cast<size_t>(cc) * p.tile_c + n]
-                        : 0.f;
-        }
-        __syncthreads();  // bc_s ready
-#pragma unroll
-        for (int oo = 0; oo < NOUT; ++oo) {
-          if (oo != o) continue;
-#pragma unroll 8
-          for (int cc = 0; cc < KC; ++cc) {
-            const float4 a =
-                *reinterpret_cast<const float4*>(&ys_s[cc * BMP + zr]);
-            const float4 v =
-                *reinterpret_cast<const float4*>(&bc_s[cc * TN + zc]);
-            const float av[4] = {a.x, a.y, a.z, a.w};
-            const float vv[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-#pragma unroll
-              for (int c = 0; c < 4; ++c)
-                acc[oo][i][c] = fmaf(av[i], vv[c], acc[oo][i][c]);
-          }
-        }
-        __syncthreads();  // bc_s (and, after the last, ys_s) free
-      }
-    }
-  }
-}
-
 // Which row block, row offset, column tile and column offset this CUDA
 // block owns.
 struct Tile {
@@ -261,36 +173,6 @@ __device__ __forceinline__ Tile tile_of(int blk_r, int tile_c) {
           (static_cast<int>(blockIdx.y) % per_blk) * BM,
           static_cast<int>(blockIdx.x) / per_tile,
           (static_cast<int>(blockIdx.x) % per_tile) * TN};
-}
-
-template <typename BandT, int NOUT>
-__global__ void __launch_bounds__(THREADS)
-fused_fwd_kernel(Ops<BandT> p, const float* __restrict__ hr,
-                 const BandT* __restrict__ lr, BandT* __restrict__ err, int h,
-                 int w) {
-  const Tile t = tile_of(p.blk_r, p.tile_c);
-  float acc[NOUT][4][4];
-#pragma unroll
-  for (int o = 0; o < NOUT; ++o)
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[o][i][c] = 0.f;
-  mainloop<BandT, float, NOUT>(acc, p, hr, t.b, t.r_off, t.j, t.c_off);
-
-  const int tid = threadIdx.x;
-  const int row = t.b * p.blk_r + t.r_off + (tid / 16) * 4;
-  const int col = t.j * p.tile_c + t.c_off + (tid % 16) * 4;
-#pragma unroll
-  for (int o = 0; o < NOUT; ++o)
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        if (row + i >= h || col + c >= w) continue;
-        const size_t at = (static_cast<size_t>(o) * h + row + i) * w + col + c;
-        err[at] = lr[at] - acc[o][i][c];
-      }
 }
 
 // ---------------------------------------------------------------------------
@@ -906,7 +788,8 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
 // (row stride ds) by cp.async, for packs the TMA cannot describe; rows
 // outside [rlo, rhi) and columns >= vcols are zero-filled.  `vec`: 16-byte
 // copies (n, vcols and off0 + r * ss multiples of 4, src 16-byte aligned);
-// otherwise 4-byte ones.
+// otherwise 4-byte ones.  NTH: the block's threads, which share the copies.
+template <int NTH = THREADS>
 __device__ __forceinline__ void k3_stage(float* dst, int ds, const float* src,
                                          ptrdiff_t off0, ptrdiff_t ss,
                                          int rows, int n, int rlo, int rhi,
@@ -914,7 +797,7 @@ __device__ __forceinline__ void k3_stage(float* dst, int ds, const float* src,
   using namespace mma_bf16;
   if (vec) {
     const int per = n / 4;
-    for (int e = threadIdx.x; e < rows * per; e += THREADS) {
+    for (int e = threadIdx.x; e < rows * per; e += NTH) {
       const int r = e / per;
       const int c = (e - r * per) * 4;
       const bool in = r >= rlo && r < rhi && c < vcols;
@@ -922,7 +805,7 @@ __device__ __forceinline__ void k3_stage(float* dst, int ds, const float* src,
                  in ? 16 : 0);
     }
   } else {
-    for (int e = threadIdx.x; e < rows * n; e += THREADS) {
+    for (int e = threadIdx.x; e < rows * n; e += NTH) {
       const int r = e / n;
       const int c = e - r * n;
       const bool in = r >= rlo && r < rhi && c < vcols;
@@ -1327,6 +1210,389 @@ fused_bwd_f32_kernel(Ops<float> p, K3Layout L, int n_cols,
 }
 
 // ---------------------------------------------------------------------------
+// float32 bands, K2: one 64 x 64 tile per CUDA block, two warps per frame
+// ---------------------------------------------------------------------------
+
+// Shared-memory layout of the f32 K2, byte offsets from the base: the
+// resident row operators [res][kr][YS] (k-major, the window padded to 4);
+// two buffers of one chunk's row products [2][ysn][KS][YS] (k-major); the
+// ring of `stages` stages (128-byte aligned), each one step's hr chunk
+// [kr][KS] and the chunks of `cops` column operators [cops][KS][TN] of the
+// step before; one mbarrier per stage; then each resident op's nonzero k
+// range for either half of its rows, the set's terms (row-product slot,
+// column-op slot) frame by frame, each resident op's row op and each
+// frame's first term.  `whole`: every row op, plan group and column op in
+// one set (res = n_u, ysn = n_groups, cops = n_c); else one plan group per
+// set (res = ysn = 1, cops = its consumers, at most max_cons).  The host
+// picks `whole` and `stages` (ops/fused_ibp.py _k2_f32_layout, the one
+// copy of that policy) and passes its byte count, which the launch checks
+// against this one.
+struct K2Layout {
+  int kr, res, ysn, cops, terms, stages, whole;
+  size_t ys, ring, stage, bar, tab, total;
+};
+
+__host__ __device__ inline K2Layout k2_layout(bool whole, int stages, int n_u,
+                                              int n_groups, int n_c,
+                                              int max_cons, int win_r) {
+  K2Layout l;
+  l.kr = round4(win_r);
+  l.whole = whole;
+  l.res = whole ? n_u : 1;
+  l.ysn = whole ? n_groups : 1;
+  l.cops = whole ? n_c : max_cons;
+  l.terms = whole ? n_groups * max_cons : max_cons;
+  l.stages = stages;
+  l.ys = sizeof(float) * l.res * l.kr * YS;
+  l.ring = round128(l.ys + sizeof(float) * 2 * l.ysn * KS * YS);
+  l.stage = sizeof(float) * (l.kr * KS + l.cops * K3_BOX);
+  l.bar = l.ring + stages * l.stage;
+  l.tab = l.bar + sizeof(uint64_t) * stages;
+  l.total = l.tab + sizeof(int2) * (2 * l.res + l.terms) +
+            sizeof(int) * (l.res + MAX_OUT + 1);
+  return l;
+}
+
+// One CUDA block: the 64 x 64 LR output tile of row block b (rows r_off..)
+// and column tile j (columns c_off..), every frame; 2 * NOUT warps.  Warps
+// 2f and 2f + 1 own frame f's tile, one 32-column half each: lane (rg, cg)
+// sums rows rg*4..+3 and 32 + rg*4..+3, columns cg*8..+7 of the half, on
+// K1's 8 x 8 register tile.  The tile's column window, from sc[j] moved
+// back to a multiple of 4 (16 bytes of hr), is walked in chunks of KS hr
+// columns, one step per chunk and one more.  Step s forms every plan
+// group's row product bandr[u] @ hr of chunk s into ys[s % 2], each task
+// (a group's 32-row half) by one warp on 4 x 4 register tiles over the k
+// range where that half of the operator is nonzero; the tasks go first to
+// the warps of the SM sub-partitions (warp % 4) that hold fewer of the
+// block's warps.  In the same step every warp adds, for each of its
+// frame's terms (u, c), ys_u @ bandc[c] of chunk s - 1 from the other
+// buffer, unless bandc[c]'s chunk is zero in the warp's columns: the warps
+// without a row task do their column products while the others form the
+// row products, and one barrier a step separates the two buffers.  Every
+// row operator stays resident, k-major; warp 0 asks the TMA for each
+// step's hr chunk and column-operator chunks (tensor maps tm_hr [1, H, W]
+// and tm_bc [nt, n_c, win_c, tile_c], `tma`), or every thread copies its
+// share by cp.async where hr's rows are off 16 bytes; rows and columns
+// past hr or the window land as zeros.  The plan is walked in one set
+// (L.whole) or one group at a time; the accumulators live across sets.
+template <int NOUT>
+__global__ void __launch_bounds__(64 * NOUT, 1)
+fused_fwd_f32_kernel(Ops<float> p, K2Layout L, const float* __restrict__ hr,
+                     const float* __restrict__ lr, float* __restrict__ err,
+                     int h, int w, int tma,
+                     const __grid_constant__ CUtensorMap tm_hr,
+                     const __grid_constant__ CUtensorMap tm_bc) {
+  constexpr int NW = 2 * NOUT;
+  constexpr int NTH = 32 * NW;
+  extern __shared__ __align__(128) char k2_smem[];
+  float* a_s = reinterpret_cast<float*>(k2_smem);
+  float* ys_s = reinterpret_cast<float*>(k2_smem + L.ys);
+  char* ring = k2_smem + L.ring;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(k2_smem + L.bar);
+  int2* krange = reinterpret_cast<int2*>(k2_smem + L.tab);  // [res][2]
+  int2* term = krange + 2 * L.res;                          // [terms]
+  int* u_of = reinterpret_cast<int*>(term + L.terms);       // [res]
+  int* first = u_of + L.res;                                // [NOUT + 1]
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const Tile t = tile_of(p.blk_r, p.tile_c);
+  const int row0 = p.sr[t.b];
+  const int vrows = min(L.kr, p.src_rows - row0);
+  const int u0 = p.sc[t.j] / 4 * 4;  // the window from 16 bytes of hr
+  const int off = p.sc[t.j] - u0;
+  const int n_chunks = (off + p.win_c + KS - 1) / KS;
+  const int n_steps = n_chunks + 1;
+  const int4* groups = reinterpret_cast<const int4*>(p.groups);
+
+  // this warp's frame and columns; lane (rg, cg) of its 8 x 8 tile, and
+  // (rg, cg) = (rows rg*4..+3, columns cg*4..+3) of a row-product task
+  const int f = warp >> 1;
+  const int wcol = (warp & 1) * 32;
+  const int rg = lane >> 2;
+  const int cg = lane & 3;
+  int rank = 0;  // this warp's place in the order the row tasks are dealt
+#pragma unroll
+  for (int v = 0; v < NW; ++v) {
+    const int nv = (NW - (v & 3) + 3) / 4, nw = (NW - (warp & 3) + 3) / 4;
+    rank += nv < nw || (nv == nw && v < warp);
+  }
+
+  const bool x_vec = (reinterpret_cast<uintptr_t>(hr) & 15) == 0 &&
+                     p.src_cols % 4 == 0;
+  const bool bc_vec = (reinterpret_cast<uintptr_t>(p.bandc) & 15) == 0;
+
+  if (tma && tid == 0) {
+    for (int i = 0; i < L.stages; ++i) mbar_init(bars + i);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                     reinterpret_cast<uint64_t>(&tm_hr))
+                 : "memory");
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                     reinterpret_cast<uint64_t>(&tm_bc))
+                 : "memory");
+  }
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[i][c] = 0.f;
+
+  int seq = 0;  // steps loaded before this set: their stages and phases
+  for (int g0 = 0, g1; g0 < p.n_groups; g0 = g1) {
+    g1 = L.whole ? p.n_groups : g0 + 1;
+    const int4 gs = groups[g0];
+    // column-op slots: every column op, or the consumers of group g0
+    const int n_cs = L.whole ? p.n_c : gs.w - gs.z;
+    __syncthreads();  // every reader of the previous set is done
+    if (tid < 2 * L.res) krange[tid] = make_int2(L.kr, -1);
+    if (tid < L.res) u_of[tid] = L.whole ? tid : gs.y;
+    if (tid == 0) {
+      // the set's terms, frame by frame: (row-product slot, column-op slot)
+      int n = 0;
+      for (int o = 0; o < NOUT; ++o) {
+        first[o] = n;
+        for (int g = g0; g < g1; ++g) {
+          const int4 gr = groups[g];
+          for (int q = gr.z; q < gr.w; ++q)
+            if (p.cons[2 * q + 1] == o)
+              term[n++] = L.whole ? make_int2(g, p.cons[2 * q])
+                                  : make_int2(0, q - gr.z);
+        }
+      }
+      first[NOUT] = n;
+    }
+    __syncthreads();
+
+    // step s: hr chunk s (s < n_chunks) and every column-op slot's chunk
+    // s - 1 (s >= 1) into the stage of step s
+    auto load_step = [&](int s) {
+      const int sq = seq + s;
+      float* xs = reinterpret_cast<float*>(ring + (sq % L.stages) * L.stage);
+      float* bc = xs + L.kr * KS;
+      const bool has_x = s < n_chunks;
+      const bool has_c = s >= 1;
+      const int col = u0 + s * KS;          // first hr column of chunk s
+      const int kc = (s - 1) * KS - off;    // chunk s - 1's first window row
+      if (tma) {
+        // warp 0, one box per lane
+        if (warp != 0) return;
+        uint64_t* bar = bars + sq % L.stages;
+        if (lane == 0)
+          mbar_expect_tx(bar, sizeof(float) * ((has_x ? L.kr * KS : 0) +
+                                               (has_c ? n_cs * K3_BOX : 0)));
+        if (has_x && lane == 0) tma_load_3d(xs, &tm_hr, col, row0, 0, bar);
+        if (has_c)
+          for (int i = lane; i < n_cs; i += 32)
+            tma_load_4d(bc + i * K3_BOX, &tm_bc, t.c_off, kc,
+                        L.whole ? i : p.cons[2 * (gs.z + i)], t.j, bar);
+        return;
+      }
+      if (has_x)
+        k3_stage<NTH>(xs, KS, hr,
+                      static_cast<ptrdiff_t>(row0) * p.src_cols + col,
+                      p.src_cols, L.kr, KS, 0, vrows, p.src_cols - col,
+                      x_vec);
+      if (has_c)
+        for (int i = 0; i < n_cs; ++i) {
+          const int c = L.whole ? i : p.cons[2 * (gs.z + i)];
+          k3_stage<NTH>(bc + i * K3_BOX, TN, p.bandc,
+                        ((static_cast<ptrdiff_t>(t.j) * p.n_c + c) * p.win_c +
+                         kc) * p.tile_c + t.c_off,
+                        p.tile_c, KS, TN, -kc, p.win_c - kc, TN, bc_vec);
+        }
+    };
+
+    if (tma && warp == 0) fence_proxy_async();
+#pragma unroll 1
+    for (int s = 0; s < L.stages - 1; ++s) {
+      if (s < n_steps) load_step(s);
+      mma_bf16::cp_async_commit();
+    }
+
+    // the set's row operators, resident and k-major, by coalesced loads
+    // sixteen at a time per thread, and the k range where either half of
+    // each one's rows is nonzero; hr is finite, so the zeros skipped later
+    // add nothing
+    for (int s = 0; s < L.res; ++s) {
+      const float* src =
+          p.bandr + ((static_cast<size_t>(t.b) * p.n_u + u_of[s]) * p.blk_r +
+                     t.r_off) * p.win_r;
+      float* dst = a_s + s * L.kr * YS;
+      const int n = BM * L.kr;
+      int lo0 = L.kr, hi0 = -1, lo1 = L.kr, hi1 = -1;  // rows < 32, >= 32
+      for (int e0 = tid; e0 < n; e0 += 16 * NTH) {
+        float v[16];
+#pragma unroll
+        for (int i = 0; i < 16; ++i) {
+          const int e = e0 + i * NTH;
+          const int r = e / L.kr;
+          const int k = e - r * L.kr;
+          v[i] = e < n && k < p.win_r ? src[r * p.win_r + k] : 0.f;
+        }
+#pragma unroll
+        for (int i = 0; i < 16; ++i) {
+          const int e = e0 + i * NTH;
+          if (e >= n) break;
+          const int r = e / L.kr;
+          const int k = e - r * L.kr;
+          dst[k * YS + r] = v[i];
+          if (v[i] != 0.f && r < 32) {
+            lo0 = min(lo0, k);
+            hi0 = max(hi0, k);
+          } else if (v[i] != 0.f) {
+            lo1 = min(lo1, k);
+            hi1 = max(hi1, k);
+          }
+        }
+      }
+      lo0 = __reduce_min_sync(0xffffffffu, lo0);
+      hi0 = __reduce_max_sync(0xffffffffu, hi0);
+      lo1 = __reduce_min_sync(0xffffffffu, lo1);
+      hi1 = __reduce_max_sync(0xffffffffu, hi1);
+      if (lane == 0) {
+        atomicMin(&krange[2 * s].x, lo0);
+        atomicMax(&krange[2 * s].y, hi0);
+        atomicMin(&krange[2 * s + 1].x, lo1);
+        atomicMax(&krange[2 * s + 1].y, hi1);
+      }
+    }
+
+    const int n_tasks = 2 * (g1 - g0);
+#pragma unroll 1
+    for (int s = 0; s < n_steps; ++s) {
+      const int sq = seq + s;
+      if (tma)
+        mbar_wait(bars + sq % L.stages, (sq / L.stages) & 1);
+      else
+        cp_async_wait_n(L.stages - 2);
+      // step s has landed for every thread, and every thread is done with
+      // step s - 1: its stage is refilled next, and the row products of
+      // chunk s go where those of chunk s - 2 were read
+      __syncthreads();
+      if (tma && warp == 0) fence_proxy_async();
+      if (s + L.stages - 1 < n_steps) load_step(s + L.stages - 1);
+      mma_bf16::cp_async_commit();
+      const float* xs =
+          reinterpret_cast<const float*>(ring + (sq % L.stages) * L.stage);
+      const float* bc = xs + L.kr * KS;
+
+      if (s < n_chunks) {
+        // ys[s % 2][slot] = bandr[u] @ hr over chunk s, one half's rows
+        float* yb = ys_s + (s & 1) * L.ysn * KS * YS;
+#pragma unroll 1
+        for (int task = rank; task < n_tasks; task += NW) {
+          const int gi = task >> 1;
+          const int half = task & 1;
+          const int us = L.whole ? groups[g0 + gi].y : 0;
+          const int2 kr = krange[2 * us + half];
+          const float* a = a_s + us * L.kr * YS + half * 32 + rg * 4;
+          const float* x = xs + cg * 4;
+          float y[4][4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) y[i][c] = 0.f;
+#pragma unroll 2
+          for (int k = kr.x / 4 * 4; k <= kr.y; k += 4) {
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) {
+              const float4 av =
+                  *reinterpret_cast<const float4*>(a + (k + kk) * YS);
+              const float4 xv =
+                  *reinterpret_cast<const float4*>(x + (k + kk) * KS);
+              const float ai[4] = {av.x, av.y, av.z, av.w};
+              const float xc[4] = {xv.x, xv.y, xv.z, xv.w};
+#pragma unroll
+              for (int i = 0; i < 4; ++i)
+#pragma unroll
+                for (int c = 0; c < 4; ++c)
+                  y[i][c] = fmaf(ai[i], xc[c], y[i][c]);
+            }
+          }
+          float* yo = yb + gi * KS * YS + half * 32 + rg * 4;
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            *reinterpret_cast<float4*>(yo + (cg * 4 + c) * YS) =
+                make_float4(y[0][c], y[1][c], y[2][c], y[3][c]);
+        }
+      }
+
+      if (s >= 1) {
+        // acc += ys[(s - 1) % 2][slot] @ bandc[c] of chunk s - 1, for each
+        // of this frame's terms, on this warp's 32 columns
+        const float* yb = ys_s + ((s - 1) & 1) * L.ysn * KS * YS;
+#pragma unroll 1
+        for (int i = first[f]; i < first[f + 1]; ++i) {
+          const int2 tm = term[i];
+          const float* cb = bc + tm.y * K3_BOX + wcol;
+          bool any = false;
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const int e = lane + 32 * r;  // float4 e of the 16 x 32 block
+            const float4 v =
+                *reinterpret_cast<const float4*>(cb + (e >> 3) * TN +
+                                                 (e & 7) * 4);
+            any |= v.x != 0.f || v.y != 0.f || v.z != 0.f || v.w != 0.f;
+          }
+          if (!__any_sync(0xffffffffu, any)) continue;  // adds zeros
+          const float* ya = yb + tm.x * KS * YS + rg * 4;
+          cb += cg * 8;
+#pragma unroll
+          for (int kc = 0; kc < KS; ++kc) {
+            const float4 a0 = *reinterpret_cast<const float4*>(ya + kc * YS);
+            const float4 a1 =
+                *reinterpret_cast<const float4*>(ya + kc * YS + 32);
+            const float4 b0 = *reinterpret_cast<const float4*>(cb + kc * TN);
+            const float4 b1 =
+                *reinterpret_cast<const float4*>(cb + kc * TN + 4);
+            const float av[8] = {a0.x, a0.y, a0.z, a0.w,
+                                 a1.x, a1.y, a1.z, a1.w};
+            const float bv[8] = {b0.x, b0.y, b0.z, b0.w,
+                                 b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+            for (int r = 0; r < 8; ++r)
+#pragma unroll
+              for (int c = 0; c < 8; ++c)
+                acc[r][c] = fmaf(av[r], bv[c], acc[r][c]);
+          }
+        }
+      }
+    }
+    seq += n_steps;
+  }
+
+  // err = lr - z over the lane's 8 x 8 tile
+  const int orow = t.b * p.blk_r + t.r_off;
+  const int ocol = t.j * p.tile_c + t.c_off + wcol + cg * 8;
+  const size_t plane = static_cast<size_t>(h) * w;
+  const bool vec = w % 4 == 0 && ((reinterpret_cast<uintptr_t>(lr) |
+                                   reinterpret_cast<uintptr_t>(err)) & 15) == 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int row = orow + (i / 4) * 32 + rg * 4 + i % 4;
+    if (row >= h) continue;
+#pragma unroll
+    for (int v = 0; v < 2; ++v) {
+      const int col = ocol + 4 * v;
+      const size_t at = f * plane + static_cast<size_t>(row) * w + col;
+      if (vec && col + 3 < w) {
+        const float4 l = *reinterpret_cast<const float4*>(lr + at);
+        *reinterpret_cast<float4*>(err + at) =
+            make_float4(l.x - acc[i][4 * v], l.y - acc[i][4 * v + 1],
+                        l.z - acc[i][4 * v + 2], l.w - acc[i][4 * v + 3]);
+      } else {
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          if (col + c < w) err[at + c] = lr[at + c] - acc[i][4 * v + c];
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
 
@@ -1342,24 +1608,21 @@ int check(const Ops<BandT>& p, int nb, int nt, size_t smem, dim3* grid) {
 }
 
 template <typename Kernel, typename... Args>
-int launch(Kernel kernel, dim3 grid, size_t smem, cudaStream_t s,
-           Args... args) {
+int launch_n(Kernel kernel, dim3 grid, int threads, size_t smem,
+             cudaStream_t s, Args... args) {
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
 
-  kernel<<<grid, THREADS, smem, s>>>(args...);
+  kernel<<<grid, threads, smem, s>>>(args...);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int NOUT>
-int launch_fwd(const Ops<float>& p, int, dim3 grid, size_t smem,
-               cudaStream_t s, const float* hr, const void* lr, void* err,
-               int h, int w) {
-  return launch(fused_fwd_kernel<float, NOUT>, grid, smem, s, p, hr,
-                static_cast<const float*>(lr), static_cast<float*>(err), h,
-                w);
+template <typename Kernel, typename... Args>
+int launch(Kernel kernel, dim3 grid, size_t smem, cudaStream_t s,
+           Args... args) {
+  return launch_n(kernel, grid, THREADS, smem, s, args...);
 }
 
 // bf16: grid.x counts CUDA blocks of FWD_TILES tiles
@@ -1374,20 +1637,14 @@ int launch_fwd(const Ops<bf16>& p, int n_res, dim3 grid, size_t smem,
                 static_cast<const bf16*>(lr), static_cast<bf16*>(err), h, w);
 }
 
-template <typename BandT>
-int fwd(const Ops<BandT>& p, int nb, int nt, const float* hr, const void* lr,
-        void* err, int n_frames, int h, int w, void* stream) {
-  size_t smem = smem_bytes(p.win_r);
-  int n_res = 0;
-  if constexpr (std::is_same<BandT, bf16>::value) {
-    n_res = resident_ops(p.n_u, p.win_r, p.n_c, 1, true, FWD_STAGES);
-    if (n_res == 0) return static_cast<int>(cudaErrorInvalidValue);
-    smem = layout(n_res, p.win_r, p.n_c, 1, true, FWD_STAGES).total;
-  }
+int fwd(const Ops<bf16>& p, int nb, int nt, const float* hr, const void* lr,
+        void* err, int n_frames, int h, int w, cudaStream_t s) {
+  const int n_res = resident_ops(p.n_u, p.win_r, p.n_c, 1, true, FWD_STAGES);
+  if (n_res == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = layout(n_res, p.win_r, p.n_c, 1, true, FWD_STAGES).total;
   dim3 grid;
   const int rc = check(p, nb, nt, smem, &grid);
   if (rc != 0) return rc;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (n_frames) {
     case 1: return launch_fwd<1>(p, n_res, grid, smem, s, hr, lr, err, h, w);
     case 2: return launch_fwd<2>(p, n_res, grid, smem, s, hr, lr, err, h, w);
@@ -1449,6 +1706,61 @@ int tensor_map(CUtensorMap* m, const void* base, int rank,
          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return -1;
   return 1;
+}
+
+template <int NOUT>
+int launch_fwd_f32(const Ops<float>& p, const K2Layout& L, dim3 grid,
+                   cudaStream_t s, const float* hr, const float* lr,
+                   float* err, int h, int w, int tma,
+                   const CUtensorMap& tm_hr, const CUtensorMap& tm_bc) {
+  return launch_n(fused_fwd_f32_kernel<NOUT>, grid, 64 * NOUT, L.total, s, p,
+                  L, hr, lr, err, h, w, tma, tm_hr, tm_bc);
+}
+
+// f32: the host's layout (whole, stages, smem bytes), two warps per frame;
+// refused unless k2_layout gives the same bytes and they fit.  hr rows the
+// TMA cannot describe come by cp.async.
+int fwd(const Ops<float>& p, int nb, int nt, const float* hr, const void* lr,
+        void* err, int n_frames, int h, int w, int max_cons, int whole,
+        int stages, size_t smem, cudaStream_t s) {
+  if (n_frames <= 0 || max_cons <= 0 || stages < 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const K2Layout L = k2_layout(whole != 0, stages, p.n_u, p.n_groups, p.n_c,
+                               max_cons, p.win_r);
+  if (L.total != smem || L.total > static_cast<size_t>(MAX_SMEM))
+    return static_cast<int>(cudaErrorInvalidValue);
+  dim3 grid;
+  const int rc = check(p, nb, nt, L.total, &grid);
+  if (rc != 0) return rc;
+  // hr [1, H, W] in boxes of [kr][KS], bandc [nt, n_c, win_c, tile_c] in
+  // boxes of [KS][TN]
+  CUtensorMap tm_hr{}, tm_bc{};
+  const cuuint64_t hr_dims[3] = {static_cast<cuuint64_t>(p.src_cols),
+                                 static_cast<cuuint64_t>(p.src_rows), 1};
+  const cuuint32_t hr_box[3] = {KS, static_cast<cuuint32_t>(L.kr), 1};
+  const cuuint64_t bc_dims[4] = {static_cast<cuuint64_t>(p.tile_c),
+                                 static_cast<cuuint64_t>(p.win_c),
+                                 static_cast<cuuint64_t>(p.n_c),
+                                 static_cast<cuuint64_t>(nt)};
+  const cuuint32_t bc_box[4] = {TN, KS, 1, 1};
+  int tma = tensor_map(&tm_hr, hr, 3, hr_dims, hr_box);
+  if (tma == 1) tma = tensor_map(&tm_bc, p.bandc, 4, bc_dims, bc_box);
+  if (tma < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const float* l = static_cast<const float*>(lr);
+  float* e = static_cast<float*>(err);
+  switch (n_frames) {
+    case 1: return launch_fwd_f32<1>(p, L, grid, s, hr, l, e, h, w, tma, tm_hr, tm_bc);
+    case 2: return launch_fwd_f32<2>(p, L, grid, s, hr, l, e, h, w, tma, tm_hr, tm_bc);
+    case 3: return launch_fwd_f32<3>(p, L, grid, s, hr, l, e, h, w, tma, tm_hr, tm_bc);
+    case 4: return launch_fwd_f32<4>(p, L, grid, s, hr, l, e, h, w, tma, tm_hr, tm_bc);
+    case 5: return launch_fwd_f32<5>(p, L, grid, s, hr, l, e, h, w, tma, tm_hr, tm_bc);
+    case 6: return launch_fwd_f32<6>(p, L, grid, s, hr, l, e, h, w, tma, tm_hr, tm_bc);
+    case 7: return launch_fwd_f32<7>(p, L, grid, s, hr, l, e, h, w, tma, tm_hr, tm_bc);
+    case MAX_OUT:
+      return launch_fwd_f32<MAX_OUT>(p, L, grid, s, hr, l, e, h, w, tma, tm_hr,
+                                     tm_bc);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // f32: K3_NT adjacent 64-column tiles per CUDA block where the widest
@@ -1526,8 +1838,12 @@ Ops<BandT> ops(const void* bandr, const int* sr, int n_u, int blk_r,
 // K2 on `stream`.  `bf16` selects the band type, which is also the type of
 // lr [n_frames, h, w] and err (same shape); hr [H, W] is float32.  The row
 // pack's sr/bandr hold nb blocks of blk_r rows, the column pack's sc/bandc
-// nt tiles of tile_c columns.  Returns cudaGetLastError() after the launch
-// (0 on success), or cudaErrorInvalidValue for operands it does not take.
+// nt tiles of tile_c columns.  float32 bands: max_cons, the most consumers
+// of one plan group, and the layout the host picked, whole (the plan in
+// one set, else one group per set), stages and its smem bytes (the bf16
+// kernel ignores the four).  Returns
+// cudaGetLastError() after the launch (0 on success), or
+// cudaErrorInvalidValue for operands it does not take.
 extern "C" int fused_fwd_launch(int bf16, const void* bandr, const int* sr,
                                 int nb, int n_u, int blk_r, int win_r,
                                 const void* bandc, const int* sc, int nt,
@@ -1535,14 +1851,18 @@ extern "C" int fused_fwd_launch(int bf16, const void* bandr, const int* sr,
                                 const int* groups, int n_groups,
                                 const int* cons, const float* hr, int H,
                                 int W, const void* lr, void* err,
-                                int n_frames, int h, int w, void* stream) {
+                                int n_frames, int h, int w, int max_cons,
+                                int whole, int stages, size_t smem,
+                                void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
     return fwd(ops<__nv_bfloat16>(bandr, sr, n_u, blk_r, win_r, bandc, sc, n_c,
                                   win_c, tile_c, groups, n_groups, cons, H, W),
-               nb, nt, hr, lr, err, n_frames, h, w, stream);
+               nb, nt, hr, lr, err, n_frames, h, w, s);
   return fwd(ops<float>(bandr, sr, n_u, blk_r, win_r, bandc, sc, n_c, win_c,
                         tile_c, groups, n_groups, cons, H, W),
-             nb, nt, hr, lr, err, n_frames, h, w, stream);
+             nb, nt, hr, lr, err, n_frames, h, w, max_cons, whole, stages,
+             smem, s);
 }
 
 // K3 on `stream`: err [n_frames, h, w] of the band type, hr and out [H, W]

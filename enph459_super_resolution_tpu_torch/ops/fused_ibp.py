@@ -14,8 +14,9 @@ kernels of ``csrc/fused_ibp.cu``.  This module holds
   allows, so the kernels stage them with 16-byte copies;
 * :class:`FusedIBP` (``build``, ``fwd_err``, ``bwd_update``,
   ``astype_bands``; ``strip_tiles`` and ``strip_union``, the column tiles
-  one CUDA block of the f32 K3 walks over their union window) and
-  :func:`fused_eligible`;
+  one CUDA block of the f32 K3 walks over their union window;
+  ``k2_f32_layout``, the threads, ring and sets of the f32 K2's launch)
+  and :func:`fused_eligible`;
 * the wrappers :func:`fused_fwd_err` / :func:`fused_bwd_update`, which
   launch the kernel for CUDA tensors (counting launches per band type in
   ``.launches`` and ``.launches_bf16``), run the plain version for CPU
@@ -56,16 +57,20 @@ MAX_FRAMES = 8  # frames of one K2 launch (MAX_OUT in csrc/fused_ibp.cu)
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
 # The f32 K3: adjacent 64-column tiles per CUDA block (a strip), row
 # products formed at once, chunk width and deepest ring (K3_NT, K3_UNITS,
-# KS and K3_MAX_STAGES in csrc/fused_ibp.cu).
+# KS and K3_MAX_STAGES in csrc/fused_ibp.cu); the f32 K2's deepest ring,
+# over chunks of the same width (picked here only: its launch takes the
+# layout of :func:`_k2_f32_layout`).
 K3_STRIP_TILES = 4
 K3_UNITS = 4
 K3_CHUNK = 16
 K3_MAX_STAGES = 4
+K2_MAX_STAGES = 4
 
 # C signatures in csrc/fused_ibp.cu (pointers and the stream as c_void_p).
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _PACK = [_I, _P, _P, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I, _P, _I, _P]
-_FWD_ARGTYPES = _PACK + [_P, _I, _I, _P, _P, _I, _I, _I, _P]
+_FWD_ARGTYPES = _PACK + [_P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I,
+                         ctypes.c_size_t, _P]
 _BWD_ARGTYPES = _PACK + [_P, _I, _I, _I, _P, _P, _I, _I, _F, _F, _F, _I, _P]
 
 
@@ -188,6 +193,9 @@ class FusedIBP:
         self.hr_shape = tuple(int(v) for v in hr_shape)
         self._plans: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
         self._unions: Dict[int, int] = {}
+        self._max_cons = max(sum(u == g for _, u, _ in self.f_entries)
+                             for g in self.f_groups)
+        self._k2 = None
 
     @classmethod
     def build(cls, frames, device, block: int = ROWS,
@@ -287,6 +295,20 @@ class FusedIBP:
         else 1 (the tile's own window), so no pack forms more of a row
         product than one window per tile."""
         return _k3_layout(self)[0]
+
+    def max_consumers(self) -> int:
+        """The most terms of K2's plan that share one row operator (the
+        consumers of one plan group)."""
+        return self._max_cons
+
+    def k2_f32_layout(self) -> Dict[str, object]:
+        """What the f32 K2's launch takes (:func:`_k2_layout`): its threads
+        (two warps per frame), ring stages, whether the plan runs in one
+        set or one group per set, and its shared memory in bytes."""
+        whole, _, _, _, stages, total = _k2_layout(self)
+        return {"threads": 64 * self.n_frames, "stages": stages,
+                "sets": "one" if whole else "one group per set",
+                "smem_bytes": total}
 
     def plan(self, kind: str) -> Tuple[torch.Tensor, torch.Tensor]:
         """The kernels' term lists on the pack's device: ``groups[g] =
@@ -427,13 +449,59 @@ def _k3_f32_layout(n_u: int, n_frames: int, n_c: int, win_r: int,
     return t, res, frames, cops, stages, total
 
 
+def _k2_f32_layout(n_u: int, n_groups: int, n_c: int, max_cons: int,
+                   win_r: int):
+    """The shared-memory layout the f32 K2's launch takes: ``(whole,
+    resident row ops, row-product slots, column-op slots, stages,
+    bytes)``; where none fits ``SMEM_LIMIT``, the least of them (which
+    the launch refuses).  The launch is given ``whole``, ``stages`` and
+    the bytes, and refuses unless ``k2_layout`` in csrc/fused_ibp.cu
+    carves the same bytes.
+
+    First with every row operator, plan group and column operator in one
+    set (``whole``), else one plan group per set (one row operator and
+    row-product slot, ``max_cons`` column-op slots), the deepest ring of
+    ``K2_MAX_STAGES`` down to 2 that fits: the resident row operators
+    (k-major, the window padded to 4, rows padded by 4), two buffers of
+    one chunk's row products, each stage (128-byte aligned) one hr chunk
+    and one chunk of every column-op slot, and its mbarrier, each resident
+    row operator's nonzero k range for either half of its rows, the set's
+    terms, its row ops and each frame's first term."""
+    kr = _round_up(win_r, 4)
+    for whole in (True, False):
+        res, ysn, cops = (n_u, n_groups, n_c) if whole else (1, 1, max_cons)
+        terms = n_groups * max_cons if whole else max_cons
+        for stages in range(K2_MAX_STAGES, 1, -1):
+            ring = _round_up(4 * (res * kr + 2 * ysn * K3_CHUNK)
+                             * (ROWS + 4), 128)
+            total = (ring + stages * (4 * (kr + cops * COLS) * K3_CHUNK + 8)
+                     + 8 * (2 * res + terms)
+                     + 4 * (res + MAX_FRAMES + 1))
+            if total <= SMEM_LIMIT:
+                return whole, res, ysn, cops, stages, total
+    return whole, res, ysn, cops, stages, total
+
+
+def _k2_layout(pack: FusedIBP):
+    """:func:`_k2_f32_layout` of the pack's forward operators and plan,
+    worked out once per pack."""
+    if pack._k2 is None:
+        pack._k2 = _k2_f32_layout(pack.f_bandr.shape[1], len(pack.f_groups),
+                                  pack.f_bandc.shape[1],
+                                  pack.max_consumers(),
+                                  pack.f_bandr.shape[-1])
+    return pack._k2
+
+
 def _smem_bytes(band_dtype: torch.dtype, win_r: int, n_c: int, n_src: int,
                 f32_src: bool, n_u: int = 1, win_c: int = 0,
-                union_w: int = 0) -> int:
-    """The least dynamic shared memory one CUDA block needs (``smem_bytes``,
-    ``layout`` and ``k3_layout`` in csrc/fused_ibp.cu).  float32 bands, K2
-    (``f32_src``): the row operator's block, an input chunk, a row-product
-    chunk and a column-operator chunk, all f32.  float32 bands, K3: the
+                union_w: int = 0, n_groups: int = 1,
+                max_cons: int = 1) -> int:
+    """The least dynamic shared memory one CUDA block needs (``layout``,
+    ``k2_layout`` and ``k3_layout`` in csrc/fused_ibp.cu).  float32 bands,
+    K2 (``f32_src``): the layout of :func:`_k2_f32_layout` for ``n_u`` row
+    ops, ``n_groups`` plan groups of at most ``max_cons`` consumers and
+    ``n_c`` column ops.  float32 bands, K3: the
     layout of :func:`_k3_f32_layout` for ``n_u`` row ops, ``n_src`` frames
     and ``n_c`` column ops, ``union_w`` the widest strip's union window.
     bfloat16
@@ -444,8 +512,7 @@ def _smem_bytes(band_dtype: torch.dtype, win_r: int, n_c: int, n_src: int,
     more bf16 buffer; K3 three, one bf16 chunk per frame, each stage at
     least the 16 KB through which its two warp sets add their sums."""
     if band_dtype == torch.float32 and f32_src:
-        return 4 * (win_r * (ROWS + 4) + win_r * 32 + 32 * (ROWS + 4)
-                    + 32 * COLS)
+        return _k2_f32_layout(n_u, n_groups, n_c, max_cons, win_r)[-1]
     if band_dtype == torch.float32:
         return _k3_f32_layout(n_u, n_src, n_c, win_r, win_c,
                               union_w or win_c)[-1]
@@ -482,10 +549,13 @@ def _pack_args(pack: FusedIBP, prefix: str, kind: str) -> list:
     if blk % ROWS or tile % COLS:
         raise ValueError(f"row block {blk} / column tile {tile} is no "
                          f"multiple of {ROWS} / {COLS}")
-    union = _k3_union(pack) if kind == "bwd" else 0
-    smem = _smem_bytes(bandr.dtype, win_r, n_c,
-                       1 if kind == "fwd" else pack.n_frames, kind == "fwd",
-                       n_u=n_u, win_c=win_c, union_w=union)
+    if kind == "fwd":
+        smem = _smem_bytes(bandr.dtype, win_r, n_c, 1, True, n_u=n_u,
+                           n_groups=len(pack.f_groups),
+                           max_cons=pack.max_consumers())
+    else:
+        smem = _smem_bytes(bandr.dtype, win_r, n_c, pack.n_frames, False,
+                           n_u=n_u, win_c=win_c, union_w=_k3_union(pack))
     if smem > SMEM_LIMIT:
         raise ValueError(f"row window {win_r} needs {smem} B of shared "
                          f"memory, more than {SMEM_LIMIT}")
@@ -530,9 +600,12 @@ def fused_fwd_err(pack: FusedIBP, hr: torch.Tensor,
     hr, lr_stack = hr.contiguous(), lr_stack.contiguous()
     err = torch.empty_like(lr_stack)
     h, w = pack.lr_shape
+    # the f32 kernel's layout, as picked here (the bf16 kernel ignores it)
+    whole, _, _, _, stages, smem = _k2_layout(pack)
     rc = launch(*_pack_args(pack, "f", "fwd"), hr.data_ptr(),
                 pack.hr_shape[0], pack.hr_shape[1], lr_stack.data_ptr(),
-                err.data_ptr(), pack.n_frames, h, w,
+                err.data_ptr(), pack.n_frames, h, w, pack.max_consumers(),
+                int(whole), stages, smem,
                 torch.cuda.current_stream(hr.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused_fwd kernel launch failed: CUDA error {rc}")

@@ -352,7 +352,7 @@ def test_k3_f32_layout_fits_the_solve_packs(name, block, tile, strip,
     every row operator, frame and column operator resident in one set; the
     mono pack's strips of 4 tiles span a union of 176 LR columns.  The TPU
     mono pack's strips of 4 do not fit, so its launch, and ``strip_tiles``,
-    take 1.  K2 f32's size is today's formula."""
+    take 1.  K2 f32's size is its own layout's (:func:`_k2_f32_layout`)."""
     pack = _solve_pack(name, block, tile)
     _, n_u, _, win_r = pack.b_bandr.shape
     _, n_c, win_c, _ = pack.b_bandc.shape
@@ -370,9 +370,10 @@ def test_k3_f32_layout_fits_the_solve_packs(name, block, tile, strip,
     assert TF._smem_bytes(torch.float32, win_r, n_c, pack.n_frames, False,
                           n_u=n_u, win_c=win_c, union_w=union) == total
     fwin_r = pack.f_bandr.shape[-1]
-    assert TF._smem_bytes(torch.float32, fwin_r, pack.f_bandc.shape[1], 1,
-                          True) == 4 * (fwin_r * 68 + fwin_r * 32 + 32 * 68
-                                        + 32 * 64)
+    assert TF._smem_bytes(
+        torch.float32, fwin_r, pack.f_bandc.shape[1], 1, True,
+        n_u=pack.f_bandr.shape[1], n_groups=len(pack.f_groups),
+        max_cons=pack.max_consumers()) == TF._k2_layout(pack)[-1]
 
 
 def test_k3_f32_layout_falls_back_to_one_group_per_set():
@@ -382,6 +383,158 @@ def test_k3_f32_layout_falls_back_to_one_group_per_set():
     got = TF._k3_f32_layout(21, 5, 21, 72, 80, 176)
     assert got[:5] == (4, 1, 1, 1, 4) and got[-1] <= TF.SMEM_LIMIT
     assert TF._k3_f32_layout(3, 5, 3, 72, 80, 400)[0] == 1
+
+
+def _emulate_k2_f32(pack, hr, lr):
+    """Plain-torch emulation of the f32 K2's loop (csrc/fused_ibp.cu
+    ``fused_fwd_f32_kernel``): per 64 x 64 output tile, the tile's column
+    window, its start moved back to a multiple of 4 as the kernel's TMA
+    boxes, walked in 16-column chunks of hr, zero-filled past the image;
+    per chunk, each plan group's row product ``bandr[u] @ hr`` formed once,
+    each 32-row half over the k range where that half of the operator is
+    nonzero; then each frame's terms ``ys_u @ bandc[c]`` added, bandc's
+    rows outside the window zero-filled, each 32-column half skipped where
+    its chunk of bandc[c] is zero.  The plan is walked in one set or one
+    group per set, as :func:`_k2_layout` picks.  Row product first, then
+    column product."""
+    _, _, blk, win_r = pack.f_bandr.shape
+    _, _, win_c, tile = pack.f_bandc.shape
+    ks, rows, cols = TF.K3_CHUNK, TF.ROWS, TF.COLS
+    per_tile = tile // cols
+    whole = TF._k2_layout(pack)[0]
+    kr = -(-win_r // 4) * 4
+    hh, hw = pack.hr_shape
+    sr, sc = pack.f_sr.tolist(), pack.f_sc.tolist()
+    groups, cons = (a.tolist() for a in pack.plan("fwd"))
+    sets = ([groups] if whole else [[g] for g in groups])
+    pad = torch.zeros((hh + kr, hw + win_c + 2 * ks))
+    pad[:hh, :hw] = hr
+    z = torch.zeros((pack.n_frames, len(sr) * blk,
+                     pack.f_bandc.shape[0] * tile))
+    for b in range(len(sr)):
+        for r_off in range(0, blk, rows):
+            ops = {}
+            for _, u, _, _ in groups:
+                a = torch.zeros((rows, kr))
+                a[:, :win_r] = pack.f_bandr[b, u, r_off: r_off + rows]
+                halves = []
+                for half in (a[:32], a[32:]):
+                    nz = torch.nonzero(half.any(dim=0)).flatten().tolist()
+                    lo, hi = (nz[0] // 4 * 4, nz[-1] + 1) if nz else (0, 0)
+                    halves.append((half[:, lo:hi], lo, hi))
+                ops[u] = halves
+            for jt in range(pack.f_bandc.shape[0] * per_tile):
+                j, c_off = jt // per_tile, (jt % per_tile) * cols
+                u0 = sc[j] // 4 * 4
+                off = sc[j] - u0
+                acc = torch.zeros((pack.n_frames, rows, cols))
+                for gset in sets:
+                    for t in range(-(-(off + win_c) // ks)):
+                        x = pad[sr[b]: sr[b] + kr,
+                                u0 + t * ks: u0 + (t + 1) * ks]
+                        k = t * ks - off + torch.arange(ks)
+                        inside = (k >= 0) & (k < win_c)
+                        for _, u, q0, q1 in gset:
+                            ys = torch.cat([a @ x[lo:hi]
+                                            for a, lo, hi in ops[u]])
+                            for c, f in cons[q0:q1]:
+                                bc = torch.zeros((ks, cols))
+                                bc[inside] = pack.f_bandc[
+                                    j, c, k[inside], c_off: c_off + cols]
+                                for h0 in (0, 32):
+                                    part = bc[:, h0: h0 + 32]
+                                    if bool(part.any()):
+                                        acc[f, :, h0: h0 + 32] += ys @ part
+                z[:, b * blk + r_off: b * blk + r_off + rows,
+                  jt * cols: (jt + 1) * cols] = acc
+    h, w = pack.lr_shape
+    return lr - z[:, :h, :w]
+
+
+def _k2_inputs(pack, seed):
+    rng = np.random.default_rng(seed)
+    hr = torch.as_tensor(rng.uniform(0, 255, pack.hr_shape),
+                         dtype=torch.float32)
+    lr = torch.as_tensor(rng.uniform(0, 255, (pack.n_frames,)
+                                     + pack.lr_shape), dtype=torch.float32)
+    return hr, lr
+
+
+@pytest.mark.parametrize("reps", [1, 3])
+@pytest.mark.parametrize("layout", ["port", "wide", "ragged"])
+def test_k2_f32_emulation_matches_plain(layout, reps):
+    """The f32 K2's loop, emulated in plain torch, against the plain version
+    at the card test's layouts, with the sets the launch takes: the plan in
+    one set, except at the wide pack, whose 3 row operators over 256-row
+    windows (209 KB) do not fit together, so it walks one plan group per
+    set."""
+    from test_torch_fused_ibp_cuda import LAYOUTS, SHIFTS as CARD_SHIFTS
+
+    lr_shape, block, tile = LAYOUTS[layout]
+    frames = TC._host_solve_matrices(JC.make_gaussian_psf(), CARD_SHIFTS,
+                                     FACTOR, lr_shape, reps=reps)["frames"]
+    pack = TF.FusedIBP.build(frames, "cpu", block=block, tile=tile)
+    assert pack.k2_f32_layout()["sets"] == (
+        "one group per set" if layout == "wide" else "one")
+    hr, lr = _k2_inputs(pack, 8)
+    want = TF.fused_fwd_err_reference(pack, hr, lr)
+    got = _emulate_k2_f32(pack, hr, lr)
+    assert got.shape == want.shape
+    assert (got - want).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("case", ["unaligned_odd_k", "frames8_terms2",
+                                  "one_frame", "hr_cols_off_16b",
+                                  "row_window_over_256"])
+def test_k2_f32_emulation_random_packs(case):
+    """Random packs of the card test: column windows that start off 16
+    bytes and in no order, windows that overhang the input, 8 frames of two
+    terms each, one frame, HR rows off 16 bytes, and row windows past 256
+    rows, which take one plan group per set."""
+    from test_torch_fused_ibp_cuda import (RANDOM_CASES, STAGING_CASES,
+                                           _random_pack)
+
+    n, lr_shape, wins, aligned, terms = {**RANDOM_CASES,
+                                         **STAGING_CASES}[case]
+    pack = _random_pack(torch.device("cpu"), torch.float32, n, lr_shape,
+                        wins, aligned, 21, terms)
+    assert pack.k2_f32_layout()["threads"] == 64 * n
+    hr, lr = _k2_inputs(pack, 9)
+    want = TF.fused_fwd_err_reference(pack, hr, lr)
+    got = _emulate_k2_f32(pack, hr, lr)
+    assert (got - want).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("name, block, tile, whole, stages", [
+    ("mono", 64, 64, True, 2), ("rgb", 64, 64, True, 4),
+    ("mono", 128, 256, False, 4)], ids=["mono", "rgb", "mono_tpu"])
+def test_k2_f32_layout_fits_the_solve_packs(name, block, tile, whole,
+                                            stages):
+    """The f32 K2's shared memory fits ``SMEM_LIMIT`` at the mono and 4-rep
+    rgb packs with every row operator, plan group and column operator
+    resident in one set and a ring of at least 2 stages; the TPU's mono
+    pack (296-row windows, 3 row operators: 241 KB resident) takes one
+    plan group per set.  ``_smem_bytes`` gives the same size."""
+    pack = _solve_pack(name, block, tile)
+    n_u, win_r = pack.f_bandr.shape[1], pack.f_bandr.shape[-1]
+    n_c = pack.f_bandc.shape[1]
+    got = TF._k2_f32_layout(n_u, len(pack.f_groups), n_c,
+                            pack.max_consumers(), win_r)
+    assert got == TF._k2_layout(pack)
+    is_whole, res, ysn, cops, n_stages, total = got
+    assert (is_whole, n_stages) == (whole, stages)
+    if whole:
+        assert (res, ysn, cops) == (n_u, len(pack.f_groups), n_c)
+    else:
+        assert (res, ysn, cops) == (1, 1, pack.max_consumers())
+    assert total <= TF.SMEM_LIMIT
+    assert TF._smem_bytes(torch.float32, win_r, n_c, 1, True, n_u=n_u,
+                          n_groups=len(pack.f_groups),
+                          max_cons=pack.max_consumers()) == total
+    assert pack.k2_f32_layout() == {
+        "threads": 64 * pack.n_frames, "stages": stages,
+        "sets": "one" if whole else "one group per set",
+        "smem_bytes": total}
 
 
 def test_dedup_matches_jax_terms():

@@ -256,6 +256,33 @@ def test_fused_kernels_random_packs(cuda, case, dtype):
     _check_pair(pack, hr, lr, dtype)
 
 
+# Packs whose hr the f32 K2's tensor map cannot describe, so its chunks
+# come by cp.async: HR rows of 258 floats, no multiple of 16 bytes; and
+# forward row windows of 300 rows, past the TMA's 256-row box (which also
+# take one plan group per set).  (frames, LR shape, windows, aligned
+# column starts, terms per frame), as RANDOM_CASES.
+STAGING_CASES = {
+    "hr_cols_off_16b": (3, (64, 129), (24, 40, 16, 24), False, 1),
+    "row_window_over_256": (3, (192, 128), (300, 40, 24, 40), False, 1),
+}
+
+
+@pytest.mark.parametrize("case", sorted(STAGING_CASES))
+def test_fused_fwd_f32_cp_async_staging(cuda, case):
+    n, lr_shape, wins, aligned, terms = STAGING_CASES[case]
+    pack = _random_pack(cuda, torch.float32, n, lr_shape, wins, aligned, 23,
+                        terms)
+    if case == "hr_cols_off_16b":
+        assert pack.hr_shape[1] * 4 % 16 != 0
+    else:
+        assert pack.f_bandr.shape[-1] > 256
+        assert pack.k2_f32_layout()["sets"] == "one group per set"
+    hr, lr = _inputs(cuda, pack, torch.float32, 17)
+    before = fused_fwd_err.launches
+    _check_pair(pack, hr, lr, torch.float32)
+    assert fused_fwd_err.launches == before + 1
+
+
 def test_fused_wrappers_refuse_mixed_types(cuda):
     pack = _pack(cuda, 1, "port", torch.bfloat16)
     hr, lr = _inputs(cuda, pack, torch.float32, 1)
