@@ -22,7 +22,11 @@ or of the JAX package.  Phases, one JSON line each:
    summation order differs; the split's max|diff| is also given as a share
    of sum_k |b_k| |x_k|);
    with the kernel's, the plain version's and a dense ``torch.matmul``'s
-   times and the card's bound for the same work.  The kernel's time is
+   times and the card's bound for the same work: a multiply-add per
+   nonzero band entry and column of x (one ``k1_bound`` line gives the
+   bound over the 128-row block windows beside it, and per f32 banded
+   mono_cal_target solve the sum of the per-op device times times their
+   launches, the bound and the time lost over it).  The kernel's time is
    taken twice (CUDA events both): per call over calls launched one after
    another, and on the device alone over calls queued behind a device
    sleep, which leaves out the host's launch cost where a call takes longer
@@ -68,6 +72,26 @@ or of the JAX package.  Phases, one JSON line each:
    --decoder code128 --figure none``: its records equal the committed
    ``decode_confidence.json``.  No hand-written kernel runs in the three
    CLIs (their launch counts are read and must be 0).
+   rig -- the simulated rig (``hw/``) at the sensor's size on the card.
+   One pinhole rig on the card and one on the host from the same seed:
+   frames within +-1 uint8, the same shift draws, each one's render times.
+   ``run_calibration`` of a pinhole rig (``SimConfig()``: LR 1536x2048,
+   the 3072x4096 ``pinhole_scene``), 3 tilts x 2 repeats at a 50 ms
+   settle, centres fitted on the card: the least-squares gain within 5 %
+   of the sim's 3.2 px/deg.  ``run_hw_triggered`` of a barcode rig (flat
+   235 holding 3 EAN-13 codes at 2 HR px per module) at 0.15625 deg (0.5
+   px), 2 repeats, and the special run at the calibrated tilts; ``sr.run
+   --workload mono_barcodes`` of the run (4 units, one batched f32 banded
+   solve: K1's launches as ``expected_launches`` implies); every unit's
+   ``SAA_IBP.png`` decodes every code at confidence 1.0 through
+   ``eval.ean13``, the 2x bicubic of its LR mean none.  The Laplacian
+   variance on the card within 1e-5 of the host's; an autofocus sweep on a
+   ``SimStage`` within its depth of focus of 369.23 mm; ``run_stability``
+   on a knife-edge rig (2 trials x 4 positions x 12 frames); a
+   ``utils.trace.device_trace`` of one warm solve whose Chrome trace names
+   K1's ``banded_rows_kernel``: the traced K1 device time beside the sum
+   of the per-op device times over the same launches.  Seconds of each
+   step.
 5. mono_bf16 -- the same session through ``sr.run --band-store bf16``
    (auto: the fused kernels): artifacts, launches (K1-bf16 7, K2 80, K3
    80, nothing else), ``SAA_IBP`` within +-2 of the plain-version solve on
@@ -494,13 +518,17 @@ def phase_kernel(torch, f32_peak, host):
         plain_ms = time_ms(torch, lambda: banded_row_apply_reference(pack, x),
                            5)
         library_ms = time_ms(torch, lambda: torch.matmul(dense, x_lib), 5)
-        flops = 2.0 * _true_window(host_op) * width * batch
+        # a multiply-add per nonzero band entry and column of x (the
+        # 128-row block windows K1 walks count more: block_window_gflop)
+        flops = 2.0 * _nonzeros(host_op) * width * batch
+        window_flops = 2.0 * _true_window(host_op) * width * batch
         nbytes = (4.0 * (x.numel() + batch * op.n_out * width
                          + pack.meta.numel())
                   + pack.bands.numel() * pack.bands.element_size()
                   * (2 if dtype == X3 else 1))
         # the split does three bf16 products of the f32 apply's work
         ops = flops * (3 if dtype == X3 else 1)
+        window_ops = window_flops * (3 if dtype == X3 else 1)
         row = {"phase": "kernel", "op": name, "bands": _band_name(dtype),
                "x": [batch, op.n_in, width], "out_rows": op.n_out,
                "blocks": len(host_op.blocks),
@@ -513,9 +541,76 @@ def phase_kernel(torch, f32_peak, host):
                **_bound(ops, nbytes, f32_peak if dtype == f32 else BF16_PEAK),
                "kernel_tflops": ops / kernel_ms / 1e9}
         emit(row)
+        row["block_window"] = {
+            "gflop": window_ops / 1e9,
+            **_bound(window_ops, nbytes,
+                     f32_peak if dtype == f32 else BF16_PEAK)}
         rows.append(row)
         del dense, x, x_lib, got, want
+    emit(_k1_solve_bound(rows))
     return rows
+
+
+def _k1_solve_launches(n: int, n_iter: int, rank: int) -> dict:
+    """K1's launches per op in one f32 banded solve of ``n`` frames over
+    ``n_iter`` IBP iterations: the stack and mean zooms, a Shift-and-Add
+    row apply per frame, a forward and a back-projection row apply per
+    frame, iteration and PSF rank term; their sum is
+    ``expected_launches``' K1 count."""
+    table = {"zoom_r": 1, "zoom_r_mean": 1, "saa_r": n,
+             "fwd_r": n * n_iter * rank, "bwd_r": n * n_iter * rank}
+    want = expected_launches("f32", False, rank, n, n_iter)["k1_f32"]
+    check(sum(table.values()) == want,
+          f"K1 per-op launches {table} sum to {sum(table.values())}, "
+          f"expected_launches to {want}")
+    return table
+
+
+def _k1_per_solve(rows, table) -> dict:
+    """K1 per f32 banded solve whose launches are ``table``: the sum over
+    its ops of each op's device time (frame 1's operators standing for
+    every frame's) times its launches, and the same sum of the bounds
+    over the bands' nonzeros and over the block windows."""
+    f32 = {r["op"]: r for r in rows if r["bands"] == "float32"}
+
+    def per_solve(get):
+        return sum(n * get(f32[op]) for op, n in table.items())
+
+    summed = per_solve(lambda r: r["kernel_device_ms"])
+    bound = per_solve(lambda r: r["bound_ms"])
+    return {"launches": sum(table.values()),
+            "sum_of_per_op_device_ms": summed, "bound_ms": bound,
+            "lost_ms": summed - bound,
+            "block_window_bound_ms": per_solve(
+                lambda r: r["block_window"]["bound_ms"]),
+            "gflop": per_solve(lambda r: r["gflop"])}
+
+
+def _k1_solve_bound(rows) -> dict:
+    """K1's bound over the bands' nonzeros beside the block windows' (the
+    figure before this restatement, printed here once), per op and per f32
+    banded mono_cal_target solve (5 frames)."""
+    from enph459_super_resolution_tpu_torch.sr.classical import \
+        make_gaussian_psf
+    from enph459_super_resolution_tpu_torch.sr.config import WORKLOADS
+
+    cfg = WORKLOADS["mono_cal_target"]
+    table = _k1_solve_launches(
+        5, cfg.ibp_iterations,
+        _rank(make_gaussian_psf(cfg.psf_size, cfg.psf_sigma)))
+    f32 = {r["op"]: r for r in rows if r["bands"] == "float32"}
+    per_op = {op: {"gflop": f32[op]["gflop"],
+                   "bound_ms": f32[op]["bound_ms"],
+                   "bound_by": f32[op]["bound_by"],
+                   "block_window_gflop": f32[op]["block_window"]["gflop"],
+                   "block_window_bound_ms": f32[op]["block_window"][
+                       "bound_ms"],
+                   "kernel_device_ms": f32[op]["kernel_device_ms"],
+                   "share_of_bound": f32[op]["bound_ms"]
+                   / f32[op]["kernel_device_ms"]}
+              for op in table}
+    return {"phase": "k1_bound", "per_op": per_op, "table": table,
+            "solve": _k1_per_solve(rows, table)}
 
 
 def _unfused_fwd(ops, hr, lr):
@@ -770,8 +865,8 @@ def _u8_diff(a, b) -> int:
 
 
 def _sr_run(workload: str, data_dir: Path, out: Path, *flags):
-    """``sr.run`` on cuda with every launch count zeroed just before it;
-    returns (seconds, launches)."""
+    """``sr.run`` on the card with every launch count zeroed just before
+    it; returns (seconds, launches)."""
     from enph459_super_resolution_tpu_torch.sr import run
 
     reset_counts()
@@ -2911,6 +3006,350 @@ def phase_analyses(torch):
     return row
 
 
+RIG_CAL = {"tilt_min": 0.1, "tilt_max": 0.3, "tilt_steps": 3,
+           "num_repeats": 2, "settle_ms": 50.0}
+RIG_GAIN_RTOL = 0.05          # the fitted px/deg against the sim's
+RIG_TILT = 0.15625            # deg: 0.5 LR px at the sim's 3.2 px/deg
+RIG_DIGITS = "5901234123457"
+# HR (row, col) of each EAN-13 code's top-left corner, in the phase of
+# tests/test_ean13.py's (48, 143) inside its 192 x 512 scene; the code is
+# decoded in that 192 x 512 window around it
+RIG_CODES = ((1072, 655), (1072, 3215), (2096, 1935))
+RIG_CODE_WINDOW = (48, 143, 192, 512)   # top, left margins; height, width
+RIG_AF_POINTS = (9, 7)        # coarse, fine autofocus positions
+RIG_STAB = {"n_trials": 2, "num_frames": 12}   # 2 x 4 x 12 = 96 frames
+RIG_RENDERS = 3               # frames timed per device
+
+
+def _rig_gain(shifts_csv: Path) -> float:
+    """Least-squares px/deg through the origin of shifts.csv: each
+    off-axis position's mean shift along the swept axis against its signed
+    tilt."""
+    import csv
+
+    from enph459_super_resolution_tpu_torch.hw.calibrate import GRID_SIGNS
+
+    num = den = 0.0
+    with open(shifts_csv) as fp:
+        for row in csv.DictReader(fp):
+            sx, sy = GRID_SIGNS[int(row["position"])]
+            x = row["sweep_axis"] == "x"
+            t = (sx if x else sy) * float(row["tilt_angle_deg"])
+            num += t * float(row["dx_mean_px" if x else "dy_mean_px"])
+            den += t * t
+    return num / den
+
+
+def _rig_hr() -> tuple:
+    """The HR scene's shape of ``SimConfig()``: the sensor's LR 1536x2048
+    at factor 2, 3072x4096."""
+    from enph459_super_resolution_tpu_torch.hw import SimConfig
+
+    cfg = SimConfig()
+    return tuple(n * cfg.factor for n in cfg.lr_shape)
+
+
+def _rig_scene_barcodes() -> np.ndarray:
+    """The HR barcode scene: flat 235 holding an EAN-13 code (2 HR px per
+    module, 96 rows; ``tests/test_ean13.py``'s geometry) at each of
+    ``RIG_CODES``."""
+    from enph459_super_resolution_tpu_torch.eval import ean13
+
+    bc = ean13.render(RIG_DIGITS, module_px=2, height_px=96)
+    scene = np.full(_rig_hr(), 235.0)
+    for r, c in RIG_CODES:
+        scene[r:r + bc.shape[0], c:c + bc.shape[1]] = bc
+    return scene
+
+
+def _rig_render(torch) -> dict:
+    """One pinhole rig on the card and one on the host, the same seed:
+    their frames within +-1 uint8, the same shift draws (the rng's state
+    equal after the same frames); the prefilter's, a frame's and the tap
+    sum's times on each."""
+    from enph459_super_resolution_tpu_torch.hw import (SimBeamSteering,
+                                                       SimulatedRig)
+    from enph459_super_resolution_tpu_torch.hw.sim import render_shifted
+
+    rigs, out = {}, {}
+    for name, dev in (("card", "cuda"), ("host", "cpu")):
+        rig = SimulatedRig(device=dev)
+        SimBeamSteering(rig).set_angles(RIG_TILT, -RIG_TILT)
+        rig.sleep(0.05)
+        t0 = time.perf_counter()
+        coeff = rig._prefiltered()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        prefilter_s = time.perf_counter() - t0
+        frames, times = [], []
+        for _ in range(RIG_RENDERS):
+            t0 = time.perf_counter()
+            frames.append(rig.render(rig.cfg.base_exposure_us))
+            times.append(time.perf_counter() - t0)
+        dy = np.float32(0.3 * rig.cfg.factor)
+
+        def sample():
+            return render_shifted(coeff, dy, -dy, rig._PAD, rig.cfg.factor)
+
+        if dev == "cuda":
+            sample_ms = time_ms(torch, sample, 10)
+        else:
+            sample()
+            t0 = time.perf_counter()
+            sample()
+            sample_ms = (time.perf_counter() - t0) * 1e3
+        rigs[name] = (rig, frames)
+        out[name] = {"device": dev, "prefilter_s": prefilter_s,
+                       "frame_ms": sorted(times)[len(times) // 2] * 1e3,
+                       "frame_ms_runs": [t * 1e3 for t in times],
+                       "sample_ms": sample_ms}
+    (card, card_frames), (host, host_frames) = rigs["card"], rigs["host"]
+    check(card.rng.bit_generator.state == host.rng.bit_generator.state,
+          "the card's rig and the host's drew different shifts")
+    diffs = [np.abs(a.astype(np.int16) - b.astype(np.int16))
+             for a, b in zip(card_frames, host_frames)]
+    check(card_frames[0].shape == card.cfg.lr_shape,
+          f"{card_frames[0].shape}")
+    check(max(int(d.max()) for d in diffs) <= 1,
+          f"card frames against host frames: {[int(d.max()) for d in diffs]}")
+    out["frame_max_diff"] = max(int(d.max()) for d in diffs)
+    out["frame_diff_share"] = max(float((d > 0).mean()) for d in diffs)
+    return out
+
+
+def _rig_calibrate(work: Path) -> dict:
+    """``run_calibration`` of the pinhole rig (``SimConfig()``: LR
+    1536x2048, the 3072x4096 pinhole scene) on the card: the fitted gain
+    within ``RIG_GAIN_RTOL`` of the sim's."""
+    from enph459_super_resolution_tpu_torch.hw import (SimBeamSteering,
+                                                       SimCamera,
+                                                       SimulatedRig)
+    from enph459_super_resolution_tpu_torch.hw.calibrate import \
+        run_calibration
+
+    rig = SimulatedRig(device="cuda")
+    cam = SimCamera(rig)
+    frames = []
+    capture = cam.capture_raw
+
+    def counted():
+        frames.append(1)
+        return capture()
+
+    cam.capture_raw = counted
+    t0 = time.perf_counter()
+    res = run_calibration(SimBeamSteering(rig), cam, str(work / "cal"),
+                          sleep_fn=rig.sleep, save_images=False,
+                          device="cuda", **RIG_CAL)
+    cal_s = time.perf_counter() - t0
+    gain = _rig_gain(work / "cal" / "shifts.csv")
+    want = rig.cfg.gain_px_per_deg
+    check(abs(gain - want) <= RIG_GAIN_RTOL * want,
+          f"calibrated gain {gain} px/deg, the sim's {want}")
+    for f in ("centers.csv", "shifts.csv", "results.json"):
+        check((work / "cal" / f).exists(), f"calibration wrote no {f}")
+    return {"s": cal_s, "frames": len(frames), "gain_px_per_deg": gain,
+            "gain_rel_err": gain / want - 1.0,
+            "exposure_us": res["exposure_us"]}
+
+
+def _rig_collect(work: Path) -> dict:
+    """``run_hw_triggered`` of the barcode rig on the card at 0.5 px tilts,
+    one settle of 50 ms, 2 repeats, and the special run at the calibrated
+    per-corner tilts."""
+    from enph459_super_resolution_tpu_torch.hw import (SimBeamSteering,
+                                                       SimCamera,
+                                                       SimulatedRig)
+    from enph459_super_resolution_tpu_torch.hw.collect import \
+        run_hw_triggered
+
+    rig = SimulatedRig(scene=_rig_scene_barcodes(), device="cuda")
+    t0 = time.perf_counter()
+    res = run_hw_triggered(
+        SimBeamSteering(rig), SimCamera(rig, hardware_trigger=True),
+        str(work / "collect"), calibration_csv=str(work / "cal" /
+                                                   "shifts.csv"),
+        tilt_min=RIG_TILT, tilt_max=RIG_TILT, tilt_steps=1,
+        settling_times_ms=(50.0,), num_repeats=2, special_run=True,
+        sleep_fn=rig.sleep, timestamp="run")
+    collect_s = time.perf_counter() - t0
+    check(len(res["combos"]) == 2 and res["special_run"] is not None,
+          f"combos {res['combos']}")
+    check(len(res["images"]) == 16, f"{len(res['images'])} images")
+    tilts = [t for pair in res["special_run"]["per_corner_tilts"]
+             for t in pair]
+    check(all(abs(t / RIG_TILT - 1.0) <= RIG_GAIN_RTOL for t in tilts),
+          f"special-run tilts {tilts} against {RIG_TILT}")
+    return {"s": collect_s, "frames": len(res["images"]),
+            "combos": res["combos"],
+            "special_tilts_deg": res["special_run"]["per_corner_tilts"]}
+
+
+def _rig_decode(torch, run_dir: Path, out: Path, cfg) -> dict:
+    """Every unit's ``SAA_IBP.png`` decodes every code (confidence 1.0);
+    the 2x bicubic of the unit's LR mean decodes none."""
+    from enph459_super_resolution_tpu_torch.data.io import load_gray
+    from enph459_super_resolution_tpu_torch.eval import ean13
+    from enph459_super_resolution_tpu_torch.eval.decode import \
+        decode_confidence
+    from enph459_super_resolution_tpu_torch.ops.resize import \
+        bicubic_upsample
+
+    top, left, hh, ww = RIG_CODE_WINDOW
+    rois = [(r - top, r - top + hh, c - left, c - left + ww)
+            for r, c in RIG_CODES]
+
+    def conf(img):
+        u8 = np.clip(img, 0, 255).astype(np.uint8)
+        return [decode_confidence(u8, roi, decoder=ean13.decode)
+                for roi in rois]
+
+    units = {}
+    for combo in sorted(p for p in run_dir.iterdir() if p.is_dir()):
+        for unit in cfg.load(str(combo)):
+            unit_dir = out / combo.name / f"rep{unit.rep}"
+            mean = torch.as_tensor(unit.frames.mean(axis=0), device="cuda")
+            up = bicubic_upsample(mean[None, :, :, None], 2)[0, :, :, 0]
+            units[f"{combo.name}/rep{unit.rep}"] = {
+                "saa_ibp": conf(load_gray(str(unit_dir / "SAA_IBP.png"))),
+                "native_2x": conf(load_gray(str(unit_dir /
+                                                "native_2x.png"))),
+                "bicubic": conf(up.cpu().numpy())}
+    check(len(units) == 4, f"{len(units)} units decoded")
+    for name, u in units.items():
+        check(all(r == (RIG_DIGITS, 1.0) for r in u["saa_ibp"]),
+              f"{name}: SAA_IBP decodes {u['saa_ibp']}")
+        check(all(r == (None, 0.0) for r in u["bicubic"]),
+              f"{name}: the bicubic of the LR mean decodes {u['bicubic']}")
+    return units
+
+
+def _rig_rest(torch, work: Path, run_dir: Path, cfg, k1_rows) -> dict:
+    """The rest of the layer on the card: the Laplacian variance against
+    the host's, an autofocus sweep on a SimStage, a stability run on the
+    knife-edge rig, and a Chrome trace of one warm solve naming K1, whose
+    K1 device time is set beside the sum of the ``kernel`` phase's per-op
+    device times over the same launches."""
+    from enph459_super_resolution_tpu_torch.data.io import load_gray
+    from enph459_super_resolution_tpu_torch.hw import (SimBeamSteering,
+                                                       SimCamera, SimStage,
+                                                       SimulatedRig,
+                                                       knife_edge_scene)
+    from enph459_super_resolution_tpu_torch.hw.autofocus import (
+        autofocus_sweep, laplacian_variance)
+    from enph459_super_resolution_tpu_torch.hw.stability import \
+        run_stability
+    from enph459_super_resolution_tpu_torch.sr.classical import (
+        make_gaussian_psf, solve)
+    from enph459_super_resolution_tpu_torch.utils.trace import device_trace
+
+    out = {}
+    frame = load_gray(str(next(run_dir.glob("*/corner0_rep00.png"))))
+    lap = {"card": laplacian_variance(frame, device="cuda"),
+           "host": laplacian_variance(frame, device="cpu")}
+    rel = abs(lap["card"] - lap["host"]) / abs(lap["host"])
+    check(rel <= 1e-5, f"laplacian_variance card {lap['card']} host "
+                       f"{lap['host']}")
+    out["laplacian_variance"] = {**lap, "rel": rel}
+
+    rig = SimulatedRig(device="cuda")
+    stage = SimStage(rig)
+    t0 = time.perf_counter()
+    af = autofocus_sweep(SimCamera(rig), stage, *stage.travel,
+                         coarse_points=RIG_AF_POINTS[0],
+                         fine_points=RIG_AF_POINTS[1], sleep_fn=rig.sleep,
+                         device="cuda")
+    check(abs(af["best_pos_mm"] - stage.best) <= stage.dof,
+          f"autofocus best {af['best_pos_mm']} mm, the stage's "
+          f"{stage.best} +- {stage.dof}")
+    out["autofocus"] = {"s": time.perf_counter() - t0,
+                        "best_pos_mm": af["best_pos_mm"],
+                        "frames": sum(RIG_AF_POINTS)}
+
+    h, w = _rig_hr()
+    rig = SimulatedRig(scene=knife_edge_scene((h, w), edge_col=w / 2),
+                       device="cuda")
+    t0 = time.perf_counter()
+    summary = run_stability(SimCamera(rig), SimBeamSteering(rig),
+                            str(work / "stability"), sleep_fn=rig.sleep,
+                            figures=False, **RIG_STAB)
+    sigmas = [summary["positions"][f"pos{p}"]["sigma_mean_px"]
+              for p in range(4)]
+    edges = [summary["positions"][f"pos{p}"]["edge_mean_px"]
+             for p in range(4)]
+    check(all(np.isfinite(sigmas)) and max(sigmas) < 0.5,
+          f"stability sigmas {sigmas}")
+    check(all(abs(e - w / 4) < 2.0 for e in edges), f"edges {edges}")
+    check((work / "stability" / "stability_trials.csv").exists(),
+          "stability wrote no stability_trials.csv")
+    out["stability"] = {"s": time.perf_counter() - t0,
+                        "frames": 4 * RIG_STAB["n_trials"]
+                        * RIG_STAB["num_frames"],
+                        "sigma_mean_px": sigmas, "edge_mean_px": edges}
+
+    unit = cfg.load(str(next(p for p in sorted(run_dir.iterdir())
+                             if p.is_dir())))[0]
+    frames = torch.as_tensor(unit.frames, device="cuda")
+    psf = make_gaussian_psf(cfg.psf_size, cfg.psf_sigma)
+    solve(frames, psf, unit.shifts, device="cuda")
+    with device_trace(str(work / "trace")) as prof:
+        solve(frames, psf, unit.shifts, device="cuda")
+    text = Path(prof.trace_path).read_text()
+    k1 = [e for e in json.loads(text)["traceEvents"]
+          if e.get("cat") == "kernel"
+          and "banded_rows_kernel" in e.get("name", "")]
+    check(bool(k1), "the solve's trace does not name K1's banded_rows_kernel")
+    table = _k1_solve_launches(len(unit.frames), cfg.ibp_iterations,
+                               _rank(psf))
+    out["trace"] = {"bytes": len(text), "k1_events": len(k1),
+                    "k1_device_ms": sum(e["dur"] for e in k1) / 1e3,
+                    "per_op": _k1_per_solve(k1_rows, table)}
+    return out
+
+
+def phase_rig(torch, k1_rows) -> dict:
+    """The simulated rig at the sensor's size (``SimConfig()``) on the
+    card: calibrate, collect, fuse with ``sr.run --workload mono_barcodes``
+    on K1, decode; and the rest of the rig layer."""
+    from enph459_super_resolution_tpu_torch.sr.classical import \
+        make_gaussian_psf
+    from enph459_super_resolution_tpu_torch.sr.config import WORKLOADS
+
+    t_phase = time.perf_counter()
+    work = WORK / "rig"
+    cfg = WORKLOADS["mono_barcodes"]
+    hr = _rig_hr()
+    row = {"phase": "rig", "card": nvidia_smi("name,power.limit"),
+           "lr": [hr[0] // 2, hr[1] // 2], "hr": list(hr),
+           "render": _rig_render(torch),
+           "calibration": _rig_calibrate(work),
+           "collection": _rig_collect(work)}
+    run_dir = work / "collect" / "run"
+    out = work / "results"
+    run_s, launches = _sr_run("mono_barcodes", run_dir, out)
+    psf = make_gaussian_psf(cfg.psf_size, cfg.psf_sigma)
+    expected = expected_launches("f32", False, _rank(psf), 4,
+                                 cfg.ibp_iterations)
+    check(launches == expected,
+          f"sr.run launches {launches}, the batched solve implies "
+          f"{expected}")
+    metrics = [_check_unit(p.parent, cfg.lr_mean_name)
+               for p in sorted(out.rglob("done.flag"))]
+    check(len(metrics) == 4, f"{len(metrics)} units fused")
+    check(all(m["hr_shape"] == list(hr) for m in metrics),
+          f"hr {[m['hr_shape'] for m in metrics]}")
+    row["sr_run"] = {"s": run_s, "launches": launches,
+                     "launches_expected": expected, "units": len(metrics),
+                     "solve_batch_s": metrics[0]["timings_s"][
+                         "solve_batch_total"],
+                     "mse_last": [m["mse_history"][-1] for m in metrics]}
+    row["decode"] = _rig_decode(torch, run_dir, out, cfg)
+    row.update(_rig_rest(torch, work, run_dir, cfg, k1_rows))
+    row["phase_s"] = time.perf_counter() - t_phase
+    emit(row)
+    return row
+
+
 def _summary(name, source, replaces, launches, rows, head, card):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -2946,6 +3385,7 @@ def main() -> int:
         del host
         mono = phase_mono(torch)
         phase_analyses(torch)
+        rig = phase_rig(torch, k1_rows)
         bf16_launches = phase_mono_bf16(torch, mono)
         modes = phase_modes(torch, mono)
         phase_rgb(torch)
@@ -2983,7 +3423,8 @@ def main() -> int:
         dict(_summary("banded_rows", k1_src, k1_tpu,
                       mono["launches"]["k1_f32"], k1("float32"),
                       next(r for r in k1_rows if r["op"] == "fwd_r"), card),
-             fusion_refine_launches=burst["refine_launches"]),
+             fusion_refine_launches=burst["refine_launches"],
+             rig_sr_run_launches=rig["sr_run"]["launches"]["k1_f32"]),
         _summary("banded_rows_bf16", k1_src, k1_tpu, bf16_launches["k1_bf16"],
                  k1("bfloat16"),
                  next(r for r in k1_rows if r["op"] == "fwd_r_bf16"), card),

@@ -98,7 +98,9 @@ def flax_state_dict(tree: Mapping) -> Dict[str, torch.Tensor]:
     ``experts`` from ``nn.vmap``, ``[E, kh, kw, in, out]``) keep their
     leading dim: ``[n, out, in, kh, kw]``.  A ``GroupNorm``'s ``scale``
     becomes ``weight``; ``bias`` and a PReLU's ``negative_slope`` keep
-    their names.
+    their names.  A module named in flax by ``name=`` keeps that name: a
+    ``ConvBlock``'s ``conv/kernel`` is ``conv.weight`` of
+    :class:`~.models.common.ConvBlock`.
     """
     tree = tree.get("params", tree)
     out: Dict[str, torch.Tensor] = {}

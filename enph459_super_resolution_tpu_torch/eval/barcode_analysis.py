@@ -16,7 +16,8 @@ runs the harness without decoding (pipeline dry-run).
 The port's copy of ``enph459_super_resolution_tpu/eval/barcode_analysis.py``.
 It runs on the host only (PNG decode and the pure-Python decoders), as the
 reference's does, so it takes no ``--device``.  ``--figure none`` skips the
-figure, whose matplotlib import is made only when it is drawn.
+figure (``utils.plots.plot_confidence_vs_pitch``), whose matplotlib import
+is made only when it is drawn.
 """
 
 from __future__ import annotations
@@ -25,7 +26,6 @@ import argparse
 import json
 import os
 import sys
-from collections import defaultdict
 from typing import Dict
 
 import numpy as np
@@ -88,71 +88,6 @@ def analyse_session(results_session_dir: str, rois, n_trials: int = 25,
                     "confidence": conf,
                 })
     return out
-
-
-def plot_confidence_vs_pitch(records, out_path: str,
-                             pixel_pitch_um: float = 3.45,
-                             lr_pitch_factor: int = 2,
-                             n_trials: int = 25) -> None:
-    """Decode-confidence-vs-barcode-pitch figure with Nyquist overlays
-    (reference: ``rgb_barcodes/analysis.ipynb`` cell 14; the JAX package
-    keeps it in ``utils/plots.py``, which the port has not taken yet).
-
-    One line per SR method (confidence averaged over reps at each pitch),
-    vertical markers at the LR-channel Nyquist pitch (2 LR pixels per bar
-    period; LR pitch = ``pixel_pitch_um * lr_pitch_factor`` for the Bayer
-    red plane) and the sensor Nyquist pitch, plus a secondary axis in um.
-
-    ``records``: iterables of dicts with keys ``method``, ``pitch_mil``,
-    ``confidence`` and optionally ``decoded_text`` (annotated when set).
-    """
-    import matplotlib
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
-
-    mil_um = 25.4
-    by_method = defaultdict(lambda: defaultdict(list))
-    texts = {}
-    for r in records:
-        by_method[r["method"]][r["pitch_mil"]].append(r["confidence"])
-        if r.get("decoded_text"):
-            texts[(r["method"], r["pitch_mil"])] = r["decoded_text"]
-
-    fig, ax = plt.subplots(figsize=(8, 5))
-    markers = {"Native-2x": "o", "SAA": "s", "SAA+IBP": "^"}
-    for i, (method, by_pitch) in enumerate(sorted(by_method.items())):
-        pitches = sorted(by_pitch)
-        confs = [float(np.mean(by_pitch[p])) for p in pitches]
-        ax.plot(pitches, confs, marker=markers.get(method, "o"), ms=7,
-                lw=1.6, color=f"C{i}", label=method)
-        for p, c in zip(pitches, confs):
-            t = texts.get((method, p))
-            ax.annotate(f"'{t}'" if t else "x", (p, c), fontsize=6,
-                        textcoords="offset points", xytext=(4, 4),
-                        color=f"C{i}", alpha=0.7)
-
-    nyq_lr = 2 * pixel_pitch_um * lr_pitch_factor / mil_um
-    nyq_sensor = 2 * pixel_pitch_um / mil_um
-    ax.axvline(nyq_lr, color="gray", ls="--", alpha=0.6,
-               label=f"LR Nyquist ({nyq_lr:.2f} mil)")
-    ax.axvline(nyq_sensor, color="lightgray", ls=":", alpha=0.8,
-               label=f"sensor Nyquist ({nyq_sensor:.2f} mil)")
-
-    all_pitches = sorted({p for m in by_method.values() for p in m})
-    ax.set_xticks(all_pitches)
-    ax.set_xlim(left=0)
-    ax.set_ylim(-0.05, 1.1)
-    top = ax.twiny()
-    top.set_xlim(np.asarray(ax.get_xlim()) * mil_um)
-    top.set_xlabel("barcode pitch (um)", fontsize=10)
-    ax.set_xlabel("barcode pitch (mil)")
-    ax.set_ylabel(f"decode confidence (fraction of {n_trials} "
-                  "jittered crops decoded)", fontsize=10)
-    ax.grid(alpha=0.3)
-    ax.legend(fontsize=8, loc="lower right")
-    fig.tight_layout()
-    fig.savefig(out_path, dpi=110)
-    plt.close(fig)
 
 
 def main(argv=None) -> int:
@@ -230,6 +165,8 @@ def main(argv=None) -> int:
                                                "confidence_vs_pitch.png")
         records = [r for res in results for r in res["records"]]
         if records:
+            from ..utils.plots import plot_confidence_vs_pitch
+
             plot_confidence_vs_pitch(records, fig_path,
                                      pixel_pitch_um=args.pixel_pitch_um,
                                      lr_pitch_factor=args.lr_pitch_factor,

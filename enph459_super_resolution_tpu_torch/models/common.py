@@ -225,6 +225,26 @@ def init_flax_default(module: nn.Module, generator: torch.Generator) -> None:
                                                              2 * std))
 
 
+class ConvBlock(nn.Module):
+    """Conv -> optional activation, NHWC (the JAX package's ``ConvBlock``,
+    which no model of either package uses).  flax infers the input
+    channels; here they are ``in_features``.  The conv is named ``conv``, as
+    flax names it, so ``convert.load_flax_params`` carries its
+    ``conv/kernel`` and ``conv/bias`` across."""
+
+    def __init__(self, in_features: int, features: int, kernel: int = 3,
+                 act=None, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.act = act
+        self.conv = Conv(in_features, features, kernel, dtype=dtype)
+
+    def forward(self, x):
+        x = self.conv(x)
+        if self.act is not None:
+            x = self.act(x)
+        return x
+
+
 class ResBlock(nn.Module):
     """EDSR residual block: conv-relu-conv, residual-scaled, no batchnorm;
     in the convs' compute ``dtype``."""
