@@ -7,22 +7,37 @@ Needs a CUDA card, the CUDA toolkit (``nvcc``) and this repository's
 ``enph459_super_resolution_tpu_torch`` package; it imports nothing of JAX
 or of the JAX package.  Phases, one JSON line each:
 
-1. device -- ``nvidia-smi`` name and power limit, SM count and max clock,
-   the PNG codec in use; builds every kernel under ``csrc/`` (one ``nvcc``
-   per source, all started together).
+1. device -- ``nvidia-smi`` name and power limit, SM count and max clock;
+   builds every kernel under ``csrc/`` (one ``nvcc`` per source, all
+   started together) and the native PNG codec (``native/``, ``g++``
+   against libpng): the codec in use (``libpng``, ``PIL`` or ``zlib``) and,
+   where libpng did not build, the compiler's message.
+   native -- ``load_gray_batch`` of 20 PNGs of 1536x2048 on the native
+   pool of 8 threads and of 1, pixel for pixel equal to PIL's decode, and
+   one 3072x4096 frame encoded by ``save_png`` (libpng, zlib level 1) and by
+   PIL, both read back equal: the seconds of each (PIL's only, without
+   libpng).
 2. kernel -- the banded-row kernel K1 against its plain PyTorch version on
    the card at every shape the runs below give it (``zoom_r``, ``saa_r``,
    ``fwd_r``, ``bwd_r`` at LR 1536x2048, and the 4-rep tiled ``zoom_r``,
    ``saa_r``, ``fwd_r``, ``bwd_r`` at LR 768x1024), float32 bands, and its
    bfloat16-band and split (X3: ``mm_precision`` BF16_BF16_F32_X3)
-   instantiations at the full-size ``zoom_r``, ``saa_r``, ``fwd_r`` and
-   ``bwd_r``;
-   inputs uniform in [0, 255), max|diff| <= 1e-3 (bf16 and split bands: the
-   products are exact and x rounds or splits alike in both, so only the
-   summation order differs; the split's max|diff| is also given as a share
-   of sum_k |b_k| |x_k|);
+   instantiations, and those of the other presets (X6, X9, TF32, TF32_X3,
+   F16_F16_F32, F16_F16_F16, BF16_BF16_BF16, F64), at the full-size
+   ``zoom_r``, ``saa_r``, ``fwd_r`` and ``bwd_r``;
+   inputs uniform in [0, 255), max|diff| <= 1e-3 and, per output, within
+   2^-17 of sum_k |b_k| |x_k| (F64 2^-22): the products are exact and x
+   rounds or splits alike in both, so only the summation order differs; a
+   kind that rounds its result to bf16 or f16 gives values of that type,
+   each the rounding of a sum within that share of the plain sum.  Before
+   that, every kind bit for bit against its plain version on an exactness
+   probe (``_k1_probe``: one product per output, exact in every order),
+   which fails a kind that forms other products or skips its rounding;
    with the kernel's, the plain version's and a dense ``torch.matmul``'s
-   times and the card's bound for the same work: a multiply-add per
+   (in the preset's type; TF32 on for the tf32 presets, in that timing
+   only) times and the card's bound for the same work, at the type's peak
+   (f32 CUDA cores, bf16 and f16 989, tf32 494.7, f64 66.9 TFLOP/s), with
+   one product per pair of parts a split multiplies: a multiply-add per
    nonzero band entry and column of x (one ``k1_bound`` line gives the
    bound over the 128-row block windows beside it, and per f32 banded
    mono_cal_target solve the sum of the per-op device times times their
@@ -130,7 +145,11 @@ or of the JAX package.  Phases, one JSON line each:
    DEFAULT (f32 store) and hybrid:16 at X3: launches (X3: K1-x3 807, K1-f32
    0; DEFAULT: K1-bf16 807; hybrid:16 X3: K1-bf16 640 + K1-x3 167),
    ``SAA_IBP`` within +-1 (X3) and +-3 (DEFAULT) of HIGHEST's, solve time
-   and HR Mpix/s beside HIGHEST's; one profiled X3 solve.
+   and HR Mpix/s beside HIGHEST's; one profiled X3 solve.  Then every
+   other preset on the f32 store (``NEW_PRESETS``): 807 launches of its own
+   K1 instantiation and none of another, ``SAA_IBP`` within its class of
+   HIGHEST's (+-1: X6, X9, TF32_X3, F64; +-2: TF32, F16_F16_F32,
+   F16_F16_F16; +-3: BF16_BF16_BF16), its warm solve time.
 13. adjoint -- ``sr.run --solver adjoint`` on the mono session (20
    iterations, step 2.0): K1-f32 207 launches, a descending MSE history
    whose last value is <= 1.02 x the IBP-80 solve's, and its warm solve
@@ -231,7 +250,8 @@ or of the JAX package.  Phases, one JSON line each:
    K1-K4 launch.  On a host of 4 or more cards, dp=2,tp=2 (EDSR) and
    dp=2,ep=2 (EDSRMoE) also run with one position per card.
 
-Then the ``kernels`` summary line, and last
+Then the ``kernels`` summary line (every K1 instantiation, K2, K3 and K4
+in each type), and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Any failure raises and exits non-zero with no result line; so does a run
 without a card (exit 2) or of this script alone, without the port's package
@@ -256,6 +276,16 @@ KERNEL_ATOL = 1e-3
 BF16_ATOL = 2.0
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_PEAK = 989e12         # H100 SXM dense bf16 tensor-core rate
+TF32_PEAK = 494.7e12        # H100 SXM dense tf32 tensor-core rate (f16 as bf16)
+F64_PEAK = 66.9e12          # H100 SXM f64 DMMA rate
+# K1 against its plain version per output, as a share of sum_k |b_k| |x_k|:
+# both form the same exact products and sum them in float32 in another
+# order (F64: in float64, rounded once); the card tests' SHARE and X3_SHARE
+K1_SHARE, K1_F64_SHARE = 2.0 ** -17, 2.0 ** -22
+# K1's exactness probe: band entries and inputs c * 2^e with c one of these,
+# each output a single product, whose parts' products and their sums are
+# exact in float32 under every kind
+K1_PROBE_VALUES = (1 + 2.0 ** -9 + 2.0 ** -18, 1 + 2.0 ** -4)
 HR_MPIX = 3072 * 4096 / 1e6
 TAIL = 16                  # the hybrid store's default f32 tail
 TRUNK_F32_ATOL = 1e-4
@@ -335,9 +365,12 @@ def _counters():
         fused_bwd_update, fused_fwd_err)
     from enph459_super_resolution_tpu_torch.ops.trunk import trunk_conv
 
-    return {"k1_f32": (banded_row_apply, "launches"),
-            "k1_bf16": (banded_row_apply, "launches_bf16"),
-            "k1_x3": (banded_row_apply, "launches_x3"),
+    from enph459_super_resolution_tpu_torch.ops.banded_rows import KINDS
+
+    # K1: one counter per band kind, "k1_f32", "k1_bf16", "k1_x3", ...
+    k1 = {"k1_" + (spec.counter[len("launches_"):] or "f32"):
+          (banded_row_apply, spec.counter) for spec in KINDS.values()}
+    return {**k1,
             "k2_f32": (fused_fwd_err, "launches"),
             "k2_bf16": (fused_fwd_err, "launches_bf16"),
             "k3_f32": (fused_bwd_update, "launches"),
@@ -364,8 +397,8 @@ def expected_launches(band_store: str, fused: bool, rank: int, n: int,
     forward and one back-projection row apply (banded engine; the same for
     the adjoint solver).  ``hybrid`` runs its last ``TAIL`` iterations
     banded on the f32 bands.  ``precision`` is the K1 instantiation the f32
-    bands' applies take: ``k1_f32`` (HIGHEST), ``k1_x3`` (X3) or
-    ``k1_bf16`` (DEFAULT)."""
+    bands' applies take: ``k1_f32`` (HIGHEST), ``k1_x3`` (X3), ``k1_bf16``
+    (DEFAULT) or another kind's counter (``k1_x6``, ``k1_tf32``, ...)."""
     out = dict.fromkeys(_counters(), 0)
     low = "bf16" if band_store in ("bf16", "hybrid") else "f32"
     out["k1_bf16" if band_store == "bf16" else "k1_f32"] += 2 + n
@@ -385,6 +418,7 @@ def expected_launches(band_store: str, fused: bool, rank: int, n: int,
 def phase_device(torch):
     from enph459_super_resolution_tpu_torch import _build
     from enph459_super_resolution_tpu_torch.data import io
+    from enph459_super_resolution_tpu_torch.native import png_loader
 
     card = nvidia_smi("name,power.limit")
     print(card, flush=True)
@@ -393,6 +427,9 @@ def phase_device(torch):
     t0 = time.perf_counter()
     logs = _build.build_all()
     build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    libpng = png_loader.available()  # builds the native codec with g++
+    png_build_s = time.perf_counter() - t0
     ptxas = {name: [ln.strip() for ln in log.splitlines()
                     if "registers" in ln or "spill" in ln]
              for name, log in logs.items()}
@@ -403,10 +440,75 @@ def phase_device(torch):
           "count": torch.cuda.device_count(), "sms": sms,
           "max_sm_mhz": max_sm_mhz, "f32_peak_tflops": f32_peak / 1e12,
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "png_codec": "PIL" if io._pil() is not None else "zlib",
+          "png_codec": ("libpng" if libpng else
+                        "PIL" if io._pil() is not None else "zlib"),
+          "png_build_error": png_loader.build_error(),
+          "png_build_s": png_build_s,
           "kernels_built": sorted(logs), "build_s": build_s,
           "ptxas": ptxas})
     return card, f32_peak
+
+
+NATIVE_FRAMES = 20          # 1536 x 2048 PNGs decoded as one batch
+NATIVE_THREADS = 8
+
+
+def phase_native(torch):
+    """The host PNG codec on the rig's sizes: ``load_gray_batch`` of 20
+    frames of 1536x2048 (written by PIL) on the native pool of 8 threads
+    and of 1, and PIL one file after another, pixel for pixel equal; one
+    3072x4096 frame encoded by ``save_png`` (libpng at zlib level 1) and by
+    PIL's default encoder, both read back equal.  Without libpng the
+    fallback's seconds only."""
+    from PIL import Image
+
+    from enph459_super_resolution_tpu_torch.data import io
+    from enph459_super_resolution_tpu_torch.native import png_loader
+
+    del torch  # host IO only
+    work = WORK / "native"
+    work.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(SEED + 7)
+    scene = _smooth_scene(rng, (1536, 2048))
+    paths = []
+    for i in range(NATIVE_FRAMES):
+        p = work / f"frame{i:02d}.png"
+        Image.fromarray(_noisy_u8(rng, scene)).save(p)
+        paths.append(str(p))
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        return out, time.perf_counter() - t0
+
+    pil, pil_s = timed(lambda: [np.asarray(Image.open(p)).astype(np.float32)
+                                for p in paths])
+    row = {"phase": "native", "codec_available": png_loader.available(),
+           "frames": [NATIVE_FRAMES, 1536, 2048], "pil_decode_s": pil_s}
+    if png_loader.available():
+        many, many_s = timed(lambda: io.load_gray_batch(
+            paths, n_threads=NATIVE_THREADS))
+        one, one_s = timed(lambda: io.load_gray_batch(paths, n_threads=1))
+        check(all(np.array_equal(a, b) and np.array_equal(a, c)
+                  for a, b, c in zip(many, one, pil)),
+              "native batch decode differs from PIL's")
+        row.update(threads=NATIVE_THREADS, decode_s=many_s,
+                   decode_1_thread_s=one_s, speedup_over_1=one_s / many_s,
+                   speedup_over_pil=pil_s / many_s)
+    hr = _noisy_u8(rng, _smooth_scene(rng, (3072, 4096)))
+    native_png, pil_png = work / "hr_native.png", work / "hr_pil.png"
+    _, save_s = timed(lambda: io.save_png(hr, str(native_png)))
+    _, pil_save_s = timed(lambda: Image.fromarray(hr).save(pil_png))
+    for p in (native_png, pil_png):
+        check(np.array_equal(np.asarray(Image.open(p)), hr),
+              f"{p.name}: the encoded frame does not read back equal")
+    row.update(encode=[3072, 4096], save_png_s=save_s,
+               pil_encode_s=pil_save_s, encode_speedup=pil_save_s / save_s,
+               save_png_mb=native_png.stat().st_size / 1e6,
+               pil_mb=pil_png.stat().st_size / 1e6)
+    emit(row)
+    shutil.rmtree(work)
+    return row
 
 
 def _dense(op) -> np.ndarray:
@@ -449,12 +551,74 @@ def _band_name(dtype) -> str:
     return dtype if isinstance(dtype, str) else str(dtype)[6:]
 
 
+def _k1_kind_types(torch, kind, f32_peak):
+    """From ``KINDS``: the card's peak rate for the type a band kind
+    multiplies in (f32 CUDA cores, tf32, bf16 or f16 tensor cores, f64),
+    and the type and TF32 switch of the dense ``torch.matmul`` that computes
+    the same function (the bf16 splits: float32, TF32 off; a rounded result:
+    its type; a single pass: its storage type, bfloat16 as the bf16-rounded
+    operands in float32)."""
+    from enph459_super_resolution_tpu_torch.ops.banded_rows import (
+        KINDS, round_tf32)
+
+    spec = KINDS[kind]
+    if spec.wide == torch.float64:
+        return F64_PEAK, torch.float64, False
+    if spec.rounding is round_tf32:
+        return TF32_PEAK, torch.float32, True
+    if spec.storage == torch.float32:
+        return f32_peak, torch.float32, False
+    lib = spec.out or (torch.float32 if spec.parts > 1 else spec.storage)
+    return BF16_PEAK, lib, False
+
+
+def _k1_probe(torch, kind, dev, width=130, seed=3):
+    """K1's exactness probe for one band kind: a pack of two blocks (128
+    and 37 rows, windows of 40) whose rows each hold one nonzero entry, and
+    an input ``[2, 64, width]``, all of them ``c * 2^e`` with ``c`` in
+    ``K1_PROBE_VALUES`` and ``e`` in [-3, 3].  Every kind's part products
+    are exact in float32 and so are their sums, in any order, up to terms
+    below half a float32 ulp that every order drops; so the kernel equals
+    the plain version bit for bit, and a kind that forms other products (X3
+    for X6, one tf32 pass for two) or skips its result's rounding does not.
+    X9's three extra products lie below that resolution: no float32 result
+    tells them from X6's."""
+    from enph459_super_resolution_tpu_torch.ops.banded_rows import (
+        pack_banded)
+
+    rng = np.random.default_rng(seed)
+    vals = np.asarray(K1_PROBE_VALUES)
+    rows, win, n_in = (128, 37), 40, 64
+    blocks, ranges = [], []
+    for i, r in enumerate(rows):
+        b = np.zeros((r, win))
+        b[np.arange(r), rng.integers(0, win, r)] = (
+            rng.choice(vals, r) * 2.0 ** rng.integers(-3, 4, r))
+        blocks.append(b)
+        ranges.append((i * (n_in - win), i * (n_in - win) + win))
+    x = (rng.choice(vals, (2, n_in, width))
+         * 2.0 ** rng.integers(-3, 4, (2, n_in, width)))
+    return (pack_banded(blocks, ranges, sum(rows), n_in, dev, kind),
+            torch.as_tensor(x, dtype=torch.float32, device=dev))
+
+
 def phase_kernel(torch, f32_peak, host):
     """K1 against its plain version at the main path's shapes."""
     from enph459_super_resolution_tpu_torch.ops.banded_rows import (
-        X3, banded_row_apply, banded_row_apply_reference, pack_banded)
+        F64, KINDS, X3, banded_row_apply, banded_row_apply_reference,
+        pack_banded, round_result)
 
     dev = torch.device("cuda")
+    # every kind bit for bit on the exactness probe
+    probe = {}
+    for kind in KINDS:
+        pack, x = _k1_probe(torch, kind, dev)
+        got = banded_row_apply(pack, x)
+        probe[_band_name(kind)] = bool(
+            torch.equal(got, banded_row_apply_reference(pack, x)))
+    emit({"phase": "kernel_probe", "exact": probe})
+    check(all(probe.values()), f"K1 probe: kinds not bit-exact "
+          f"{[k for k, ok in probe.items() if not ok]}")
     full, tiled = host["mono"], host["rgb4"]
     f32, bf16 = torch.float32, torch.bfloat16
     # frame 1 has a nonzero sub-pixel shift; (op, input batch, input width,
@@ -485,6 +649,16 @@ def phase_kernel(torch, f32_peak, host):
         "fwd_r_x3": (full["frames"][1][0][0], 1, 4096, X3),
         "bwd_r_x3": (full["frames"][1][2][0], 1, 2048, X3),
     }
+    # the other matmul precisions' instantiations at the same four shapes
+    for kind in KINDS:
+        if kind in (f32, bf16, X3):
+            continue
+        name = _band_name(kind)
+        cases.update({
+            f"zoom_r_{name}": (full["zoom_r"], 5, 2048, kind),
+            f"saa_r_{name}": (full["saa"][1][0], 1, 4096, kind),
+            f"fwd_r_{name}": (full["frames"][1][0][0], 1, 4096, kind),
+            f"bwd_r_{name}": (full["frames"][1][2][0], 1, 2048, kind)})
     rng = np.random.default_rng(SEED)
     rows = []
     for name, (host_op, batch, width, dtype) in cases.items():
@@ -493,42 +667,70 @@ def phase_kernel(torch, f32_peak, host):
         x = torch.as_tensor(rng.uniform(0, 255, (batch, op.n_in, width)),
                             dtype=torch.float32, device=dev)
         got = banded_row_apply(pack, x)
-        want = banded_row_apply_reference(pack, x)
+        # the plain sum, before a kind's result rounding (BF16OUT, F16OUT)
+        want_sum = banded_row_apply_reference(pack, x, rounded=False)
+        want = round_result(dtype, want_sum)
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
         check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
-        check(err <= KERNEL_ATOL, f"{name}: max|kernel - plain| {err} > "
-                                  f"{KERNEL_ATOL}")
         # the error as a share of sum_k |b_k| |x_k| per output
         absolute = pack_banded([np.abs(b) for b in host_op.blocks],
                                host_op.col_ranges, op.n_out, op.n_in, dev)
         scale = banded_row_apply_reference(absolute, x)
         rel_err = ((got - want).abs() / scale.clamp_min(1e-30)).max().item()
-        del absolute, scale
+        share = K1_F64_SHARE if dtype == F64 else K1_SHARE
+        if KINDS[dtype].out is None:
+            check(err <= KERNEL_ATOL,
+                  f"{name}: max|kernel - plain| {err} > {KERNEL_ATOL}")
+            check(rel_err <= share,
+                  f"{name}: max|kernel - plain| / sum|b||x| {rel_err} > "
+                  f"{share}")
+        else:
+            # a value of the result's type, and the rounding of a sum within
+            # the share of the plain one (rounding to nearest is monotone)
+            lo = round_result(dtype, want_sum - share * scale)
+            hi = round_result(dtype, want_sum + share * scale)
+            check(torch.equal(got, round_result(dtype, got)),
+                  f"{name}: result not rounded to {KINDS[dtype].out}")
+            check(bool(((lo <= got) & (got <= hi)).all()),
+                  f"{name}: result outside the rounding of the plain sum "
+                  f"+- {share} sum|b||x|")
+        del absolute, scale, want_sum
         # the library yardstick: one dense matmul of the same function (for
         # bf16 bands, of the bf16-rounded operator and input, in f32; for
-        # the split, of the f32 operator, TF32 off)
-        lib_dtype = f32 if dtype == X3 else dtype
-        dense = torch.as_tensor(_dense(host_op), device=dev).to(
-            lib_dtype).float()
-        x_lib = x.to(lib_dtype).float()
+        # the bf16 splits, of the f32 operator, TF32 off; for the other
+        # kinds in the preset's type: tf32 on the tensor cores, f16, bf16
+        # with a bf16 result, f64)
+        peak, lib_dtype, lib_tf32 = _k1_kind_types(torch, dtype, f32_peak)
+        dense = torch.as_tensor(_dense(host_op), device=dev)
+        if lib_dtype == bf16 and dtype == bf16:
+            dense, x_lib = dense.to(bf16).float(), x.to(bf16).float()
+        else:
+            dense, x_lib = dense.to(lib_dtype), x.to(lib_dtype)
         kernel_ms = time_ms(torch, lambda: banded_row_apply(pack, x), 20)
         kernel_device_ms = device_ms(
             torch, lambda: banded_row_apply(pack, x), 20)
         plain_ms = time_ms(torch, lambda: banded_row_apply_reference(pack, x),
                            5)
-        library_ms = time_ms(torch, lambda: torch.matmul(dense, x_lib), 5)
+        torch.backends.cuda.matmul.allow_tf32 = lib_tf32
+        try:
+            library_ms = time_ms(torch, lambda: torch.matmul(dense, x_lib), 5)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
         # a multiply-add per nonzero band entry and column of x (the
         # 128-row block windows K1 walks count more: block_window_gflop)
         flops = 2.0 * _nonzeros(host_op) * width * batch
         window_flops = 2.0 * _true_window(host_op) * width * batch
         nbytes = (4.0 * (x.numel() + batch * op.n_out * width
                          + pack.meta.numel())
-                  + pack.bands.numel() * pack.bands.element_size()
-                  * (2 if dtype == X3 else 1))
-        # the split does three bf16 products of the f32 apply's work
-        ops = flops * (3 if dtype == X3 else 1)
-        window_ops = window_flops * (3 if dtype == X3 else 1)
+                  + sum(p.numel() * p.element_size() for p in pack.parts))
+        # a split does one product of the f32 apply's work per pair of
+        # parts it multiplies (X3 three, X6 six, X9 nine, TF32_X3 three)
+        spec = KINDS[dtype]
+        products = sum(1 for a in range(spec.parts)
+                       for b in range(spec.parts) if a + b <= spec.reach)
+        ops = flops * products
+        window_ops = window_flops * products
         row = {"phase": "kernel", "op": name, "bands": _band_name(dtype),
                "x": [batch, op.n_in, width], "out_rows": op.n_out,
                "blocks": len(host_op.blocks),
@@ -538,13 +740,14 @@ def phase_kernel(torch, f32_peak, host):
                "max_abs_err": err, "max_rel_err": rel_err,
                "kernel_ms": kernel_ms, "kernel_device_ms": kernel_device_ms,
                "plain_ms": plain_ms, "library_ms": library_ms,
-               **_bound(ops, nbytes, f32_peak if dtype == f32 else BF16_PEAK),
+               "library_type": str(lib_dtype).replace("torch.", "")
+               + (" (tf32)" if lib_tf32 else ""),
+               **_bound(ops, nbytes, peak),
                "kernel_tflops": ops / kernel_ms / 1e9}
         emit(row)
         row["block_window"] = {
             "gflop": window_ops / 1e9,
-            **_bound(window_ops, nbytes,
-                     f32_peak if dtype == f32 else BF16_PEAK)}
+            **_bound(window_ops, nbytes, peak)}
         rows.append(row)
         del dense, x, x_lib, got, want
     emit(_k1_solve_bound(rows))
@@ -1388,8 +1591,20 @@ def _warm_solve(torch, **kw):
     return res, launches, runs, sorted(runs)[1]
 
 
+# mm_precision names on K1's other instantiations: (name, K1 counter,
+# SAA_IBP's class of HIGHEST in uint8)
+NEW_PRESETS = (("BF16_BF16_F32_X6", "k1_x6", 1),
+               ("BF16_BF16_F32_X9", "k1_x9", 1),
+               ("TF32_TF32_F32", "k1_tf32", 2),
+               ("TF32_TF32_F32_X3", "k1_tf32x3", 1),
+               ("F16_F16_F32", "k1_f16", 2),
+               ("F16_F16_F16", "k1_f16out", 2),
+               ("BF16_BF16_BF16", "k1_bf16out", 3),
+               ("F64_F64_F64", "k1_f64", 1))
+
+
 def phase_precision(torch, mono, modes):
-    """Warm mono solves at the split and one-pass bf16 precisions."""
+    """Warm mono solves at the matmul precisions other than HIGHEST."""
     from enph459_super_resolution_tpu_torch.sr.classical import solve
 
     frames, psf, shifts = mono["frames"], mono["psf"], mono["shifts"]
@@ -1398,7 +1613,11 @@ def phase_precision(torch, mono, modes):
     highest = modes[("f32", "off")]
     cases = (("f32", "BF16_BF16_F32_X3", "k1_x3", 1),
              ("f32", "DEFAULT", "k1_bf16", 3),
-             (f"hybrid:{TAIL}", "BF16_BF16_F32_X3", "k1_x3", 1))
+             (f"hybrid:{TAIL}", "BF16_BF16_F32_X3", "k1_x3", 1),
+             # the other presets, each on its own K1 instantiation, within
+             # the class of HIGHEST the CPU tests state
+             # (tests/test_torch_precision.py)
+             *(("f32", name, key, tol) for name, key, tol in NEW_PRESETS))
     out = {}
     for store, precision, k1, tol in cases:
         res, launches, runs, solve_s = _warm_solve(
@@ -3379,6 +3598,7 @@ def main() -> int:
     shutil.rmtree(WORK, ignore_errors=True)
     try:
         card, f32_peak = phase_device(torch)
+        phase_native(torch)
         host = host_operators()
         k1_rows = phase_kernel(torch, f32_peak, host)
         fused_rows = phase_fused(torch, f32_peak, host)
@@ -3432,6 +3652,13 @@ def main() -> int:
                  precision["f32 BF16_BF16_F32_X3"]["launches"]["k1_x3"],
                  k1("x3"), next(r for r in k1_rows if r["op"] == "fwd_r_x3"),
                  card)]
+    for name, key, _ in NEW_PRESETS:
+        band = key[len("k1_"):]
+        entries.append(dict(
+            _summary(f"banded_rows_{band}", k1_src, k1_tpu,
+                     precision[f"f32 {name}"]["launches"][key], k1(band),
+                     next(r for r in k1_rows if r["op"] == f"fwd_r_{band}"),
+                     card), mm_precision=name))
     for kernel, line, key in (("fused_fwd", 237, "k2"),
                               ("fused_bwd", 264, "k3")):
         for dtype, launches in (("float32", f32_fused[f"{key}_f32"]),

@@ -3,47 +3,65 @@
 //   out[z, row0_b + r, w] = sum_k bands[b, k, r] * x[z, start_b + k, w]
 //   for r < rows_b, k < win, start_b + k < n_in.
 //
-// Three instantiations of one template: float32 bands (strict f32, the
-// default band store), bfloat16 bands (the bf16 band store, and float32
-// bands at mm_precision DEFAULT) and float32 bands split into bf16 halves
-// (mm_precision HIGH / BF16_BF16_F32_X3).
+// One template, instantiated for each band kind that a matmul precision
+// (ops/opmatrix.py MM_PRECISIONS) or a band store gives the row applies:
 //
-// * float32 bands: f32 FMA on the CUDA cores -- no tensor cores, no TF32
-//   and no 3xTF32, which the strict mode's parity contract forbids.
-// * bfloat16 bands: bf16 x bf16 products on the tensor cores (mma.sync
-//   m16n8k16) summed in f32.  x is rounded to bf16 (nearest even) as it
-//   enters the product, as the reference's bf16 einsum with
-//   preferred_element_type=float32 does (opmatrix.py BandedOp.row_apply);
-//   the band is exact as stored.  Products of two bf16 values are exact, so
-//   only the order of the f32 sum differs from the plain version.
-// * split (X3): the float32 bands come pre-split as two bf16 arrays, hi =
-//   bf16(b) and lo = bf16(b - hi), each in the k-major layout (together the
-//   bytes of the f32 bands); x is split the same way in registers, and each
-//   k16 step issues three mma.sync into one f32 accumulator: hi*hi, hi*lo
-//   and lo*hi.  The dropped lo*lo term and x's bits past its two halves are
-//   ~2^-16 of |b|*|x| per product: the 3-pass split XLA runs for HIGH.
-// All three write float32.
+// * float32 bands (strict f32, the default band store; HIGHEST): f32 FMA on
+//   the CUDA cores -- no tensor cores, no TF32 and no 3xTF32, which the
+//   strict mode's parity contract forbids.
+// * bfloat16 bands (the bf16 band store; DEFAULT / BF16_BF16_F32): bf16 x
+//   bf16 products on the tensor cores (mma.sync m16n8k16) summed in f32.
+//   x is rounded to bf16 (nearest even) as it enters the product, as the
+//   reference's bf16 einsum with preferred_element_type=float32 does
+//   (opmatrix.py BandedOp.row_apply); the band is exact as stored.
+//   Products of two bf16 values are exact, so only the order of the f32
+//   sum differs from the plain version.  BF16_BF16_BF16 is the same
+//   product with the result rounded to bf16 in the epilogue (the sum stays
+//   f32: a departure from the preset's bf16 accumulator).
+// * split bands, bf16 parts (BF16_BF16_F32_X3 / HIGH, _X6, _X9): the
+//   float32 bands come pre-split into P bf16 arrays, part 0 = bf16(b) and
+//   part p = bf16(b - parts before it), each in the k-major layout; x is
+//   split the same way in registers, and each k16 step issues one mma.sync
+//   per pair of parts (p, q) with p + q <= S into one f32 accumulator.
+//   X3: P = 2, S = 1 (hi*hi, hi*lo, lo*hi; the dropped lo*lo and x's bits
+//   past its two halves are ~2^-16 of |b|*|x|, the 3-pass split XLA runs
+//   for HIGH); X6: P = 3, S = 2 (the six products whose part indices sum
+//   to <= 2, ~2^-24); X9: P = 3, all nine.
+// * tf32 bands (TF32_TF32_F32, _X3): mma.sync m16n8k8 .tf32 summed in f32.
+//   The bands are stored as f32 already rounded to tf32 (nearest, ties away
+//   from zero); x is rounded in registers by cvt.rna.tf32.f32, the same
+//   rule.  _X3 splits both into two tf32 parts, hi = tf32(v) and lo =
+//   tf32(v - hi), and sums hi*hi + hi*lo + lo*hi.  Products of two tf32
+//   values (11-bit significands) are exact in f32.
+// * f16 bands (F16_F16_F32, F16_F16_F16): mma.sync m16n8k16 .f16 summed in
+//   f32, x rounded to f16 (nearest even) in registers; F16_F16_F16 rounds
+//   the result to f16 in the epilogue (JAX's CPU backend: f16 operands, a
+//   wide sum, an f16 result).  Band entries below 6.1e-5 are f16
+//   subnormals, below 6e-8 zero, in the plain version too.
+// * f64 (F64_F64_F64): float32 bands and x widened to f64 in registers, f64
+//   FMA on the CUDA cores, the result rounded to f32.
+// Every instantiation writes float32.
 //
 // Replaces the TPU kernel enph459_super_resolution_tpu/ops/pallas_kernels.py
-// `_row_kernel` (launched by `_banded_row_pallas`) and the reference's bf16
-// row einsum: every row apply of the banded classical solve
-// (ops/opmatrix.py BandedOp.row_apply).  Operands come from
+// `_row_kernel` (launched by `_banded_row_pallas`) and the reference's
+// row einsums at the other precisions: every row apply of the banded
+// classical solve (ops/opmatrix.py BandedOp.row_apply).  Operands come from
 // ops/banded_rows.py `pack_banded`, which stores each band block k-major,
 // [n_blk][win][128], so a window chunk is one contiguous run.
 //
 // What bounds it.  At the flagship size (LR 1536x2048 -> HR 3072x4096) the
-// forward row operator does 2*1536*293*4096 = 3.65 GFLOP over ~84 MB
-// (read the 3072x4096 HR image with ~1.14x window overlap, write 1536x4096),
-// ~43 FLOP/B.  On the float32 CUDA cores it is bound by operations, at
-// SMs x 128 FMA/clk x 2 x SM clock (~67 TFLOP/s on an H100 SXM at 700 W):
-// 0.055 ms.  With bf16 bands on the tensor cores (989 TFLOP/s) it is bound
-// by bytes: 0.023 ms.  The split runs three bf16 products of the same work
-// (0.011 ms of tensor-core time) over the same bytes: 0.023 ms, bytes.
+// forward row operator does 2*1536*293*4096 = 3.65 GFLOP over its 128-row
+// block windows (0.489 GFLOP over the bands' nonzeros) and moves ~84 MB
+// (read the 3072x4096 HR image, write 1536x4096).  Over the nonzeros every
+// instantiation is bound by bytes (0.023 ms) but f64: its 0.489 GFLOP on
+// the f64 FMA units (67 TFLOP/s at most, the DMMA rate; half that without
+// DMMA) take 0.0073 ms.  The split kinds do P(P+1)/2 .. P^2 tensor-core
+// products of the same work, still under the bytes.
 //
 // Design.  What the TPU kernel spent its code on (HBM-pinned operands,
 // scalar-prefetched window starts, hand double-buffered DMA, 8-aligned
 // starts and W % 256) has no counterpart here.  One CUDA block computes a
-// 128-row x 128-column output tile of one band block b for one batch index
+// 128-row x BN-column output tile of one band block b for one batch index
 // z, reading its own window start, first output row and row count.  It
 // walks the window in K-chunks of 16 rows through a 4-stage ring in shared
 // memory filled by cp.async (16-byte copies; 4-byte ones where W % 4 != 0),
@@ -56,20 +74,29 @@
 //   1.45 waves of 264.  Grids of whole waves measured slower on the card:
 //   one block per SM (a 7-stage ring, 2.91 waves of 132) and 96-column
 //   tiles (1.95 waves of 264) cost more per block than the partial wave.
-// * bfloat16: each of the 8 warps computes 64 rows x 32 columns with
-//   mma.sync m16n8k16.  A comes from the k-major band chunk by
-//   ldmatrix.trans (row stride 272 B: the 8 rows of one matrix fall in
-//   distinct banks); B is read from the f32 x chunk (row stride 132 floats:
-//   conflict-free) and rounded to bf16 pairs in registers.
-// * split: as bfloat16, with a hi and a lo band chunk in each stage and x
-//   split into hi and lo pairs; per m16 tile the A fragments of hi, then of
-//   lo, each over the warp's four n8 tiles.
+// * f64: as float32 with 64-column tiles (BN = 64), each thread an 8 x 4
+//   f64 register tile (64 registers of accumulator).
+// * 16-bit bands (bf16, f16, the bf16 splits): each of the 8 warps computes
+//   64 rows x 32 columns with mma.sync m16n8k16.  A comes from the k-major
+//   band chunk by ldmatrix.trans (row stride 272 B: the 8 rows of one
+//   matrix fall in distinct banks); B is read from the f32 x chunk (row
+//   stride 132 floats: conflict-free) and rounded or split into 16-bit
+//   pairs in registers.  A split stage holds P band chunks; per m16 tile
+//   the A fragments of each part in turn, each over the warp's four n8
+//   tiles and the x parts it pairs with.
+// * tf32 bands: the same warp tiles with mma.sync m16n8k8, two k8 steps a
+//   chunk; A fragments are 32-bit elements read straight from the k-major
+//   f32 band chunk (row stride 136 floats), B from the x chunk (row stride
+//   136 floats), both conflict-free.
 // The ragged edges are masked (columns >= W, window rows >= n_in, rows >=
 // rows_b), so every shape runs on the kernel.  Compile without
 // --use_fast_math.
 
 #include <cstdint>
+#include <type_traits>
+
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include "mma_bf16.cuh"
@@ -77,18 +104,37 @@
 namespace {
 
 constexpr int BM = 128;       // rows of a band block (banded_rows.py ROWS)
-constexpr int BN = 128;       // output columns per CUDA block
 constexpr int BK = 16;        // window rows per chunk (banded_rows.py K_CHUNK)
 constexpr int STAGES = 4;     // depth of the cp.async ring
 constexpr int THREADS = 256;
-constexpr int XS = BN + 4;    // row stride of a staged x chunk, in floats
 constexpr int MAX_GRID_Z = 65535;
+constexpr int MAX_PARTS = 3;
 
-// The split instantiation's tag: float32 bands stored as bf16 hi and lo.
-struct Split {};
+// How a tensor-core kind rounds its f32 sum before the store.
+enum Round { kRoundF32 = 0, kRoundBf16 = 1, kRoundF16 = 2 };
+
+// Band kinds.  float: f32 FMA.  F64: f32 bands, f64 FMA.  Mma<E, P, S, R>:
+// tensor-core products of element type E (__nv_bfloat16, __half or Tf32)
+// over P band parts, the pairs of parts (p, q) with p + q <= S, the result
+// rounded by R.
+struct F64 {};
+struct Tf32 {};  // float storage holding tf32 values
+template <typename E, int P, int S, int R>
+struct Mma {};
+
+using Bf16 = Mma<__nv_bfloat16, 1, 0, kRoundF32>;
+using Bf16Out = Mma<__nv_bfloat16, 1, 0, kRoundBf16>;
+using SplitX3 = Mma<__nv_bfloat16, 2, 1, kRoundF32>;
+using SplitX6 = Mma<__nv_bfloat16, 3, 2, kRoundF32>;
+using SplitX9 = Mma<__nv_bfloat16, 3, 4, kRoundF32>;
+using Tf32x1 = Mma<Tf32, 1, 0, kRoundF32>;
+using Tf32x3 = Mma<Tf32, 2, 1, kRoundF32>;
+using F16 = Mma<__half, 1, 0, kRoundF32>;
+using F16Out = Mma<__half, 1, 0, kRoundF16>;
 
 // Shared-memory layout of one stage for a band kind: PARTS band chunks
-// [BK][AS] of Elem (k-major) and the x chunk [BK][XS] float32.
+// [BK][AS] of Elem (k-major) and the x chunk [BK][XS] float32; BN output
+// columns per CUDA block.
 template <typename Kind>
 struct Stage;
 template <>
@@ -96,20 +142,28 @@ struct Stage<float> {
   using Elem = float;
   static constexpr int PARTS = 1;
   static constexpr int AS = BM;  // float4 reads of 8 rows: no padding needed
+  static constexpr int BN = 128;
+  static constexpr int XS = BN + 4;
   static constexpr int MIN_BLOCKS = 1;
 };
 template <>
-struct Stage<__nv_bfloat16> {
-  using Elem = __nv_bfloat16;
+struct Stage<F64> {
+  using Elem = float;
   static constexpr int PARTS = 1;
-  static constexpr int AS = BM + 8;  // 272-byte rows for ldmatrix.trans
+  static constexpr int AS = BM;
+  static constexpr int BN = 64;
+  static constexpr int XS = BN + 4;
   static constexpr int MIN_BLOCKS = 2;
 };
-template <>
-struct Stage<Split> {
-  using Elem = __nv_bfloat16;
-  static constexpr int PARTS = 2;  // hi, then lo
+template <typename E, int P, int S, int R>
+struct Stage<Mma<E, P, S, R>> {
+  using Elem = std::conditional_t<std::is_same_v<E, Tf32>, float, E>;
+  static constexpr int PARTS = P;
+  // 16-bit: 272-byte rows for ldmatrix.trans; tf32: 136 floats, so the
+  // fragment reads of rows t and t + 4 fall in distinct banks
   static constexpr int AS = BM + 8;
+  static constexpr int BN = 128;
+  static constexpr int XS = sizeof(Elem) == 4 ? BN + 8 : BN + 4;
   static constexpr int MIN_BLOCKS = 2;
 };
 
@@ -124,17 +178,110 @@ __host__ __device__ constexpr int a_bytes() {
 }
 template <typename Kind>
 __host__ __device__ constexpr int stage_bytes() {
-  return a_bytes<Kind>() + BK * XS * 4;
+  return a_bytes<Kind>() + BK * Stage<Kind>::XS * 4;
 }
 
-// Two floats split into bf16 pairs, `a` in the low halves: hi = bf16(v)
-// and lo = bf16(v - hi), both nearest even (v - hi is exact in f32).
-__device__ __forceinline__ void split_bf16x2(float a, float b, uint32_t& hi,
-                                             uint32_t& lo) {
-  using namespace mma_bf16;
-  hi = pack_bf16x2(a, b);
-  const float2 h = unpack_bf16x2(hi);
-  lo = pack_bf16x2(a - h.x, b - h.y);
+// The band arrays of one launch: PARTS of them, each [n_blk][win][BM].
+template <typename Elem>
+struct Parts {
+  const Elem* p[MAX_PARTS];
+};
+
+// Two floats as a 16-bit pair, `a` in the low half (nearest even), and back.
+template <typename E>
+__device__ __forceinline__ uint32_t pack2(float a, float b);
+template <>
+__device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float a, float b) {
+  return mma_bf16::pack_bf16x2(a, b);
+}
+template <>
+__device__ __forceinline__ uint32_t pack2<__half>(float a, float b) {
+  const __half2 v = __floats2half2_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+template <typename E>
+__device__ __forceinline__ float2 unpack2(uint32_t v);
+template <>
+__device__ __forceinline__ float2 unpack2<__nv_bfloat16>(uint32_t v) {
+  return mma_bf16::unpack_bf16x2(v);
+}
+template <>
+__device__ __forceinline__ float2 unpack2<__half>(uint32_t v) {
+  return __half22float2(*reinterpret_cast<const __half2*>(&v));
+}
+
+// Two floats split into P 16-bit pairs: part 0 = round(v), part p =
+// round(v - parts before it); each difference is exact in f32.
+template <typename E, int P>
+__device__ __forceinline__ void split_pair(float a, float b,
+                                           uint32_t (&out)[P]) {
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    out[p] = pack2<E>(a, b);
+    if (p + 1 < P) {
+      const float2 h = unpack2<E>(out[p]);
+      a -= h.x;
+      b -= h.y;
+    }
+  }
+}
+
+// A float rounded to tf32 (nearest, ties away from zero), as f32 bits.
+__device__ __forceinline__ uint32_t to_tf32(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r & 0xffffe000u;
+}
+
+template <int P>
+__device__ __forceinline__ void split_tf32(float v, uint32_t (&out)[P]) {
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    out[p] = to_tf32(v);
+    if (p + 1 < P) v -= __uint_as_float(out[p]);
+  }
+}
+
+// d += A * B for one m16n8k16 tile of f16 operands, f32 accumulator (the
+// fragment layout of mma_bf16.cuh).
+__device__ __forceinline__ void mma_16816_f16(float (&d)[4],
+                                              const uint32_t (&a)[4],
+                                              uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+template <typename E>
+__device__ __forceinline__ void mma16(float (&d)[4], const uint32_t (&a)[4],
+                                      uint32_t b0, uint32_t b1) {
+  if constexpr (std::is_same_v<E, __half>)
+    mma_16816_f16(d, a, b0, b1);
+  else
+    mma_bf16::mma_16816(d, a, b0, b1);
+}
+
+// d += A * B for one m16n8k8 tile of tf32 operands, f32 accumulator.  For
+// lane l, g = l / 4 and t = l % 4: a0 = A[g][t], a1 = A[g+8][t], a2 =
+// A[g][t+4], a3 = A[g+8][t+4]; b0 = B[t][g], b1 = B[t+4][g]; C as m16n8k16.
+__device__ __forceinline__ void mma_1688_tf32(float (&d)[4],
+                                              const uint32_t (&a)[4],
+                                              uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+template <int R>
+__device__ __forceinline__ float round_out(float v) {
+  if constexpr (R == kRoundBf16)
+    return __bfloat162float(__float2bfloat16_rn(v));
+  if constexpr (R == kRoundF16) return __half2float(__float2half_rn(v));
+  return v;
 }
 
 struct Block {
@@ -142,22 +289,22 @@ struct Block {
   int start, w0, n_in, W;
 };
 
-// cp.async window chunk `kc` of the band (of both halves for the split) and
-// of x into one ring stage.
+// cp.async window chunk `kc` of every band part and of x into one ring
+// stage.
 template <typename Kind, bool kVec>
 __device__ __forceinline__ void load_chunk(
-    char* stage, const typename Stage<Kind>::Elem* __restrict__ band,
-    const typename Stage<Kind>::Elem* __restrict__ band_lo, const Block& bl,
-    int kc, int tid) {
+    char* stage, const Parts<typename Stage<Kind>::Elem>& band,
+    const Block& bl, int kc, int tid) {
   using namespace mma_bf16;
   using Elem = typename Stage<Kind>::Elem;
   constexpr int PER16 = 16 / static_cast<int>(sizeof(Elem));
   constexpr int PIECES = BK * BM / PER16;
   constexpr int AS = Stage<Kind>::AS;
+  constexpr int BN = Stage<Kind>::BN;
+  constexpr int XS = Stage<Kind>::XS;
 #pragma unroll
   for (int p = 0; p < Stage<Kind>::PARTS; ++p) {
-    const Elem* src =
-        (p == 0 ? band : band_lo) + static_cast<size_t>(kc) * BK * BM;
+    const Elem* src = band.p[p] + static_cast<size_t>(kc) * BK * BM;
     Elem* as = reinterpret_cast<Elem*>(stage + p * part_bytes<Kind>());
 #pragma unroll
     for (int i = 0; i < PIECES / THREADS; ++i) {
@@ -197,6 +344,7 @@ __device__ __forceinline__ void load_chunk(
 // float32 bands: thread (ty, tx) owns rows ty*8 .. +7 and columns
 // tx*4 .. +3 and 64 + tx*4 .. +3.
 struct FmaTile {
+  static constexpr int XS = Stage<float>::XS;
   float acc[8][8];
 
   __device__ __forceinline__ void zero() {
@@ -256,12 +404,69 @@ struct FmaTile {
   }
 };
 
-// bfloat16 or split bands: warp (wm, wn) = (warp % 2, warp / 2) owns rows
-// wm*64 .. +63 (4 m16 tiles) and columns wn*32 .. +31 (4 n8 tiles).
-template <typename Kind>
-struct MmaTile {
-  static constexpr bool kSplit = Stage<Kind>::PARTS == 2;
+// f64: thread (ty, tx) owns rows ty*8 .. +7 and columns tx*4 .. +3 of a
+// 64-column tile; bands and x are widened to f64 as they are read.
+struct F64Tile {
+  static constexpr int XS = Stage<F64>::XS;
+  double acc[8][4];
 
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = 0.0;
+  }
+
+  __device__ __forceinline__ void step(const char* stage, int tid) {
+    const float* as = reinterpret_cast<const float*>(stage);
+    const float* xs = reinterpret_cast<const float*>(stage + a_bytes<F64>());
+    const int ty = tid / 16;
+    const int tx = tid % 16;
+#pragma unroll
+    for (int k = 0; k < BK; ++k) {
+      const float4 a0 = *reinterpret_cast<const float4*>(as + k * BM + ty * 8);
+      const float4 a1 =
+          *reinterpret_cast<const float4*>(as + k * BM + ty * 8 + 4);
+      const float4 b0 = *reinterpret_cast<const float4*>(xs + k * XS + tx * 4);
+      const double a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const double b[4] = {b0.x, b0.y, b0.z, b0.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fma(a[i], b[j], acc[i][j]);
+    }
+  }
+
+  template <bool kVec>
+  __device__ __forceinline__ void store(float* oz, int row0, int nrow, int w0,
+                                        int W, int tid) const {
+    const int ty = tid / 16;
+    const int tx = tid % 16;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int r = ty * 8 + i;
+      if (r >= nrow) break;
+      float* orow = oz + static_cast<size_t>(row0 + r) * W;
+      const int c = w0 + tx * 4;
+      if (kVec) {
+        if (c < W)
+          *reinterpret_cast<float4*>(orow + c) = make_float4(
+              static_cast<float>(acc[i][0]), static_cast<float>(acc[i][1]),
+              static_cast<float>(acc[i][2]), static_cast<float>(acc[i][3]));
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (c + j < W) orow[c + j] = static_cast<float>(acc[i][j]);
+      }
+    }
+  }
+};
+
+// The tensor-core tiles: warp (wm, wn) = (warp % 2, warp / 2) owns rows
+// wm*64 .. +63 (4 m16 tiles) and columns wn*32 .. +31 (4 n8 tiles); the C
+// fragments are stored after rounding by R.
+template <int R>
+struct MmaAcc {
   float acc[4][4][4];
 
   __device__ __forceinline__ void zero() {
@@ -271,59 +476,6 @@ struct MmaTile {
       for (int j = 0; j < 4; ++j)
 #pragma unroll
         for (int k = 0; k < 4; ++k) acc[i][j][k] = 0.f;
-  }
-
-  __device__ __forceinline__ void step(const char* stage, int tid) {
-    using namespace mma_bf16;
-    constexpr int AS = Stage<Kind>::AS;
-    const __nv_bfloat16* as = reinterpret_cast<const __nv_bfloat16*>(stage);
-    const __nv_bfloat16* as_lo =
-        reinterpret_cast<const __nv_bfloat16*>(stage + part_bytes<Kind>());
-    const float* xs = reinterpret_cast<const float*>(stage + a_bytes<Kind>());
-    const int lane = tid & 31;
-    const int warp = tid >> 5;
-    const int wm = warp & 1;
-    const int wn = warp >> 1;
-    const int g = lane >> 2;
-    const int q = lane & 3;
-    // x as bf16 pairs along k: b0 = rows 2q, 2q+1; b1 = rows 2q+8, 2q+9
-    // (split: hi pairs in b, lo pairs in bl)
-    uint32_t b[4][2], bl[4][2];
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const float* col = xs + wn * 32 + nt * 8 + g;
-      if (kSplit) {
-        split_bf16x2(col[(2 * q) * XS], col[(2 * q + 1) * XS], b[nt][0],
-                     bl[nt][0]);
-        split_bf16x2(col[(2 * q + 8) * XS], col[(2 * q + 9) * XS], b[nt][1],
-                     bl[nt][1]);
-      } else {
-        b[nt][0] = pack_bf16x2(col[(2 * q) * XS], col[(2 * q + 1) * XS]);
-        b[nt][1] = pack_bf16x2(col[(2 * q + 8) * XS], col[(2 * q + 9) * XS]);
-      }
-    }
-    // lanes 8m..8m+7 address matrix m: k rows (m / 2) * 8 + lane % 8 at
-    // band rows +(m % 2) * 8 of the m16 tile
-    const int krow = (lane & 7) + (lane >> 4) * 8;
-    const int rsub = ((lane >> 3) & 1) * 8;
-    const int aoff = krow * AS + wm * 64 + rsub;
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt) {
-      uint32_t a[4];
-      ldmatrix_x4_trans(a, as + aoff + mt * 16);
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-        mma_16816(acc[mt][nt], a, b[nt][0], b[nt][1]);
-      if (kSplit) {
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-          mma_16816(acc[mt][nt], a, bl[nt][0], bl[nt][1]);
-        ldmatrix_x4_trans(a, as_lo + aoff + mt * 16);
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-          mma_16816(acc[mt][nt], a, b[nt][0], b[nt][1]);
-      }
-    }
   }
 
   template <bool kVec>
@@ -343,32 +495,138 @@ struct MmaTile {
 #pragma unroll
         for (int nt = 0; nt < 4; ++nt) {
           const int c = w0 + (warp >> 1) * 32 + nt * 8 + 2 * q;
+          const float v0 = round_out<R>(acc[mt][nt][2 * h]);
+          const float v1 = round_out<R>(acc[mt][nt][2 * h + 1]);
           if (kVec) {
             if (c < W)
-              *reinterpret_cast<float2*>(orow + c) =
-                  make_float2(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
+              *reinterpret_cast<float2*>(orow + c) = make_float2(v0, v1);
           } else {
-            if (c < W) orow[c] = acc[mt][nt][2 * h];
-            if (c + 1 < W) orow[c + 1] = acc[mt][nt][2 * h + 1];
+            if (c < W) orow[c] = v0;
+            if (c + 1 < W) orow[c + 1] = v1;
           }
         }
       }
   }
 };
 
+// 16-bit band kinds (bf16, f16, the bf16 splits): mma.sync m16n8k16.
 template <typename Kind>
-struct TileOf {
-  using type = MmaTile<Kind>;
+struct Mma16Tile;
+template <typename E, int P, int S, int R>
+struct Mma16Tile<Mma<E, P, S, R>> : MmaAcc<R> {
+  using Kind = Mma<E, P, S, R>;
+  static constexpr int AS = Stage<Kind>::AS;
+  static constexpr int XS = Stage<Kind>::XS;
+
+  __device__ __forceinline__ void step(const char* stage, int tid) {
+    using namespace mma_bf16;
+    const float* xs = reinterpret_cast<const float*>(stage + a_bytes<Kind>());
+    const int lane = tid & 31;
+    const int warp = tid >> 5;
+    const int wm = warp & 1;
+    const int wn = warp >> 1;
+    const int g = lane >> 2;
+    const int q = lane & 3;
+    // x as 16-bit pairs along k, split into P parts: b[nt][0] = rows 2q,
+    // 2q+1; b[nt][1] = rows 2q+8, 2q+9
+    uint32_t b[4][2][P];
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const float* col = xs + wn * 32 + nt * 8 + g;
+      split_pair<E, P>(col[(2 * q) * XS], col[(2 * q + 1) * XS], b[nt][0]);
+      split_pair<E, P>(col[(2 * q + 8) * XS], col[(2 * q + 9) * XS],
+                       b[nt][1]);
+    }
+    // lanes 8m..8m+7 address matrix m: k rows (m / 2) * 8 + lane % 8 at
+    // band rows +(m % 2) * 8 of the m16 tile
+    const int krow = (lane & 7) + (lane >> 4) * 8;
+    const int rsub = ((lane >> 3) & 1) * 8;
+    const int aoff = krow * AS + wm * 64 + rsub;
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        const E* as =
+            reinterpret_cast<const E*>(stage + p * part_bytes<Kind>());
+        uint32_t a[4];
+        ldmatrix_x4_trans(a, as + aoff + mt * 16);
+#pragma unroll
+        for (int qq = 0; qq < P; ++qq) {
+          if (p + qq > S) continue;
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+            mma16<E>(this->acc[mt][nt], a, b[nt][0][qq], b[nt][1][qq]);
+        }
+      }
+  }
 };
+
+// tf32 band kinds: mma.sync m16n8k8, two k8 steps per chunk.
+template <int P, int S, int R>
+struct Tf32Tile : MmaAcc<R> {
+  using Kind = Mma<Tf32, P, S, R>;
+  static constexpr int AS = Stage<Kind>::AS;
+  static constexpr int XS = Stage<Kind>::XS;
+
+  __device__ __forceinline__ void step(const char* stage, int tid) {
+    const float* xs = reinterpret_cast<const float*>(stage + a_bytes<Kind>());
+    const int lane = tid & 31;
+    const int warp = tid >> 5;
+    const int wm = warp & 1;
+    const int wn = warp >> 1;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+#pragma unroll
+    for (int k0 = 0; k0 < BK; k0 += 8) {
+      uint32_t b[4][2][P];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const float* col = xs + wn * 32 + nt * 8 + g;
+        split_tf32<P>(col[(k0 + t) * XS], b[nt][0]);
+        split_tf32<P>(col[(k0 + t + 4) * XS], b[nt][1]);
+      }
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+        for (int p = 0; p < P; ++p) {
+          const uint32_t* ap = reinterpret_cast<const uint32_t*>(
+                                   stage + p * part_bytes<Kind>()) +
+                               (k0 + t) * AS + wm * 64 + mt * 16 + g;
+          const uint32_t a[4] = {ap[0], ap[8], ap[4 * AS], ap[4 * AS + 8]};
+#pragma unroll
+          for (int qq = 0; qq < P; ++qq) {
+            if (p + qq > S) continue;
+#pragma unroll
+            for (int nt = 0; nt < 4; ++nt)
+              mma_1688_tf32(this->acc[mt][nt], a, b[nt][0][qq], b[nt][1][qq]);
+          }
+        }
+    }
+  }
+};
+
+template <typename Kind>
+struct TileOf;
 template <>
 struct TileOf<float> {
   using type = FmaTile;
 };
+template <>
+struct TileOf<F64> {
+  using type = F64Tile;
+};
+template <typename E, int P, int S, int R>
+struct TileOf<Mma<E, P, S, R>> {
+  using type = Mma16Tile<Mma<E, P, S, R>>;
+};
+template <int P, int S, int R>
+struct TileOf<Mma<Tf32, P, S, R>> {
+  using type = Tf32Tile<P, S, R>;
+};
 
 template <typename Kind, bool kVec>
 __global__ void __launch_bounds__(THREADS, Stage<Kind>::MIN_BLOCKS)
-banded_rows_kernel(const typename Stage<Kind>::Elem* __restrict__ bands,
-                   const typename Stage<Kind>::Elem* __restrict__ bands_lo,
+banded_rows_kernel(const Parts<typename Stage<Kind>::Elem> bands,
                    const int* __restrict__ starts,
                    const int* __restrict__ out_row0,
                    const int* __restrict__ rows,
@@ -379,12 +637,11 @@ banded_rows_kernel(const typename Stage<Kind>::Elem* __restrict__ bands,
   const int b = blockIdx.x;
   const size_t z = static_cast<size_t>(blockIdx.z) + z0;
   const Block bl = {x + z * n_in * W, starts[b],
-                    static_cast<int>(blockIdx.y) * BN, n_in, W};
-  using Elem = typename Stage<Kind>::Elem;
-  const Elem* band = bands + static_cast<size_t>(b) * win * BM;
-  const Elem* band_lo =
-      Stage<Kind>::PARTS == 2 ? bands_lo + static_cast<size_t>(b) * win * BM
-                              : nullptr;
+                    static_cast<int>(blockIdx.y) * Stage<Kind>::BN, n_in, W};
+  Parts<typename Stage<Kind>::Elem> band = bands;
+#pragma unroll
+  for (int p = 0; p < Stage<Kind>::PARTS; ++p)
+    band.p[p] += static_cast<size_t>(b) * win * BM;
   const int tid = threadIdx.x;
   const int nk = win / BK;
 
@@ -394,8 +651,8 @@ banded_rows_kernel(const typename Stage<Kind>::Elem* __restrict__ bands,
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
     if (s < nk)
-      load_chunk<Kind, kVec>(smem + s * stage_bytes<Kind>(), band, band_lo,
-                             bl, s, tid);
+      load_chunk<Kind, kVec>(smem + s * stage_bytes<Kind>(), band, bl, s,
+                             tid);
     cp_async_commit();
   }
   for (int kc = 0; kc < nk; ++kc) {
@@ -406,7 +663,7 @@ banded_rows_kernel(const typename Stage<Kind>::Elem* __restrict__ bands,
     const int next = kc + STAGES - 1;
     if (next < nk)
       load_chunk<Kind, kVec>(smem + (next % STAGES) * stage_bytes<Kind>(),
-                             band, band_lo, bl, next, tid);
+                             band, bl, next, tid);
     cp_async_commit();
     tile.step(smem + (kc % STAGES) * stage_bytes<Kind>(), tid);
   }
@@ -415,12 +672,12 @@ banded_rows_kernel(const typename Stage<Kind>::Elem* __restrict__ bands,
 }
 
 template <typename Kind, bool kVec>
-int launch_kind(const typename Stage<Kind>::Elem* bands,
-                const typename Stage<Kind>::Elem* bands_lo, const int* starts,
-                const int* out_row0, const int* rows, const float* x,
-                float* out, int n_blk, int win, int n_in, int n_out, int W,
-                int batch, cudaStream_t s) {
+int launch_kind(const Parts<typename Stage<Kind>::Elem>& bands,
+                const int* starts, const int* out_row0, const int* rows,
+                const float* x, float* out, int n_blk, int win, int n_in,
+                int n_out, int W, int batch, cudaStream_t s) {
   constexpr int smem = STAGES * stage_bytes<Kind>();
+  constexpr int BN = Stage<Kind>::BN;
   auto kernel = banded_rows_kernel<Kind, kVec>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -428,8 +685,8 @@ int launch_kind(const typename Stage<Kind>::Elem* bands,
   for (int z0 = 0; z0 < batch; z0 += MAX_GRID_Z) {
     const int nz = batch - z0 < MAX_GRID_Z ? batch - z0 : MAX_GRID_Z;
     const dim3 grid(n_blk, (W + BN - 1) / BN, nz);
-    kernel<<<grid, THREADS, smem, s>>>(bands, bands_lo, starts, out_row0,
-                                       rows, x, out, win, n_in, n_out, W, z0);
+    kernel<<<grid, THREADS, smem, s>>>(bands, starts, out_row0, rows, x, out,
+                                       win, n_in, n_out, W, z0);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
@@ -437,65 +694,107 @@ int launch_kind(const typename Stage<Kind>::Elem* bands,
 }
 
 template <typename Kind>
-int launch(const typename Stage<Kind>::Elem* bands,
-           const typename Stage<Kind>::Elem* bands_lo, const int* starts,
+int launch(const typename Stage<Kind>::Elem* const* parts, const int* starts,
            const int* out_row0, const int* rows, const float* x, float* out,
            int n_blk, int win, int n_in, int n_out, int W, int batch,
            void* stream) {
   if (n_blk <= 0 || win <= 0 || win % BK != 0 || n_in <= 0 || n_out <= 0 ||
       W <= 0 || batch <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  if ((reinterpret_cast<uintptr_t>(bands) & 15) != 0 ||
-      (Stage<Kind>::PARTS == 2 &&
-       (reinterpret_cast<uintptr_t>(bands_lo) & 15) != 0))
-    return static_cast<int>(cudaErrorMisalignedAddress);
+  Parts<typename Stage<Kind>::Elem> bands = {};
+  for (int p = 0; p < Stage<Kind>::PARTS; ++p) {
+    if ((reinterpret_cast<uintptr_t>(parts[p]) & 15) != 0)
+      return static_cast<int>(cudaErrorMisalignedAddress);
+    bands.p[p] = parts[p];
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // 16-byte copies and stores need every row of x and out 16-byte aligned
   const bool vec = W % 4 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0 &&
                    (reinterpret_cast<uintptr_t>(out) & 15) == 0;
-  return vec ? launch_kind<Kind, true>(bands, bands_lo, starts, out_row0,
-                                       rows, x, out, n_blk, win, n_in, n_out,
-                                       W, batch, s)
-             : launch_kind<Kind, false>(bands, bands_lo, starts, out_row0,
-                                        rows, x, out, n_blk, win, n_in, n_out,
-                                        W, batch, s);
+  return vec ? launch_kind<Kind, true>(bands, starts, out_row0, rows, x, out,
+                                       n_blk, win, n_in, n_out, W, batch, s)
+             : launch_kind<Kind, false>(bands, starts, out_row0, rows, x, out,
+                                        n_blk, win, n_in, n_out, W, batch, s);
 }
 
 }  // namespace
 
 // Launch the kernel on `stream` for a [batch, n_in, W] input and a
 // [batch, n_out, W] output (both contiguous float32); `starts`, `out_row0`
-// and `rows` hold n_blk int32 each, `bands` n_blk x win x 128 (k-major,
-// 16-byte aligned) float32 (banded_rows_launch) or bfloat16
-// (banded_rows_bf16_launch), or two such bfloat16 arrays, the hi and lo
-// halves of float32 bands (banded_rows_x3_launch).  Each returns
-// cudaGetLastError() after the launch (0 on success).
-extern "C" int banded_rows_launch(const float* bands, const int* starts,
-                                  const int* out_row0, const int* rows,
-                                  const float* x, float* out, int n_blk,
-                                  int win, int n_in, int n_out, int W,
-                                  int batch, void* stream) {
-  return launch<float>(bands, nullptr, starts, out_row0, rows, x, out, n_blk,
-                       win, n_in, n_out, W, batch, stream);
+// and `rows` hold n_blk int32 each; each band array is n_blk x win x 128
+// (k-major, 16-byte aligned): float32 (banded_rows_launch, _f64_launch;
+// tf32-rounded for _tf32_launch), bfloat16 (_bf16_launch, _bf16out_launch),
+// float16 (_f16_launch, _f16out_launch), or the parts of split bands in
+// order, hi first: two bfloat16 arrays (_x3_launch), three (_x6_launch,
+// _x9_launch) or two tf32-rounded float32 arrays (_tf32x3_launch).  Each
+// returns cudaGetLastError() after the launch (0 on success).
+#define BANDED_ROWS_ARGS                                                   \
+  const int *starts, const int *out_row0, const int *rows, const float *x, \
+      float *out, int n_blk, int win, int n_in, int n_out, int W, int batch, \
+      void *stream
+#define BANDED_ROWS_PASS \
+  starts, out_row0, rows, x, out, n_blk, win, n_in, n_out, W, batch, stream
+
+extern "C" int banded_rows_launch(const float* bands, BANDED_ROWS_ARGS) {
+  const float* parts[] = {bands};
+  return launch<float>(parts, BANDED_ROWS_PASS);
 }
 
-extern "C" int banded_rows_bf16_launch(const __nv_bfloat16* bands,
-                                       const int* starts, const int* out_row0,
-                                       const int* rows, const float* x,
-                                       float* out, int n_blk, int win,
-                                       int n_in, int n_out, int W, int batch,
-                                       void* stream) {
-  return launch<__nv_bfloat16>(bands, nullptr, starts, out_row0, rows, x, out,
-                               n_blk, win, n_in, n_out, W, batch, stream);
+extern "C" int banded_rows_bf16_launch(
+    const __nv_bfloat16* bands, BANDED_ROWS_ARGS) {
+  const __nv_bfloat16* parts[] = {bands};
+  return launch<Bf16>(parts, BANDED_ROWS_PASS);
 }
 
-extern "C" int banded_rows_x3_launch(const __nv_bfloat16* bands_hi,
-                                     const __nv_bfloat16* bands_lo,
-                                     const int* starts, const int* out_row0,
-                                     const int* rows, const float* x,
-                                     float* out, int n_blk, int win, int n_in,
-                                     int n_out, int W, int batch,
-                                     void* stream) {
-  return launch<Split>(bands_hi, bands_lo, starts, out_row0, rows, x, out,
-                       n_blk, win, n_in, n_out, W, batch, stream);
+extern "C" int banded_rows_bf16out_launch(
+    const __nv_bfloat16* bands, BANDED_ROWS_ARGS) {
+  const __nv_bfloat16* parts[] = {bands};
+  return launch<Bf16Out>(parts, BANDED_ROWS_PASS);
+}
+
+extern "C" int banded_rows_x3_launch(
+    const __nv_bfloat16* hi, const __nv_bfloat16* lo, BANDED_ROWS_ARGS) {
+  const __nv_bfloat16* parts[] = {hi, lo};
+  return launch<SplitX3>(parts, BANDED_ROWS_PASS);
+}
+
+extern "C" int banded_rows_x6_launch(
+    const __nv_bfloat16* hi, const __nv_bfloat16* mid, const __nv_bfloat16* lo,
+    BANDED_ROWS_ARGS) {
+  const __nv_bfloat16* parts[] = {hi, mid, lo};
+  return launch<SplitX6>(parts, BANDED_ROWS_PASS);
+}
+
+extern "C" int banded_rows_x9_launch(
+    const __nv_bfloat16* hi, const __nv_bfloat16* mid, const __nv_bfloat16* lo,
+    BANDED_ROWS_ARGS) {
+  const __nv_bfloat16* parts[] = {hi, mid, lo};
+  return launch<SplitX9>(parts, BANDED_ROWS_PASS);
+}
+
+extern "C" int banded_rows_tf32_launch(const float* bands, BANDED_ROWS_ARGS) {
+  const float* parts[] = {bands};
+  return launch<Tf32x1>(parts, BANDED_ROWS_PASS);
+}
+
+extern "C" int banded_rows_tf32x3_launch(
+    const float* hi, const float* lo, BANDED_ROWS_ARGS) {
+  const float* parts[] = {hi, lo};
+  return launch<Tf32x3>(parts, BANDED_ROWS_PASS);
+}
+
+extern "C" int banded_rows_f16_launch(const __half* bands, BANDED_ROWS_ARGS) {
+  const __half* parts[] = {bands};
+  return launch<F16>(parts, BANDED_ROWS_PASS);
+}
+
+extern "C" int banded_rows_f16out_launch(
+    const __half* bands, BANDED_ROWS_ARGS) {
+  const __half* parts[] = {bands};
+  return launch<F16Out>(parts, BANDED_ROWS_PASS);
+}
+
+extern "C" int banded_rows_f64_launch(const float* bands, BANDED_ROWS_ARGS) {
+  const float* parts[] = {bands};
+  return launch<F64>(parts, BANDED_ROWS_PASS);
 }

@@ -1,9 +1,14 @@
 """Host-side image IO and channel extraction.
 
 Counterpart of ``enph459_super_resolution_tpu/data/io.py``.  PNGs decode
-and encode with PIL when it imports; otherwise with the stdlib-``zlib`` +
-numpy codec below, which reads and writes 8-bit, non-interlaced gray and
-RGB PNGs.  Reference behaviors: ``load_gray`` (RGB-mean to gray,
+and encode with the native libpng codec (``native/``, built with ``g++`` at
+first use) where it builds: one file, or a batch on its thread pool
+(:func:`load_gray_batch`), and artifacts written at zlib level 1 with the
+Sub filter.  Without it, PIL; without PIL, the stdlib-``zlib`` + numpy
+codec below, which reads and writes 8-bit, non-interlaced gray and RGB
+PNGs.  The three give the same pixels (16-bit samples scale to 8 bits
+alike only through libpng; the PIL path scales by 255/65535 in float).
+Reference behaviors: ``load_gray`` (RGB-mean to gray,
 ``mono_barcodes/run_sr.py:84-86``) and RGGB red-plane extraction
 (``rgb_barcodes/run_sr.py:97-99``).
 """
@@ -15,6 +20,8 @@ import struct
 import zlib
 
 import numpy as np
+
+from ..native import png_loader
 
 _PNG_SIG = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3}  # PNG color type -> samples per pixel (gray, RGB)
@@ -127,7 +134,12 @@ def encode_png(img: np.ndarray, level: int = 1) -> bytes:
 
 def load_image(path: str, dtype=np.float32) -> np.ndarray:
     """Decode an image file to a float array (0..255 scale), preserving
-    channels.  >8-bit sources (PIL only) are scaled to 0..255."""
+    channels.  The native decode comes first (>8-bit PNGs scaled by
+    ``png_set_scale_16``); through PIL, >8-bit sources are scaled by
+    255/65535."""
+    arr = png_loader.load(path)
+    if arr is not None:
+        return arr.astype(dtype)
     image = _pil()
     if image is None:
         with open(path, "rb") as fp:
@@ -147,8 +159,23 @@ def load_gray(path: str, dtype=np.float32) -> np.ndarray:
     return img.astype(dtype)
 
 
-def load_gray_batch(paths, dtype=np.float32):
-    """:func:`load_gray` over many paths."""
+def load_gray_batch(paths, dtype=np.float32, n_threads: int = 8):
+    """:func:`load_gray` over many paths: on the native decoder's pool of
+    ``n_threads`` threads when it is available and every path is a
+    ``.png`` (a file it cannot decode raises ``FileNotFoundError``), else
+    one file after another."""
+    paths = list(paths)
+    if png_loader.available() and all(p.lower().endswith(".png")
+                                      for p in paths):
+        out = []
+        for p, arr in zip(paths, png_loader.load_batch(paths, n_threads)):
+            if arr is None:
+                raise FileNotFoundError(f"failed to decode {p}")
+            a = arr.astype(np.float64)
+            if a.ndim == 3:
+                a = a.mean(axis=2)
+            out.append(a.astype(dtype))
+        return out
     return [load_gray(p, dtype) for p in paths]
 
 
@@ -158,10 +185,14 @@ def extract_red(img: np.ndarray, row_offset: int = 0, col_offset: int = 0):
 
 
 def save_png(img: np.ndarray, path: str) -> None:
-    """Save a uint8 (or clip-truncated float, reference parity) image."""
+    """Save a uint8 (or clip-truncated float, reference parity) image: the
+    native libpng writer at zlib level 1 where it is available, else PIL's
+    encoder, else :func:`encode_png` (the same pixels every way)."""
     if img.dtype != np.uint8:
         img = np.clip(img, 0, 255).astype(np.uint8)
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    if png_loader.save(path, img):
+        return
     image = _pil()
     if image is not None:
         image.fromarray(img).save(path)

@@ -5,25 +5,43 @@ TPU kernel ``_row_kernel`` (launched by ``_banded_row_pallas``) becomes the
 hand-written CUDA kernel ``csrc/banded_rows.cu``.  This module holds
 
 * :func:`pack_banded` -- the kernel's operand layout;
-* :func:`banded_row_apply` -- the wrapper: it launches the kernel for a
-  CUDA tensor, runs the plain version for a CPU tensor, and raises
-  otherwise.  It counts the launches of each instantiation apart:
-  ``banded_row_apply.launches`` (float32 bands),
-  ``banded_row_apply.launches_bf16`` (bfloat16 bands) and
-  ``banded_row_apply.launches_x3`` (split bands);
+* :func:`banded_row_apply` -- the wrapper: it launches the kernel's
+  instantiation for the pack's band kind for a CUDA tensor, runs the plain
+  version for a CPU tensor, and raises otherwise.  It counts the launches
+  of each instantiation apart, ``banded_row_apply.launches`` (float32
+  bands) and ``banded_row_apply.launches_<kind>`` for the others
+  (:data:`KINDS`);
 * :func:`banded_row_apply_reference` -- the plain PyTorch version, one
-  ``bands[b] @ x[start_b : start_b + win]`` per block.
+  ``bands[b] @ x[start_b : start_b + win]`` per block and product.
 
-Bands are float32 (the strict band store), bfloat16 (the bf16 band store,
-and float32 bands at ``mm_precision`` DEFAULT) or :data:`X3`: float32 bands
-split into two bf16 halves, ``hi = bf16(b)`` and ``lo = bf16(b - hi)``, for
-the 3-pass split of ``mm_precision`` HIGH / BF16_BF16_F32_X3.  With bf16
-bands x is rounded to bf16 and the exact bf16 x bf16 products are summed in
-float32, as the reference's bf16 einsum with
-``preferred_element_type=float32`` does.  With split bands x is split the
-same way and ``hi*hi + hi*lo + lo*hi`` is summed in float32 (the dropped
-``lo*lo`` and x's bits past its two halves are ~2^-16 of ``|b|*|x|``).
-The result is float32 every time.
+The band kinds (the band type a band store or a matmul precision gives the
+row applies; ``ops.opmatrix.MM_PRECISIONS`` names them):
+
+* ``torch.float32`` -- strict float32 (the f32 band store, HIGHEST);
+* ``torch.bfloat16`` -- the operand rounded to bf16 and the exact bf16 x
+  bf16 products summed in float32, as the reference's bf16 einsum with
+  ``preferred_element_type=float32`` does (the bf16 band store, DEFAULT);
+  :data:`BF16OUT` the same with the result rounded to bf16
+  (BF16_BF16_BF16);
+* :data:`X3`, :data:`X6`, :data:`X9` -- float32 bands and x split into bf16
+  parts, part 0 ``= bf16(v)`` and part p ``= bf16(v - parts before it)``:
+  X3 two parts, ``hi*hi + hi*lo + lo*hi`` (HIGH, BF16_BF16_F32_X3; the
+  dropped ``lo*lo`` and x's bits past two parts are ~2^-16 of
+  ``|b|*|x|``); X6 three parts, the six products whose part indices sum to
+  at most 2 (~2^-24); X9 all nine;
+* :data:`TF32`, :data:`TF32X3` -- operands rounded to tf32 (nearest, ties
+  away from zero, the rule of ``cvt.rna.tf32.f32``): one product, or the
+  split ``hi*hi + hi*lo + lo*hi`` of two tf32 parts;
+* :data:`F16`, :data:`F16OUT` -- operands rounded to float16, the products
+  summed in float32; F16OUT rounds the result to float16 (F16_F16_F32,
+  F16_F16_F16);
+* :data:`F64` -- float32 bands and x widened to float64, the sum in
+  float64, the result rounded to float32 (F64_F64_F64).
+
+Products of two bf16, f16 or tf32 values are exact in float32, so the plain
+version (float32 matmuls of the rounded parts) and the kernel differ only
+in the order of the sum.  The result is float32 every time (rounded to
+bf16 or f16 values for BF16OUT and F16OUT).
 
 The pack differs from the TPU one: each block is stored k-major,
 ``bands[b, k, r]`` (window row ``k``, output row ``r``), so the kernel's
@@ -38,23 +56,81 @@ the kernel and sliced off by the plain version; their band entries are 0.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
-# The band type of float32 bands split into bf16 hi and lo halves.
-X3 = "x3"
+# The band kinds that are not a torch dtype (see the module docstring).
+X3, X6, X9 = "x3", "x6", "x9"
+TF32, TF32X3 = "tf32", "tf32x3"
+F16, F16OUT, BF16OUT = "f16", "f16out", "bf16out"
+F64 = "f64"
 
-# C signature of banded_rows_launch and banded_rows_bf16_launch in
-# csrc/banded_rows.cu: six pointers (bands, starts, out_row0, rows, x, out),
-# six ints (n_blk, win, n_in, n_out, W, batch) and the stream;
-# banded_rows_x3_launch takes the lo bands after the hi ones.
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-_ARGTYPES_X3 = [ctypes.c_void_p] + _ARGTYPES
-_ENTRY = {torch.float32: ("banded_rows_launch", "launches"),
-          torch.bfloat16: ("banded_rows_bf16_launch", "launches_bf16"),
-          X3: ("banded_rows_x3_launch", "launches_x3")}
+
+def round_tf32(v: torch.Tensor) -> torch.Tensor:
+    """float32 ``v`` rounded to tf32 (10 stored significand bits): to
+    nearest, ties away from zero, as ``cvt.rna.tf32.f32`` rounds."""
+    bits = v.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _via(dtype):
+    def rnd(v: torch.Tensor) -> torch.Tensor:
+        return v.to(dtype).float()
+    return rnd
+
+
+def _exact(v: torch.Tensor) -> torch.Tensor:
+    return v
+
+
+class Kind(NamedTuple):
+    """How one band kind computes: its CUDA entry point and launch counter,
+    the storage type and number of its band parts, the pairs of parts
+    ``(p, q)`` with ``p + q <= reach`` it multiplies, the operand rounding,
+    the result's rounding (or None) and the type the sum is taken in."""
+
+    symbol: str
+    counter: str
+    storage: torch.dtype
+    parts: int
+    reach: int
+    rounding: Callable[[torch.Tensor], torch.Tensor]
+    out: Optional[torch.dtype] = None
+    wide: torch.dtype = torch.float32
+
+
+_BF16 = _via(torch.bfloat16)
+_F16 = _via(torch.float16)
+KINDS = {
+    torch.float32: Kind("banded_rows_launch", "launches", torch.float32, 1,
+                        0, _exact),
+    torch.bfloat16: Kind("banded_rows_bf16_launch", "launches_bf16",
+                         torch.bfloat16, 1, 0, _BF16),
+    BF16OUT: Kind("banded_rows_bf16out_launch", "launches_bf16out",
+                  torch.bfloat16, 1, 0, _BF16, torch.bfloat16),
+    X3: Kind("banded_rows_x3_launch", "launches_x3", torch.bfloat16, 2, 1,
+             _BF16),
+    X6: Kind("banded_rows_x6_launch", "launches_x6", torch.bfloat16, 3, 2,
+             _BF16),
+    X9: Kind("banded_rows_x9_launch", "launches_x9", torch.bfloat16, 3, 4,
+             _BF16),
+    TF32: Kind("banded_rows_tf32_launch", "launches_tf32", torch.float32, 1,
+               0, round_tf32),
+    TF32X3: Kind("banded_rows_tf32x3_launch", "launches_tf32x3",
+                 torch.float32, 2, 1, round_tf32),
+    F16: Kind("banded_rows_f16_launch", "launches_f16", torch.float16, 1, 0,
+              _F16),
+    F16OUT: Kind("banded_rows_f16out_launch", "launches_f16out",
+                 torch.float16, 1, 0, _F16, torch.float16),
+    F64: Kind("banded_rows_f64_launch", "launches_f64", torch.float32, 1, 0,
+              _exact, None, torch.float64),
+}
+# C signature of the entry points in csrc/banded_rows.cu: one pointer per
+# band part (hi first), five pointers (starts, out_row0, rows, x, out), six
+# ints (n_blk, win, n_in, n_out, W, batch) and the stream.
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 # Rows of one band block (the kernel's tile height) and the window padding
 # unit (the kernel's K-chunk); both are compile-time constants of
@@ -63,36 +139,58 @@ ROWS = 128
 K_CHUNK = 16
 
 
+def split(v: torch.Tensor, kind) -> Tuple[torch.Tensor, ...]:
+    """``v`` (float32) as the parts the kind multiplies, each float32: part
+    0 ``= round(v)``, part p ``= round(v - parts before it)`` (every
+    difference is exact in float32)."""
+    spec = KINDS[kind]
+    parts, rest = [], v
+    for p in range(spec.parts):
+        part = spec.rounding(rest)
+        parts.append(part)
+        if p + 1 < spec.parts:
+            rest = rest - part
+    return tuple(parts)
+
+
+def round_result(kind, y: torch.Tensor) -> torch.Tensor:
+    """A float32 result rounded as the kind's result is (BF16OUT, F16OUT),
+    else ``y``."""
+    out = KINDS[kind].out
+    return y if out is None else y.to(out).float()
+
+
 class RowPack(NamedTuple):
     """Operands of one banded row apply, on one device."""
 
-    bands: torch.Tensor    # f32 or bf16 [n_blk, win, ROWS]: k-major, 0-padded
+    bands: torch.Tensor    # [n_blk, win, ROWS]: k-major, 0-padded (part 0)
     meta: torch.Tensor     # i32 [3, n_blk]: window start, first out row, rows
     meta_host: np.ndarray  # the same on the host (the plain version's slices)
     n_out: int
     n_in: int
-    bands_lo: Optional[torch.Tensor] = None  # X3: the lo halves, as bands
+    kind: object = torch.float32       # the band kind (a key of KINDS)
+    more: Tuple[torch.Tensor, ...] = ()  # split kinds: parts 1, 2, ...
 
     @property
-    def kind(self):
-        """The band type: torch.float32, torch.bfloat16 or :data:`X3`."""
-        return X3 if self.bands_lo is not None else self.bands.dtype
+    def parts(self) -> Tuple[torch.Tensor, ...]:
+        """Every band part, hi first."""
+        return (self.bands,) + self.more
 
 
 def pack_banded(blocks, col_ranges, n_out: int, n_in: int, device,
                 dtype=torch.float32) -> RowPack:
     """Stack a block decomposition into the kernel's layout on ``device``,
-    with the bands cast to ``dtype`` (float32 or bfloat16) there, or split
-    there into bf16 hi and lo halves (``dtype=X3``).
+    with the bands rounded or split there as the band kind ``dtype`` (a key
+    of :data:`KINDS`) takes them, each part in its storage type.
 
     ``blocks[b]`` covers output rows ``sum(rows of blocks < b)`` onward and
     input columns ``col_ranges[b]``; the shared window is the widest block
     window rounded up to ``K_CHUNK``; each block is stored transposed,
     window row by window row.
     """
-    if dtype not in _ENTRY:
-        raise TypeError(f"band dtype {dtype} is none of float32, bfloat16 "
-                        "and X3")
+    if dtype not in KINDS:
+        raise TypeError(f"band kind {dtype} is none of "
+                        f"{', '.join(map(str, KINDS))}")
     n_blk = len(blocks)
     rows = np.asarray([b.shape[0] for b in blocks], dtype=np.int32)
     if rows.max() > ROWS:
@@ -108,13 +206,11 @@ def pack_banded(blocks, col_ranges, n_out: int, n_in: int, device,
     meta[2] = rows
     for i, (b, (lo, hi)) in enumerate(zip(blocks, col_ranges)):
         bands[i, : hi - lo, : b.shape[0]] = b.T
-    bands = torch.as_tensor(bands, device=device)
-    meta_dev = torch.as_tensor(meta, device=device)
-    if dtype == X3:
-        hi = bands.to(torch.bfloat16)
-        return RowPack(hi, meta_dev, meta, int(n_out), int(n_in),
-                       (bands - hi.float()).to(torch.bfloat16))
-    return RowPack(bands.to(dtype), meta_dev, meta, int(n_out), int(n_in))
+    storage = KINDS[dtype].storage
+    parts = [p.to(storage)
+             for p in split(torch.as_tensor(bands, device=device), dtype)]
+    return RowPack(parts[0], torch.as_tensor(meta, device=device), meta,
+                   int(n_out), int(n_in), dtype, tuple(parts[1:]))
 
 
 def _check(pack: RowPack, x: torch.Tensor) -> None:
@@ -127,46 +223,37 @@ def _check(pack: RowPack, x: torch.Tensor) -> None:
         raise ValueError(f"x on {x.device}, operator on {pack.bands.device}")
 
 
-def split_bf16(v: torch.Tensor):
-    """``(hi, lo)``: ``hi = bf16(v)`` and ``lo = bf16(v - hi)``, both
-    rounded to nearest even (``v - hi`` is exact in float32)."""
-    hi = v.to(torch.bfloat16)
-    return hi, (v - hi.float()).to(torch.bfloat16)
-
-
-def banded_row_apply_reference(pack: RowPack, x: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version: per block, ``bands[b].T @ x[start_b : start_b +
-    win]`` into the block's output rows (any device); with bf16 bands, x
-    rounded to bf16 and the products summed in float32; with split bands,
-    three float32 matmuls of the bf16 halves (exact products),
-    ``hi*hi + hi*lo + lo*hi``."""
+def banded_row_apply_reference(pack: RowPack, x: torch.Tensor,
+                               rounded: bool = True) -> torch.Tensor:
+    """Plain PyTorch version: per block and product of a band part with an
+    x part (:func:`split`), ``part[b].T @ x_part[start_b : start_b + win]``
+    into the block's output rows, summed in float32 (float64 for F64), then
+    rounded as the kind's result is (any device).  Products of the rounded
+    parts are exact in float32.  ``rounded=False`` leaves out the result's
+    rounding (BF16OUT, F16OUT): the float32 sum it rounds."""
     _check(pack, x)
-    if pack.kind == X3:
-        x_hi, x_lo = split_bf16(x)
-        terms = ((pack.bands, x_hi), (pack.bands, x_lo),
-                 (pack.bands_lo, x_hi))
-    elif pack.kind == torch.bfloat16:
-        terms = ((pack.bands, x.to(torch.bfloat16)),)
-    else:
-        terms = ((pack.bands, x),)
-    terms = [(bands.float(), xv.float()) for bands, xv in terms]
+    spec = KINDS[pack.kind]
+    bands = [band.to(spec.wide) for band in pack.parts]
+    x_parts = [xp.to(spec.wide) for xp in split(x, pack.kind)]
+    terms = [(bands[p], x_parts[q]) for p in range(spec.parts)
+             for q in range(spec.parts) if p + q <= spec.reach]
     win = pack.bands.shape[1]
     out = x.new_empty(x.shape[:-2] + (pack.n_out, x.shape[-1]))
     for b, (start, row0, nrow) in enumerate(pack.meta_host.T.tolist()):
         acc = None
-        for bands, xv in terms:
+        for band, xv in terms:
             xs = xv[..., start:start + win, :]   # short at the bottom edge
-            term = torch.matmul(bands[b, : xs.shape[-2], :nrow].T, xs)
+            term = torch.matmul(band[b, : xs.shape[-2], :nrow].T, xs)
             acc = term if acc is None else acc + term
         out[..., row0:row0 + nrow, :] = acc
-    return out
+    return round_result(pack.kind, out) if rounded else out
 
 
 def banded_row_apply(pack: RowPack, x: torch.Tensor) -> torch.Tensor:
     """``op @ x`` along x's row (-2) axis; x is ``[..., n_in, W]`` float32.
 
     A CUDA tensor goes through the CUDA kernel's instantiation for the
-    pack's band type (:attr:`RowPack.kind`), always: there is no shape gate
+    pack's band kind (:attr:`RowPack.kind`), always: there is no shape gate
     and no fallback.  A CPU tensor goes through the plain version.
     """
     if x.device.type == "cpu":
@@ -176,10 +263,9 @@ def banded_row_apply(pack: RowPack, x: torch.Tensor) -> torch.Tensor:
     _check(pack, x)
     from .._build import load_function
 
-    symbol, counter = _ENTRY[pack.kind]
-    split = pack.kind == X3
-    launch = load_function("banded_rows", symbol,
-                           _ARGTYPES_X3 if split else _ARGTYPES)
+    spec = KINDS[pack.kind]
+    launch = load_function("banded_rows", spec.symbol,
+                           [ctypes.c_void_p] * len(pack.parts) + _ARGTYPES)
     x = x.contiguous()
     lead = x.shape[:-2]
     width = x.shape[-1]
@@ -191,19 +277,18 @@ def banded_row_apply(pack: RowPack, x: torch.Tensor) -> torch.Tensor:
     n_blk, win, _ = pack.bands.shape
     meta = pack.meta
     step = meta.stride(0) * meta.element_size()
-    bands = ((pack.bands.data_ptr(), pack.bands_lo.data_ptr()) if split
-             else (pack.bands.data_ptr(),))
     rc = launch(
-        *bands, meta.data_ptr(), meta.data_ptr() + step,
-        meta.data_ptr() + 2 * step, x.data_ptr(), out.data_ptr(),
-        n_blk, win, pack.n_in, pack.n_out, width, batch,
+        *(part.data_ptr() for part in pack.parts), meta.data_ptr(),
+        meta.data_ptr() + step, meta.data_ptr() + 2 * step, x.data_ptr(),
+        out.data_ptr(), n_blk, win, pack.n_in, pack.n_out, width, batch,
         torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"banded_rows kernel launch failed: CUDA error {rc}")
-    setattr(banded_row_apply, counter, getattr(banded_row_apply, counter) + 1)
+    setattr(banded_row_apply, spec.counter,
+            getattr(banded_row_apply, spec.counter) + 1)
     return out
 
 
-banded_row_apply.launches = 0
-banded_row_apply.launches_bf16 = 0
-banded_row_apply.launches_x3 = 0
+for _spec in KINDS.values():
+    setattr(banded_row_apply, _spec.counter, 0)
+del _spec

@@ -27,21 +27,31 @@ to bf16, exact bf16 x bf16 products summed in float32, a float32 result.
 Matmul precision (the reference's ``SRTPU_MM_PRECISION``, ``sr.run
 --mm-precision``) applies to the applies of float32 bands only, as in the
 reference: bf16 bands, the fused kernels and the dense sampling matmuls
-ignore it.  The accepted names (:data:`MM_PRECISIONS`):
+ignore it.  Every name of JAX's ``Precision`` and ``DotAlgorithmPreset``
+is accepted (:data:`MM_PRECISIONS` maps each to the band kind of
+``ops.banded_rows`` that the row applies take, each a K1 instantiation on
+the card) except the four ``ANY_F8_*``, which take float8 operands where
+the solve's are float32, and raise ``ValueError`` (JAX's CPU backend
+refuses them too):
 
 * ``HIGHEST`` (the default) and ``F32_F32_F32`` -- strict float32;
-* ``HIGH`` and ``BF16_BF16_F32_X3`` -- the row applies run the 3-pass
-  split ``hi*hi + hi*lo + lo*hi`` of bands and operand, ``hi = bf16(v)``,
-  ``lo = bf16(v - hi)``, summed in float32 (what XLA runs for ``HIGH`` on
-  its TPU; the bands become :data:`~.banded_rows.X3`).  The column applies,
-  one library matmul each, stay float32: that is within the split's error
-  bound, and on the card faster than three bf16 matmuls with their split
-  passes;
-* ``DEFAULT`` and ``BF16_BF16_F32`` -- one bf16 pass, the class of the bf16
-  band store (the bands become bf16).
-
-The other names of JAX's ``Precision`` and ``DotAlgorithmPreset`` are not
-ported and raise ``ValueError``.
+* ``HIGH`` and ``BF16_BF16_F32_X3`` -- the 3-pass bf16 split
+  ``hi*hi + hi*lo + lo*hi`` of bands and operand (what XLA runs for
+  ``HIGH`` on its TPU); ``BF16_BF16_F32_X6`` and ``_X9`` -- three bf16
+  parts, six or nine products; ``TF32_TF32_F32_X3`` -- the 3-pass split
+  into tf32 parts.  Their column applies, one library matmul each, stay
+  float32: that is within the splits' error bounds;
+* ``DEFAULT`` and ``BF16_BF16_F32`` -- one bf16 pass, the class of the
+  bf16 band store; ``BF16_BF16_BF16`` the same with each apply's result
+  rounded to bf16 (the sum stays float32, where the preset names a bf16
+  accumulator); ``TF32_TF32_F32`` -- one tf32 pass; ``F16_F16_F32`` -- one
+  f16 pass, ``F16_F16_F16`` with each result rounded to f16 (as JAX's CPU
+  backend computes it).  Their column applies round the operands the same
+  way, take the float32 matmul of the exact products, and round the result
+  alike;
+* ``F64_F64_F64`` -- bands and operand widened to float64, the sum in
+  float64, each result rounded to float32 (the column apply a float64
+  matmul).
 """
 
 from __future__ import annotations
@@ -53,8 +63,10 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from .banded_rows import (X3, RowPack, banded_row_apply,
-                          banded_row_apply_reference, pack_banded)
+from .banded_rows import (BF16OUT, F16, F16OUT, F64, KINDS, TF32, TF32X3,
+                          X3, X6, X9, RowPack, banded_row_apply,
+                          banded_row_apply_reference, pack_banded,
+                          round_result)
 from .resample import bspline_prefilter_kernel, cubic_bspline_weights
 
 # Rows per block of the decomposition, as in the reference: a 128-row
@@ -62,16 +74,29 @@ from .resample import bspline_prefilter_kernel, cubic_bspline_weights
 # forward operators, so the block matmuls do ~12x fewer FLOPs than dense.
 BLOCK = 128
 
-# Accepted mm_precision names -> the band type float32 bands take on the
+# Accepted mm_precision names -> the band kind float32 bands take on the
 # device under them (see the module docstring).
 MM_PRECISIONS = {"HIGHEST": torch.float32, "F32_F32_F32": torch.float32,
                  "HIGH": X3, "BF16_BF16_F32_X3": X3,
-                 "DEFAULT": torch.bfloat16, "BF16_BF16_F32": torch.bfloat16}
+                 "BF16_BF16_F32_X6": X6, "BF16_BF16_F32_X9": X9,
+                 "DEFAULT": torch.bfloat16, "BF16_BF16_F32": torch.bfloat16,
+                 "BF16_BF16_BF16": BF16OUT,
+                 "TF32_TF32_F32": TF32, "TF32_TF32_F32_X3": TF32X3,
+                 "F16_F16_F32": F16, "F16_F16_F16": F16OUT,
+                 "F64_F64_F64": F64}
+# JAX's presets for float8 operands: no band kind of the float32 solve.
+FLOAT8_PRESETS = ("ANY_F8_ANY_F8_F32", "ANY_F8_ANY_F8_F32_FAST_ACCUM",
+                  "ANY_F8_ANY_F8_ANY", "ANY_F8_ANY_F8_ANY_FAST_ACCUM")
 
 
 def resolve_mm_precision(name: str):
-    """The band type float32 bands take at matmul precision ``name``:
-    torch.float32, :data:`~.banded_rows.X3` or torch.bfloat16."""
+    """The band kind float32 bands take at matmul precision ``name`` (a key
+    of ``ops.banded_rows.KINDS``); raises ``ValueError`` for a float8
+    preset or an unknown name."""
+    if name in FLOAT8_PRESETS:
+        raise ValueError(f"mm_precision {name!r} takes float8 operands; the "
+                         "solve's operands are float32 (JAX's CPU backend "
+                         "refuses it too)")
     try:
         return MM_PRECISIONS[name]
     except KeyError:
@@ -343,6 +368,13 @@ def psf_separable_factors(psf: np.ndarray, rel_tol: float = 1e-6):
     return rows, cols
 
 
+def _col_operand(kind, v: torch.Tensor) -> torch.Tensor:
+    """A column apply's operand (x or the bands) as the kind rounds it: for
+    a kind of one pass, its rounding; split kinds and f64 keep float32."""
+    spec = KINDS[kind]
+    return spec.rounding(v) if spec.parts == 1 else v
+
+
 class ColPack(NamedTuple):
     """Device form of a :class:`BandedOp` for column applies.
 
@@ -366,8 +398,9 @@ class BandedOp:
     the device pack that :meth:`row_apply` or :meth:`col_apply` needs is
     built there on its first use (an op of a solve is only ever applied
     along one axis, so the other pack is never built).  ``band_dtype`` is
-    the bands' type on the device: float32, or bfloat16 or
-    :data:`~.banded_rows.X3` (split float32) after :meth:`astype_band`.
+    the bands' kind on the device: float32, or after :meth:`astype_band`
+    another key of ``ops.banded_rows.KINDS`` (bfloat16, a split, tf32, f16,
+    f64 ...).
     """
 
     # the default also for ops pickled before the field existed: the host
@@ -428,14 +461,14 @@ class BandedOp:
         return cls(blocks, ranges, op.n_out * r, op.n_in * r, op.band_dtype)
 
     def astype_band(self, dtype) -> "BandedOp":
-        """A copy whose bands are ``dtype`` (float32, bfloat16 or
-        :data:`~.banded_rows.X3`) on the device, unbound (the reference's
+        """A copy whose bands are of kind ``dtype`` (a key of
+        ``ops.banded_rows.KINDS``) on the device, unbound (the reference's
         ``astype_band``).  The cast happens where the copy's packs are
         built; torch rounds to nearest even, as ``ml_dtypes`` does, so the
         device bands equal the reference's bf16 blocks bit for bit."""
-        if dtype not in (torch.float32, torch.bfloat16, X3):
-            raise TypeError(f"band dtype {dtype} is none of float32, "
-                            "bfloat16 and X3")
+        if dtype not in KINDS:
+            raise TypeError(f"band kind {dtype} is none of "
+                            f"{', '.join(map(str, KINDS))}")
         return BandedOp(self.blocks, self.col_ranges, self.n_out, self.n_in,
                         dtype)
 
@@ -465,9 +498,9 @@ class BandedOp:
     @property
     def col_pack(self) -> ColPack:
         """The column apply's gather indices and transposed bands on this
-        op's device (for bf16 bands: rounded to bf16, kept as float32 so
-        that the float32 matmul sums their exact products; X3 bands stay
-        float32)."""
+        op's device, float32 (for a kind of one rounded pass -- bf16, tf32,
+        f16 -- rounded so, so that the float32 matmul sums their exact
+        products; split and f64 kinds keep the float32 bands)."""
         if self._col_pack is None:
             device = self._bound_device()
             n_blk = len(self.blocks)
@@ -478,9 +511,8 @@ class BandedOp:
                                                   self.col_ranges)):
                 idx[i] = np.minimum(lo + np.arange(win), self.n_in - 1)
                 bands_t[i, : hi - lo, : b.shape[0]] = b.T
-            bands_t = torch.as_tensor(bands_t, device=device)
-            if self.band_dtype == torch.bfloat16:
-                bands_t = bands_t.to(torch.bfloat16).float()
+            bands_t = _col_operand(self.band_dtype,
+                                   torch.as_tensor(bands_t, device=device))
             self._col_pack = ColPack(torch.as_tensor(idx, device=device),
                                      bands_t, self.n_out)
         return self._col_pack
@@ -500,13 +532,15 @@ class BandedOp:
     def col_apply(self, x: torch.Tensor) -> torch.Tensor:
         """``x @ self^T`` along x's column (-1) axis: gather every block's
         input-column window, one batched matmul over blocks, interleave.
-        With bf16 bands x is rounded to bf16 first (the reference's bf16
-        einsum); the products are exact and summed in float32.  X3 bands
-        take the float32 matmul (see the module docstring)."""
+        For a kind of one rounded pass x is rounded the same way first (the
+        reference's bf16 einsum, and the tf32 and f16 presets); the products
+        are exact and summed in float32, and the result is rounded as the
+        kind's is (BF16_BF16_BF16, F16_F16_F16).  Split kinds take the
+        float32 matmul, F64 a float64 one (see the module docstring)."""
         idx, bands_t, n_out = self.col_pack
-        if self.band_dtype == torch.bfloat16:
-            x = x.to(torch.bfloat16).float()
+        wide = KINDS[self.band_dtype].wide
+        x = _col_operand(self.band_dtype, x)
         xg = x[..., idx].transpose(-3, -2)                # [..., nb, H, win]
-        y = torch.matmul(xg, bands_t)                     # [..., nb, H, B]
+        y = torch.matmul(xg.to(wide), bands_t.to(wide))   # [..., nb, H, B]
         y = y.transpose(-3, -2).reshape(*x.shape[:-1], -1)
-        return y[..., :n_out]
+        return round_result(self.band_dtype, y[..., :n_out].float())

@@ -42,12 +42,15 @@ every store (``hybrid``'s f32 tail stays banded, as in the reference) and
 raises for a shape they cannot take; ``"off"`` never takes them.
 
 Matmul precision (``mm_precision``; the reference's ``SRTPU_MM_PRECISION``,
-names in :data:`~..ops.opmatrix.MM_PRECISIONS`) applies to the float32-band
-applies only: ``HIGHEST`` (default) strict, ``HIGH`` / ``BF16_BF16_F32_X3``
-the 3-pass bf16 split on the row applies (K1's split instantiation; the
-column applies stay float32), ``DEFAULT`` / ``BF16_BF16_F32`` one bf16
-pass.  bf16 bands and the fused kernels ignore
-it, as in the reference.
+names in :data:`~..ops.opmatrix.MM_PRECISIONS`: every name of JAX's
+``Precision`` and ``DotAlgorithmPreset`` but the four float8 presets)
+applies to the float32-band applies only: ``HIGHEST`` (default) strict,
+``HIGH`` / ``BF16_BF16_F32_X3`` the 3-pass bf16 split on the row applies
+(K1's split instantiation; the column applies stay float32), ``DEFAULT`` /
+``BF16_BF16_F32`` one bf16 pass, and the other presets each on its own K1
+instantiation (:mod:`~..ops.opmatrix` lists their arithmetic).  bf16 bands
+and the fused kernels ignore it, as in the reference.  The device operator
+tree is kept per precision.
 
 Solver (``solver``; the reference's ``SRTPU_SOLVER``): ``"ibp"`` (default,
 the reference's heuristic back-projection, step 0.5) or ``"adjoint"``
@@ -644,9 +647,8 @@ def solve(lr_stack, psf, shifts_yx, factor: int = UPSAMPLE_FACTOR,
       fused: ``"auto"`` (default), ``"on"`` or ``"off"`` (the engine).
       plain: run every kernel's plain PyTorch version instead of the kernel
         (the on-card parity check of the kernels).
-      mm_precision: ``"HIGHEST"`` (default), ``"HIGH"`` /
-        ``"BF16_BF16_F32_X3"`` or ``"DEFAULT"`` / ``"BF16_BF16_F32"`` (see
-        the module docstring).
+      mm_precision: ``"HIGHEST"`` (default) or another name of
+        :data:`~..ops.opmatrix.MM_PRECISIONS` (see the module docstring).
       solver: ``"ibp"`` (default) or ``"adjoint"``.
       engine: ``"mm"`` (default) or ``"conv"``.
 

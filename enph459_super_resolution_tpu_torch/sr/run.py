@@ -148,12 +148,18 @@ def main(argv=None) -> int:
                         "workload's / 4 and --ibp-step to 2.0")
     p.add_argument("--mm-precision", default="HIGHEST",
                    metavar="{" + ",".join(MM_PRECISIONS) + "}",
-                   help="matmul precision of the float32-band applies: "
-                        "HIGHEST = strict (default); HIGH / BF16_BF16_F32_X3 "
-                        "= the 3-pass bf16 split of the row applies, +-1 "
-                        "uint8 of HIGHEST; DEFAULT / BF16_BF16_F32 = one "
-                        "bf16 pass, +-3. Their speed on the card against "
-                        "HIGHEST is in PERF.md")
+                   help="matmul precision of the float32-band applies, "
+                        "any name of JAX's Precision or DotAlgorithmPreset "
+                        "but the float8 ANY_F8_* (refused): HIGHEST = "
+                        "strict (default); HIGH / BF16_BF16_F32_X3 = the "
+                        "3-pass bf16 split of the row applies, +-1 uint8 "
+                        "of HIGHEST, like _X6, _X9 and TF32_TF32_F32_X3; "
+                        "DEFAULT / BF16_BF16_F32 = one bf16 pass, +-3, "
+                        "BF16_BF16_BF16 with bf16 results; TF32_TF32_F32, "
+                        "F16_F16_F32 and F16_F16_F16 one tf32 or f16 pass; "
+                        "F64_F64_F64 sums in float64. Each row apply runs "
+                        "its own instantiation of the banded-row kernel; "
+                        "their speed on the card is in PERF.md")
     p.add_argument("--watch", type=float, default=None, metavar="SECONDS",
                    help="serve mode: after the existing sessions, poll "
                         "--data-dir every SECONDS for new or changed ones "

@@ -5,8 +5,11 @@ Run on the card with ``python -m pytest tests/test_torch_banded_rows_cuda.py
 -q``.  Edge cases the solve meets at small sizes: widths that are no
 multiple of the 128-column tile, windows that overhang the input's last
 row, short blocks inside rep-tiled operators, and a batch axis; and, for
-every band type (float32, bfloat16 and the split X3), windows of one chunk
-and of chunk counts no 32-row step divides, and unaligned inputs.
+every band kind (float32, bfloat16, the bf16 splits X3, X6 and X9, tf32 and
+its split, f16 with and without an f16 result, bf16 with a bf16 result and
+f64), windows of one chunk and of chunk counts no 32-row step divides, odd
+widths and unaligned inputs; each kind bit for bit on an exactness probe;
+and each kind against a float64 product within its class.
 """
 
 import numpy as np
@@ -14,7 +17,8 @@ import pytest
 import torch
 
 from enph459_super_resolution_tpu_torch.ops.banded_rows import (
-    X3, banded_row_apply, banded_row_apply_reference, pack_banded)
+    BF16OUT, F16, F16OUT, F64, KINDS, TF32, TF32X3, X3, X6, X9,
+    banded_row_apply, banded_row_apply_reference, pack_banded, round_result)
 from enph459_super_resolution_tpu_torch.ops.opmatrix import (
     BandedOp, shift_op_banded, stuff_shift_op_banded, zoom_op_banded)
 
@@ -23,12 +27,17 @@ pytestmark = pytest.mark.cuda
 # f32 sums over windows of up to ~300 taps of inputs in [0, 255): the kernel
 # and the plain matmul differ only in summation order.
 ATOL = 1e-3
-# The split (X3) kernel and its plain version form the same exact bf16
-# products, three per tap, and sum them in f32 in another order: per output
-# they differ by at most this share of sum_k |b_k| |x_k|.
+# The other tensor-core kinds (the splits, tf32, f16) and their plain
+# versions form the same exact products and sum them in f32 in another
+# order: per output they differ by at most this share of sum_k |b_k| |x_k|;
+# F64 sums in f64 in both and rounds once to f32 (2^-22).  A kind that
+# rounds its result (BF16OUT, F16OUT) gives values of the result type, each
+# the rounding of a sum within that share of the plain version's sum.
 X3_SHARE = 2.0 ** -17
-COUNTER = {torch.float32: "launches", torch.bfloat16: "launches_bf16",
-           X3: "launches_x3"}
+SHARE = {F64: 2.0 ** -22}
+ALL_KINDS = list(KINDS)
+KIND_IDS = [{torch.float32: "f32", torch.bfloat16: "bf16"}.get(k, k)
+            for k in ALL_KINDS]
 
 
 @pytest.fixture()
@@ -52,20 +61,31 @@ def _ops():
 
 
 def _bound(pack, blocks, col_ranges, x):
-    """Per output, what the kernel may differ from the plain version by:
-    ``ATOL``, or for the split the share of sum_k |b_k| |x_k|."""
-    if pack.kind != X3:
+    """Per output, what the kernel's sum may differ from the plain
+    version's by: ``ATOL`` for float32 and bfloat16 bands, else a share of
+    sum_k |b_k| |x_k|."""
+    if pack.kind in (torch.float32, torch.bfloat16):
         return ATOL
     absolute = pack_banded([np.abs(b) for b in blocks], col_ranges,
                            pack.n_out, pack.n_in, x.device)
-    return X3_SHARE * banded_row_apply_reference(absolute, x.abs())
+    scale = banded_row_apply_reference(absolute, x.abs())
+    return SHARE.get(pack.kind, X3_SHARE) * scale
 
 
-def _within(got, want, bound):
-    return bool(((got - want).abs() <= bound).all())
+def _within(kind, got, want_sum, bound):
+    """``got`` against the plain version's sum before the result's rounding
+    (``rounded=False``): within ``bound`` of it, or for a kind that rounds
+    its result, a value of the result type between the roundings of
+    ``want_sum -+ bound`` (rounding to nearest is monotone)."""
+    if KINDS[kind].out is None:
+        return bool(((got - want_sum).abs() <= bound).all())
+    lo = round_result(kind, want_sum - bound)
+    hi = round_result(kind, want_sum + bound)
+    return (torch.equal(got, round_result(kind, got))
+            and bool(((lo <= got) & (got <= hi)).all()))
 
 
-@pytest.mark.parametrize("band", [torch.float32, X3], ids=["f32", "x3"])
+@pytest.mark.parametrize("band", ALL_KINDS, ids=KIND_IDS)
 @pytest.mark.parametrize("reps", [1, 3])
 @pytest.mark.parametrize("width", [1, 200, 256])
 @pytest.mark.parametrize("name", sorted(_ops()))
@@ -75,17 +95,18 @@ def test_kernel_matches_plain(cuda, name, width, reps, band):
     rng = np.random.default_rng(7)
     x = torch.as_tensor(rng.uniform(0, 255, (2, op.n_in, width)),
                         dtype=torch.float32, device=cuda)
-    before = getattr(banded_row_apply, COUNTER[band])
+    counter = KINDS[band].counter
+    before = getattr(banded_row_apply, counter)
     got = banded_row_apply(op.row_pack, x)
-    assert getattr(banded_row_apply, COUNTER[band]) == before + 1
-    want = banded_row_apply_reference(op.row_pack, x)
+    assert getattr(banded_row_apply, counter) == before + 1
+    want = banded_row_apply_reference(op.row_pack, x, rounded=False)
     torch.cuda.synchronize()
     bound = _bound(op.row_pack, base.blocks, base.col_ranges, x)
     assert got.shape == want.shape == (2, op.n_out, width)
-    assert _within(got, want, bound)
+    assert _within(band, got, want, bound)
     # 2-D input: no batch axis
     got2 = banded_row_apply(op.row_pack, x[1])
-    assert _within(got2, want[1], bound if band == torch.float32
+    assert _within(band, got2, want[1], bound if isinstance(bound, float)
                    else bound[1])
 
 
@@ -119,8 +140,7 @@ def _random_pack(true_win, dtype, device, seed=0):
 # odd ones taking the 4-byte copies.
 @pytest.mark.parametrize("width", [1, 130, 257, 384])
 @pytest.mark.parametrize("true_win", [5, 16, 40, 300])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, X3],
-                         ids=["f32", "bf16", "x3"])
+@pytest.mark.parametrize("dtype", ALL_KINDS, ids=KIND_IDS)
 def test_ring_and_tensor_cores_at_ragged_shapes(cuda, dtype, true_win,
                                                 width):
     """f32 bands through the cp.async ring (f32 FMA), bf16 and split bands
@@ -135,19 +155,20 @@ def test_ring_and_tensor_cores_at_ragged_shapes(cuda, dtype, true_win,
         np.random.default_rng(true_win).uniform(0, 255,
                                                 (2, pack.n_in, width)),
         dtype=torch.float32, device=cuda)
-    before = getattr(banded_row_apply, COUNTER[dtype])
+    counter = KINDS[dtype].counter
+    before = getattr(banded_row_apply, counter)
     got = banded_row_apply(pack, x)
-    assert getattr(banded_row_apply, COUNTER[dtype]) == before + 1
-    want = banded_row_apply_reference(pack, x)
+    assert getattr(banded_row_apply, counter) == before + 1
+    want = banded_row_apply_reference(pack, x, rounded=False)
     torch.cuda.synchronize()
     bound = _bound(pack, blocks, ranges, x)
     assert got.shape == want.shape == (2, pack.n_out, width)
-    assert _within(got, want, bound)
+    assert _within(dtype, got, want, bound)
     # an input view at an offset of one float: the unaligned copy path
     flat = torch.empty(x.numel() + 1, device=cuda)
     view = flat[1:].view(x.shape)
     view.copy_(x)
-    assert _within(banded_row_apply(pack, view), want, bound)
+    assert _within(dtype, banded_row_apply(pack, view), want, bound)
 
 
 def test_split_beats_one_bf16_pass(cuda):
@@ -171,3 +192,79 @@ def test_split_beats_one_bf16_pass(cuda):
         torch.cuda.synchronize()
         assert (np.abs(got.cpu().double().numpy() - want)
                 <= share * scale).all(), dtype
+
+
+# Each kind against a float64 product: per output within this share of
+# sum_k |b_k| |x_k| (the CPU tests' classes, tests/test_torch_precision.py).
+CLASS_SHARE = {torch.float32: 2.0 ** -19, torch.bfloat16: 2.0 ** -7,
+               BF16OUT: 2.0 ** -6, X3: 2.0 ** -14, X6: 2.0 ** -19,
+               X9: 2.0 ** -19, TF32: 2.0 ** -10, TF32X3: 2.0 ** -19,
+               F16: 2.0 ** -10, F16OUT: 2.0 ** -9, F64: 2.0 ** -23}
+
+
+@pytest.mark.parametrize("dtype", ALL_KINDS, ids=KIND_IDS)
+def test_each_kind_within_its_class_of_a_float64_product(cuda, dtype):
+    rng = np.random.default_rng(12)
+    x = torch.as_tensor(rng.uniform(0, 255, (2, 3 * 40 + 11, 301)),
+                        dtype=torch.float32, device=cuda)
+    pack, blocks, ranges = _random_pack(40, dtype, cuda, seed=4)
+    dense = np.zeros((pack.n_out, pack.n_in))
+    r0 = 0
+    for b, (lo, hi) in zip(blocks, ranges):
+        dense[r0:r0 + b.shape[0], lo:hi] = b.astype(np.float32)
+        r0 += b.shape[0]
+    xd = x.double().cpu().numpy()
+    want = np.einsum("oh,zhw->zow", dense, xd)
+    scale = np.einsum("oh,zhw->zow", np.abs(dense), np.abs(xd))
+    got = banded_row_apply(pack, x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, round_result(dtype, got))
+    err = np.abs(got.cpu().double().numpy() - want)
+    assert (err <= CLASS_SHARE[dtype] * scale).all(), (err / scale).max()
+
+
+# Band entries and inputs c * 2^e, c one of these: each output is a single
+# product, whose parts' products and their sums are exact in float32 under
+# every kind, in any order, up to terms below half an ulp that every order
+# drops.
+PROBE_VALUES = (1 + 2.0 ** -9 + 2.0 ** -18, 1 + 2.0 ** -4)
+
+
+def _probe(dtype, device, width=130, seed=3):
+    """A pack of two blocks (128 and 37 rows, windows of 40) whose rows
+    each hold one nonzero entry, and an input [2, 64, width], all of them
+    ``c * 2^e`` with c in ``PROBE_VALUES`` and e in [-3, 3]."""
+    rng = np.random.default_rng(seed)
+    vals = np.asarray(PROBE_VALUES)
+    rows, win, n_in = (128, 37), 40, 64
+    blocks, ranges = [], []
+    for i, r in enumerate(rows):
+        b = np.zeros((r, win))
+        b[np.arange(r), rng.integers(0, win, r)] = (
+            rng.choice(vals, r) * 2.0 ** rng.integers(-3, 4, r))
+        blocks.append(b)
+        ranges.append((i * (n_in - win), i * (n_in - win) + win))
+    x = (rng.choice(vals, (2, n_in, width))
+         * 2.0 ** rng.integers(-3, 4, (2, n_in, width)))
+    return (pack_banded(blocks, ranges, sum(rows), n_in, device, dtype),
+            torch.as_tensor(x, dtype=torch.float32, device=device))
+
+
+@pytest.mark.parametrize("dtype", ALL_KINDS, ids=KIND_IDS)
+def test_each_kind_forms_exactly_its_products(cuda, dtype):
+    """On the probe the kernel equals the plain version bit for bit, and
+    the plain versions of kinds that form other products or round their
+    result differently differ there, so a kernel that took another kind's
+    pass list or skipped its rounding would fail.  (X9's three extra
+    products lie below a float32 sum's resolution: no float32 result tells
+    X9 from X6.)"""
+    pack, x = _probe(dtype, cuda)
+    got = banded_row_apply(pack, x)
+    want = banded_row_apply_reference(pack, x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    other = {X3: X6, X6: X3, TF32: TF32X3, TF32X3: TF32, F16: F16OUT,
+             F16OUT: F16, torch.bfloat16: BF16OUT, BF16OUT: torch.bfloat16,
+             torch.float32: X3, X9: X3, F64: X3}[dtype]
+    assert not torch.equal(want, banded_row_apply_reference(
+        _probe(other, cuda)[0], x))

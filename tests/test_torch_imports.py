@@ -86,7 +86,8 @@ def test_every_port_module_imports_with_jax_blocked():
                 "psf.toolkit", "psf.analyze", "psf.cli", "hw", "hw.protocols",
                 "hw.sim", "hw.autofocus", "hw.calibrate", "hw.collect",
                 "hw.stability", "hw.real", "hw.gui", "utils", "utils.config",
-                "utils.trace", "utils.plots", "utils.timing"):
+                "utils.trace", "utils.plots", "utils.timing", "native",
+                "native.build", "native.png_loader"):
         assert f"enph459_super_resolution_tpu_torch.{mod}" in names, mod
 
 
@@ -144,9 +145,10 @@ def test_every_kernel_entry_point_is_in_its_source():
     from enph459_super_resolution_tpu_torch.ops import (banded_rows,
                                                         fused_ibp, trunk)
 
-    assert "banded_rows_x3_launch" in [s for s, _ in
-                                       banded_rows._ENTRY.values()]
-    bound = {"banded_rows": [s for s, _ in banded_rows._ENTRY.values()],
+    assert "banded_rows_x3_launch" in [spec.symbol for spec in
+                                       banded_rows.KINDS.values()]
+    bound = {"banded_rows": [spec.symbol
+                             for spec in banded_rows.KINDS.values()],
              "fused_ibp": ["fused_fwd_launch", "fused_bwd_launch"],
              "trunk": [s for s, _ in trunk._ENTRY.values()]}
     assert sorted(bound) == _build.kernel_names()

@@ -86,7 +86,11 @@ def test_decodes_pil_written_files(shape, tmp_path):
 
 
 def test_io_without_pil_uses_the_zlib_codec(tmp_path, monkeypatch):
+    # neither PIL nor the native libpng codec (which comes first where it
+    # builds): the stdlib-zlib codec reads and writes
     monkeypatch.setattr(tio, "_pil", lambda: None)
+    monkeypatch.setattr(tio.png_loader, "load", lambda path: None)
+    monkeypatch.setattr(tio.png_loader, "save", lambda *a, **k: False)
     gray, rgb = _image((20, 30), 4), _image((8, 6, 3), 5)
     tio.save_png(gray, str(tmp_path / "g.png"))
     tio.save_png(rgb.astype(np.float32) + 0.7, str(tmp_path / "c.png"))

@@ -125,6 +125,43 @@ def test_cli_matches_jax_cli(sessions, tmp_path, workload):
         assert sj == st
 
 
+@pytest.mark.parametrize("name", ["F16_F16_F16", "F64_F64_F64"])
+def test_cli_mm_precision_matches_jax_cli(sessions, tmp_path, monkeypatch,
+                                          name):
+    """``--mm-precision`` at names JAX's CPU runs: the artifacts within +-1
+    uint8 of the JAX CLI's at the same name (its CLI sets the precision
+    module-wide; the monkeypatch restores it)."""
+    from enph459_super_resolution_tpu.ops import opmatrix as jax_opmatrix
+
+    monkeypatch.setattr(jax_opmatrix, "_MM_PRECISION",
+                        jax_opmatrix._MM_PRECISION)
+    data, units = sessions["mono_cal_target"]
+    out_j, out_t = str(tmp_path / "jax"), str(tmp_path / "torch")
+    flags = ["--mm-precision", name]
+    assert jax_run.main(_args("mono_cal_target", data, out_j) + flags) == 0
+    assert torch_run.main(_args("mono_cal_target", data, out_t) + flags
+                          + ["--device", "cpu"]) == 0
+    for name_png in ("native_2x.png", "SAA.png", "SAA_IBP.png"):
+        a = load_image(os.path.join(out_j, units[0], name_png)).astype(int)
+        b = load_image(os.path.join(out_t, units[0], name_png)).astype(int)
+        assert np.abs(a - b).max() <= 1, name_png
+
+
+@pytest.mark.parametrize("name", ["ANY_F8_ANY_F8_F32",
+                                  "ANY_F8_ANY_F8_ANY_FAST_ACCUM", "FASTEST"])
+def test_cli_refuses_float8_and_unknown_precisions(sessions, tmp_path,
+                                                   capsys, name):
+    data, _ = sessions["mono_cal_target"]
+    out = tmp_path / "out"
+    with pytest.raises(SystemExit) as exc:
+        torch_run.main(_args("mono_cal_target", data, str(out))
+                       + ["--mm-precision", name, "--device", "cpu"])
+    assert exc.value.code == 2
+    err = capsys.readouterr().err
+    assert ("float8" in err) == name.startswith("ANY_F8")
+    assert not out.exists()
+
+
 def test_cli_done_flag_resume_and_force(sessions, tmp_path, capsys):
     data, units = sessions["mono_barcodes"]
     out = str(tmp_path / "torch")

@@ -207,3 +207,18 @@ def test_build_only_fills_the_moved_cache(tiny_session_dir, tmp_path,
     assert TP.main(["--workloads", "mono_barcodes", "--data-dir",
                     tiny_session_dir, "--max-batch", "2", "--ibp-iters",
                     "2", "--device", "cpu"]) == 0
+
+
+@pytest.mark.parametrize("name", ["ANY_F8_ANY_F8_F32", "TF32_TF32_F32_X3"])
+def test_prewarm_takes_every_precision_but_float8(tiny_session_dir, op_cache,
+                                                  capsys, name):
+    """``--mm-precision`` takes JAX's names; a float8 preset exits 2."""
+    argv = ["--workloads", "mono_barcodes", "--data-dir", tiny_session_dir,
+            "--build-only", "--device", "cpu", "--mm-precision", name]
+    if name.startswith("ANY_F8"):
+        with pytest.raises(SystemExit) as exc:
+            TP.main(argv)
+        assert exc.value.code == 2
+        assert "float8" in capsys.readouterr().err
+    else:
+        assert TP.main(argv) == 0
