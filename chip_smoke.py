@@ -41,7 +41,10 @@ or of the JAX package.  Phases, one JSON line each:
    nonzero band entry and column of x (one ``k1_bound`` line gives the
    bound over the 128-row block windows beside it, and per f32 banded
    mono_cal_target solve the sum of the per-op device times times their
-   launches, the bound and the time lost over it).  The kernel's time is
+   launches, the bound and the time lost over it); for F64 also the GFLOP
+   its row sub-tiles perform (``_k1_f64_macs``: 16 rows over each span
+   rounded out to whole k8 steps) and their rate's share of the f64 peak
+   on the device alone.  The kernel's time is
    taken twice (CUDA events both): per call over calls launched one after
    another, and on the device alone over calls queued behind a device
    sleep, which leaves out the host's launch cost where a call takes longer
@@ -282,6 +285,8 @@ F64_PEAK = 66.9e12          # H100 SXM f64 DMMA rate
 # both form the same exact products and sum them in float32 in another
 # order (F64: in float64, rounded once); the card tests' SHARE and X3_SHARE
 K1_SHARE, K1_F64_SHARE = 2.0 ** -17, 2.0 ** -22
+K1_F64_DESIGN = ("f64 tensor cores (mma.sync m16n8k8 .f64, DMMA); 16-row "
+                 "sub-tiles, each over its span of window rows")
 # K1's exactness probe: band entries and inputs c * 2^e with c one of these,
 # each output a single product, whose parts' products and their sums are
 # exact in float32 under every kind
@@ -744,6 +749,12 @@ def phase_kernel(torch, f32_peak, host):
                + (" (tf32)" if lib_tf32 else ""),
                **_bound(ops, nbytes, peak),
                "kernel_tflops": ops / kernel_ms / 1e9}
+        if dtype == F64:
+            # what its DMMA sub-tiles perform, at the f64 tensor-core peak
+            performed = 2.0 * _k1_f64_macs(pack) * width * batch
+            row["kernel_gflop"] = performed / 1e9
+            row["kernel_share_of_peak"] = (
+                performed / (kernel_device_ms * 1e-3) / F64_PEAK)
         emit(row)
         row["block_window"] = {
             "gflop": window_ops / 1e9,
@@ -752,6 +763,20 @@ def phase_kernel(torch, f32_peak, host):
         del dense, x, x_lib, got, want
     emit(_k1_solve_bound(rows))
     return rows
+
+
+def _k1_f64_macs(pack) -> int:
+    """Multiply-adds per column of x that the F64 K1 performs on ``pack``
+    (csrc/banded_rows.cu ``banded_rows_f64_kernel``): each row sub-tile's
+    ``SUB_ROWS`` rows over its span (``RowPack.spans``) rounded out to
+    whole steps of ``SUB_K`` window rows."""
+    from enph459_super_resolution_tpu_torch.ops.banded_rows import (
+        SUB_K, SUB_ROWS)
+
+    sp = pack.spans.cpu().numpy().astype(np.int64)
+    lo = sp[..., 0] // SUB_K * SUB_K
+    hi = -(-sp[..., 1] // SUB_K) * SUB_K
+    return int(SUB_ROWS * (hi - lo).sum())
 
 
 def _k1_solve_launches(n: int, n_iter: int, rank: int) -> dict:
@@ -3654,11 +3679,13 @@ def main() -> int:
                  card)]
     for name, key, _ in NEW_PRESETS:
         band = key[len("k1_"):]
+        head = next(r for r in k1_rows if r["op"] == f"fwd_r_{band}")
         entries.append(dict(
             _summary(f"banded_rows_{band}", k1_src, k1_tpu,
                      precision[f"f32 {name}"]["launches"][key], k1(band),
-                     next(r for r in k1_rows if r["op"] == f"fwd_r_{band}"),
-                     card), mm_precision=name))
+                     head, card), mm_precision=name,
+            **({"design": K1_F64_DESIGN, "kernel_gflop": head["kernel_gflop"]}
+               if band == "f64" else {})))
     for kernel, line, key in (("fused_fwd", 237, "k2"),
                               ("fused_bwd", 264, "k3")):
         for dtype, launches in (("float32", f32_fused[f"{key}_f32"]),

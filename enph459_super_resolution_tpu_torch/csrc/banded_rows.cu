@@ -38,8 +38,10 @@
 //   the result to f16 in the epilogue (JAX's CPU backend: f16 operands, a
 //   wide sum, an f16 result).  Band entries below 6.1e-5 are f16
 //   subnormals, below 6e-8 zero, in the plain version too.
-// * f64 (F64_F64_F64): float32 bands and x widened to f64 in registers, f64
-//   FMA on the CUDA cores, the result rounded to f32.
+// * f64 (F64_F64_F64): float32 bands and x widened to f64 in registers,
+//   products and sums on the f64 tensor cores (mma.sync m16n8k8 .f64, DMMA),
+//   the result rounded to f32.  Products of two f32 values are exact in
+//   f64, so only the order of the f64 sum differs from the plain version.
 // Every instantiation writes float32.
 //
 // Replaces the TPU kernel enph459_super_resolution_tpu/ops/pallas_kernels.py
@@ -53,10 +55,10 @@
 // forward row operator does 2*1536*293*4096 = 3.65 GFLOP over its 128-row
 // block windows (0.489 GFLOP over the bands' nonzeros) and moves ~84 MB
 // (read the 3072x4096 HR image, write 1536x4096).  Over the nonzeros every
-// instantiation is bound by bytes (0.023 ms) but f64: its 0.489 GFLOP on
-// the f64 FMA units (67 TFLOP/s at most, the DMMA rate; half that without
-// DMMA) take 0.0073 ms.  The split kinds do P(P+1)/2 .. P^2 tensor-core
-// products of the same work, still under the bytes.
+// instantiation is bound by bytes (0.023 ms), f64 too: its 0.489 GFLOP at
+// the DMMA rate (67 TFLOP/s; plain f64 FMA reaches about half) take 0.0073
+// ms.  The split kinds do P(P+1)/2 .. P^2 tensor-core products of the same
+// work, still under the bytes.
 //
 // Design.  What the TPU kernel spent its code on (HBM-pinned operands,
 // scalar-prefetched window starts, hand double-buffered DMA, 8-aligned
@@ -74,8 +76,21 @@
 //   1.45 waves of 264.  Grids of whole waves measured slower on the card:
 //   one block per SM (a 7-stage ring, 2.91 waves of 132) and 96-column
 //   tiles (1.95 waves of 264) cost more per block than the partial wave.
-// * f64: as float32 with 64-column tiles (BN = 64), each thread an 8 x 4
-//   f64 register tile (64 registers of accumulator).
+// * f64: 64-column tiles (BN = 64); warp w owns columns 8w .. 8w+7 of all
+//   128 rows, as 8 row sub-tiles of 16 (one m16n8 f64 accumulator each, 64
+//   registers), and walks every sub-tile, each only over the k8 steps of
+//   the window rows that hold its nonzeros (RowPack.spans, from the host;
+//   a block visits only the chunks some sub-tile meets, and copies only
+//   the band rows of the sub-tiles a chunk meets).  At fwd_r a sub-tile
+//   spans ~72 of the block's 293 window rows: 1.86x the nonzeros' products
+//   (0.91 GFLOP) instead of 7.5x.  Splitting columns, not rows, keeps all 8
+//   warps busy on every chunk.  A fragments (band, k-major, row stride 136
+//   floats) and B fragments (x, row stride 72) are f32 reads, conflict-free,
+//   widened to f64 in registers.  Why m16n8k8: on the card it took less
+//   time at fwd_r, bwd_r and in the F64 solve than m8n8k4 on 8-row
+//   sub-tiles, though those form fewer products (1.43x the nonzeros at
+//   fwd_r).  Other variants were tried without keeping their times; none
+//   is settled either way (PERF.md).
 // * 16-bit bands (bf16, f16, the bf16 splits): each of the 8 warps computes
 //   64 rows x 32 columns with mma.sync m16n8k16.  A comes from the k-major
 //   band chunk by ldmatrix.trans (row stride 272 B: the 8 rows of one
@@ -109,11 +124,14 @@ constexpr int STAGES = 4;     // depth of the cp.async ring
 constexpr int THREADS = 256;
 constexpr int MAX_GRID_Z = 65535;
 constexpr int MAX_PARTS = 3;
+constexpr int SUB = 16;         // rows of a sub-tile (banded_rows.py SUB_ROWS)
+constexpr int NSUB = BM / SUB;  // sub-tiles of a band block
+constexpr int KS = 8;           // window rows per f64 step (SUB_K there)
 
 // How a tensor-core kind rounds its f32 sum before the store.
 enum Round { kRoundF32 = 0, kRoundBf16 = 1, kRoundF16 = 2 };
 
-// Band kinds.  float: f32 FMA.  F64: f32 bands, f64 FMA.  Mma<E, P, S, R>:
+// Band kinds.  float: f32 FMA.  F64: f32 bands, DMMA.  Mma<E, P, S, R>:
 // tensor-core products of element type E (__nv_bfloat16, __half or Tf32)
 // over P band parts, the pairs of parts (p, q) with p + q <= S, the result
 // rounded by R.
@@ -150,9 +168,10 @@ template <>
 struct Stage<F64> {
   using Elem = float;
   static constexpr int PARTS = 1;
-  static constexpr int AS = BM;
+  // fragment reads of rows t and columns g: t * 8 + g covers the 32 banks
+  static constexpr int AS = BM + 8;
   static constexpr int BN = 64;
-  static constexpr int XS = BN + 4;
+  static constexpr int XS = BN + 8;
   static constexpr int MIN_BLOCKS = 2;
 };
 template <typename E, int P, int S, int R>
@@ -289,32 +308,14 @@ struct Block {
   int start, w0, n_in, W;
 };
 
-// cp.async window chunk `kc` of every band part and of x into one ring
-// stage.
+// cp.async window chunk `kc` of x (rows past n_in and columns past W
+// zero-filled) into a stage's x chunk [BK][XS].
 template <typename Kind, bool kVec>
-__device__ __forceinline__ void load_chunk(
-    char* stage, const Parts<typename Stage<Kind>::Elem>& band,
-    const Block& bl, int kc, int tid) {
+__device__ __forceinline__ void load_x(float* xs, const Block& bl, int kc,
+                                       int tid) {
   using namespace mma_bf16;
-  using Elem = typename Stage<Kind>::Elem;
-  constexpr int PER16 = 16 / static_cast<int>(sizeof(Elem));
-  constexpr int PIECES = BK * BM / PER16;
-  constexpr int AS = Stage<Kind>::AS;
   constexpr int BN = Stage<Kind>::BN;
   constexpr int XS = Stage<Kind>::XS;
-#pragma unroll
-  for (int p = 0; p < Stage<Kind>::PARTS; ++p) {
-    const Elem* src = band.p[p] + static_cast<size_t>(kc) * BK * BM;
-    Elem* as = reinterpret_cast<Elem*>(stage + p * part_bytes<Kind>());
-#pragma unroll
-    for (int i = 0; i < PIECES / THREADS; ++i) {
-      const int e = tid + i * THREADS;
-      const int k = e / (BM / PER16);
-      const int c = (e % (BM / PER16)) * PER16;
-      cp_async16(as + k * AS + c, src + k * BM + c, 16);
-    }
-  }
-  float* xs = reinterpret_cast<float*>(stage + a_bytes<Kind>());
   const int xr0 = bl.start + kc * BK;
   if (kVec) {
 #pragma unroll
@@ -339,6 +340,33 @@ __device__ __forceinline__ void load_chunk(
       cp_async4(xs + k * XS + c, p, in ? 4 : 0);
     }
   }
+}
+
+// cp.async window chunk `kc` of every band part and of x into one ring
+// stage.
+template <typename Kind, bool kVec>
+__device__ __forceinline__ void load_chunk(
+    char* stage, const Parts<typename Stage<Kind>::Elem>& band,
+    const Block& bl, int kc, int tid) {
+  using namespace mma_bf16;
+  using Elem = typename Stage<Kind>::Elem;
+  constexpr int PER16 = 16 / static_cast<int>(sizeof(Elem));
+  constexpr int PIECES = BK * BM / PER16;
+  constexpr int AS = Stage<Kind>::AS;
+#pragma unroll
+  for (int p = 0; p < Stage<Kind>::PARTS; ++p) {
+    const Elem* src = band.p[p] + static_cast<size_t>(kc) * BK * BM;
+    Elem* as = reinterpret_cast<Elem*>(stage + p * part_bytes<Kind>());
+#pragma unroll
+    for (int i = 0; i < PIECES / THREADS; ++i) {
+      const int e = tid + i * THREADS;
+      const int k = e / (BM / PER16);
+      const int c = (e % (BM / PER16)) * PER16;
+      cp_async16(as + k * AS + c, src + k * BM + c, 16);
+    }
+  }
+  load_x<Kind, kVec>(reinterpret_cast<float*>(stage + a_bytes<Kind>()), bl,
+                     kc, tid);
 }
 
 // float32 bands: thread (ty, tx) owns rows ty*8 .. +7 and columns
@@ -399,64 +427,6 @@ struct FmaTile {
           for (int j = 0; j < 4; ++j)
             if (c + j < W) orow[c + j] = acc[i][4 * h + j];
         }
-      }
-    }
-  }
-};
-
-// f64: thread (ty, tx) owns rows ty*8 .. +7 and columns tx*4 .. +3 of a
-// 64-column tile; bands and x are widened to f64 as they are read.
-struct F64Tile {
-  static constexpr int XS = Stage<F64>::XS;
-  double acc[8][4];
-
-  __device__ __forceinline__ void zero() {
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.0;
-  }
-
-  __device__ __forceinline__ void step(const char* stage, int tid) {
-    const float* as = reinterpret_cast<const float*>(stage);
-    const float* xs = reinterpret_cast<const float*>(stage + a_bytes<F64>());
-    const int ty = tid / 16;
-    const int tx = tid % 16;
-#pragma unroll
-    for (int k = 0; k < BK; ++k) {
-      const float4 a0 = *reinterpret_cast<const float4*>(as + k * BM + ty * 8);
-      const float4 a1 =
-          *reinterpret_cast<const float4*>(as + k * BM + ty * 8 + 4);
-      const float4 b0 = *reinterpret_cast<const float4*>(xs + k * XS + tx * 4);
-      const double a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const double b[4] = {b0.x, b0.y, b0.z, b0.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fma(a[i], b[j], acc[i][j]);
-    }
-  }
-
-  template <bool kVec>
-  __device__ __forceinline__ void store(float* oz, int row0, int nrow, int w0,
-                                        int W, int tid) const {
-    const int ty = tid / 16;
-    const int tx = tid % 16;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int r = ty * 8 + i;
-      if (r >= nrow) break;
-      float* orow = oz + static_cast<size_t>(row0 + r) * W;
-      const int c = w0 + tx * 4;
-      if (kVec) {
-        if (c < W)
-          *reinterpret_cast<float4*>(orow + c) = make_float4(
-              static_cast<float>(acc[i][0]), static_cast<float>(acc[i][1]),
-              static_cast<float>(acc[i][2]), static_cast<float>(acc[i][3]));
-      } else {
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          if (c + j < W) orow[c + j] = static_cast<float>(acc[i][j]);
       }
     }
   }
@@ -611,10 +581,6 @@ template <>
 struct TileOf<float> {
   using type = FmaTile;
 };
-template <>
-struct TileOf<F64> {
-  using type = F64Tile;
-};
 template <typename E, int P, int S, int R>
 struct TileOf<Mma<E, P, S, R>> {
   using type = Mma16Tile<Mma<E, P, S, R>>;
@@ -671,33 +637,207 @@ banded_rows_kernel(const Parts<typename Stage<Kind>::Elem> bands,
                             W, tid);
 }
 
-template <typename Kind, bool kVec>
-int launch_kind(const Parts<typename Stage<Kind>::Elem>& bands,
-                const int* starts, const int* out_row0, const int* rows,
-                const float* x, float* out, int n_blk, int win, int n_in,
-                int n_out, int W, int batch, cudaStream_t s) {
+// d += A * B for one m16n8k8 tile of f64 operands (DMMA).  For lane l,
+// g = l / 4 and t = l % 4: a0 = A[g][t], a1 = A[g+8][t], a2 = A[g][t+4],
+// a3 = A[g+8][t+4]; b0 = B[t][g], b1 = B[t+4][g]; d0, d1 = D[g][2t .. 2t+1],
+// d2, d3 = D[g+8][2t .. 2t+1].
+__device__ __forceinline__ void dmma_1688(double (&d)[4], const double (&a)[4],
+                                          const double (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));
+}
+
+// The f64 kind's chunk: the band rows of the sub-tiles in `live` (bit s:
+// rows 16s .. 16s+15) and x.  The other sub-tiles' rows of the stage keep
+// what an earlier chunk left there; no step of this chunk reads them.
+template <bool kVec>
+__device__ __forceinline__ void load_f64_chunk(char* stage,
+                                               const float* band,
+                                               const Block& bl, int kc,
+                                               unsigned live, int tid) {
+  using namespace mma_bf16;
+  constexpr int AS = Stage<F64>::AS;
+  constexpr int PER_SUB = SUB / 4;  // 16-byte pieces of a sub-tile's row
+  const float* src = band + static_cast<size_t>(kc) * BK * BM;
+  float* as = reinterpret_cast<float*>(stage);
+#pragma unroll
+  for (int i = 0; i < BK * NSUB * PER_SUB / THREADS; ++i) {
+    const int e = tid + i * THREADS;
+    const int k = e / (NSUB * PER_SUB);
+    const int sub = (e / PER_SUB) % NSUB;
+    const int c = sub * SUB + (e % PER_SUB) * 4;
+    if ((live >> sub) & 1) cp_async16(as + k * AS + c, src + k * BM + c, 16);
+  }
+  load_x<F64, kVec>(reinterpret_cast<float*>(stage + a_bytes<F64>()), bl, kc,
+                    tid);
+}
+
+// f64 bands on DMMA: warp w computes columns 8w .. 8w+7 of the 128 x 64
+// tile as 8 m16n8 accumulators, one per row sub-tile; a sub-tile takes the
+// k8 steps inside its span (rounded out to whole steps), all others skip.
+template <bool kVec>
+__global__ void __launch_bounds__(THREADS, Stage<F64>::MIN_BLOCKS)
+banded_rows_f64_kernel(const float* __restrict__ bands,
+                       const int2* __restrict__ spans,
+                       const int* __restrict__ starts,
+                       const int* __restrict__ out_row0,
+                       const int* __restrict__ rows,
+                       const float* __restrict__ x, float* __restrict__ out,
+                       int win, int n_in, int n_out, int W, int z0) {
+  using namespace mma_bf16;
+  constexpr int AS = Stage<F64>::AS;
+  constexpr int XS = Stage<F64>::XS;
+  constexpr int SB = stage_bytes<F64>();
+  constexpr int STEPS = BK / KS;
+  extern __shared__ __align__(128) char smem[];
+  const int b = blockIdx.x;
+  const size_t z = static_cast<size_t>(blockIdx.z) + z0;
+  const Block bl = {x + z * n_in * W, starts[b],
+                    static_cast<int>(blockIdx.y) * Stage<F64>::BN, n_in, W};
+  const float* band = bands + static_cast<size_t>(b) * win * BM;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  // lane s < NSUB holds sub-tile s's span, widened to whole k8 steps
+  int lo = 0, hi = 0;
+  if (lane < NSUB) {
+    const int2 sp = spans[b * NSUB + lane];
+    lo = sp.x / KS * KS;
+    hi = (sp.y + KS - 1) / KS * KS;
+  }
+  // the chunks that some sub-tile meets
+  const int first = __reduce_min_sync(~0u, lo < hi ? lo : win) / BK;
+  const int end = (__reduce_max_sync(~0u, hi) + BK - 1) / BK;
+  const int nk = end > first ? end - first : 0;
+  auto live = [&](int kc) {
+    return __ballot_sync(~0u, lo < (kc + 1) * BK && hi > kc * BK);
+  };
+
+  double acc[NSUB][4];
+#pragma unroll
+  for (int s = 0; s < NSUB; ++s)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[s][q] = 0.0;
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nk)
+      load_f64_chunk<kVec>(smem + s * SB, band, bl, first + s,
+                           live(first + s), tid);
+    cp_async_commit();
+  }
+  for (int i = 0; i < nk; ++i) {
+    cp_async_wait<STAGES - 2>();
+    // chunk i has landed for every thread, and every thread is done with
+    // the stage of chunk i - 1, which is refilled next
+    __syncthreads();
+    const int next = i + STAGES - 1;
+    if (next < nk)
+      load_f64_chunk<kVec>(smem + (next % STAGES) * SB, band, bl,
+                           first + next, live(first + next), tid);
+    cp_async_commit();
+    // on[j] bit s: sub-tile s takes step j (window rows kb + 8j .. +7)
+    const int kb = (first + i) * BK;
+    unsigned on[STEPS];
+    unsigned any = 0;
+#pragma unroll
+    for (int j = 0; j < STEPS; ++j) {
+      on[j] = __ballot_sync(~0u, lo <= kb + KS * j && kb + KS * j < hi);
+      any |= on[j];
+    }
+    const char* stage = smem + (i % STAGES) * SB;
+    const float* as = reinterpret_cast<const float*>(stage) + t * AS + g;
+    const float* xs = reinterpret_cast<const float*>(stage + a_bytes<F64>()) +
+                      t * XS + warp * 8 + g;
+    double bx[STEPS][2];
+#pragma unroll
+    for (int j = 0; j < STEPS; ++j) {
+      bx[j][0] = xs[KS * j * XS];
+      bx[j][1] = xs[(KS * j + 4) * XS];
+    }
+#pragma unroll
+    for (int s = 0; s < NSUB; ++s) {
+      if (!((any >> s) & 1)) continue;
+#pragma unroll
+      for (int j = 0; j < STEPS; ++j) {
+        if (!((on[j] >> s) & 1)) continue;
+        const float* a0 = as + KS * j * AS + s * SUB;
+        const double a[4] = {a0[0], a0[8], a0[4 * AS], a0[4 * AS + 8]};
+        dmma_1688(acc[s], a, bx[j]);
+      }
+    }
+  }
+
+  const int nrow = rows[b];
+  float* orow0 = out + z * n_out * W + static_cast<size_t>(out_row0[b]) * W;
+  const int c = bl.w0 + warp * 8 + 2 * t;
+#pragma unroll
+  for (int s = 0; s < NSUB; ++s)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = s * SUB + g + 8 * h;
+      if (r >= nrow) continue;
+      float* orow = orow0 + static_cast<size_t>(r) * W;
+      const float v0 = static_cast<float>(acc[s][2 * h]);
+      const float v1 = static_cast<float>(acc[s][2 * h + 1]);
+      if (kVec) {
+        if (c < W)
+          *reinterpret_cast<float2*>(orow + c) = make_float2(v0, v1);
+      } else {
+        if (c < W) orow[c] = v0;
+        if (c + 1 < W) orow[c + 1] = v1;
+      }
+    }
+}
+
+// Launch `kernel`, Kind's instantiation, over band blocks x column tiles x
+// batch (in slices of MAX_GRID_Z) with its leading arguments `args`, then
+// win, n_in, n_out, W and the slice's first batch index.
+template <typename Kind, typename Kernel, typename... Args>
+int launch_grid(Kernel kernel, int n_blk, int win, int n_in, int n_out, int W,
+                int batch, cudaStream_t s, Args... args) {
   constexpr int smem = STAGES * stage_bytes<Kind>();
   constexpr int BN = Stage<Kind>::BN;
-  auto kernel = banded_rows_kernel<Kind, kVec>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   for (int z0 = 0; z0 < batch; z0 += MAX_GRID_Z) {
     const int nz = batch - z0 < MAX_GRID_Z ? batch - z0 : MAX_GRID_Z;
     const dim3 grid(n_blk, (W + BN - 1) / BN, nz);
-    kernel<<<grid, THREADS, smem, s>>>(bands, starts, out_row0, rows, x, out,
-                                       win, n_in, n_out, W, z0);
+    kernel<<<grid, THREADS, smem, s>>>(args..., win, n_in, n_out, W, z0);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return static_cast<int>(cudaSuccess);
 }
 
+template <typename Kind, bool kVec>
+int launch_kind(const Parts<typename Stage<Kind>::Elem>& bands,
+                const int2* spans, const int* starts, const int* out_row0,
+                const int* rows, const float* x, float* out, int n_blk,
+                int win, int n_in, int n_out, int W, int batch,
+                cudaStream_t s) {
+  if constexpr (std::is_same_v<Kind, F64>)
+    return launch_grid<Kind>(banded_rows_f64_kernel<kVec>, n_blk, win, n_in,
+                             n_out, W, batch, s, bands.p[0], spans, starts,
+                             out_row0, rows, x, out);
+  else
+    return launch_grid<Kind>(banded_rows_kernel<Kind, kVec>, n_blk, win, n_in,
+                             n_out, W, batch, s, bands, starts, out_row0,
+                             rows, x, out);
+}
+
+// `spans` is read by the F64 kind alone.
 template <typename Kind>
 int launch(const typename Stage<Kind>::Elem* const* parts, const int* starts,
            const int* out_row0, const int* rows, const float* x, float* out,
            int n_blk, int win, int n_in, int n_out, int W, int batch,
-           void* stream) {
+           void* stream, const int2* spans = nullptr) {
   if (n_blk <= 0 || win <= 0 || win % BK != 0 || n_in <= 0 || n_out <= 0 ||
       W <= 0 || batch <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -711,10 +851,12 @@ int launch(const typename Stage<Kind>::Elem* const* parts, const int* starts,
   // 16-byte copies and stores need every row of x and out 16-byte aligned
   const bool vec = W % 4 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0 &&
                    (reinterpret_cast<uintptr_t>(out) & 15) == 0;
-  return vec ? launch_kind<Kind, true>(bands, starts, out_row0, rows, x, out,
-                                       n_blk, win, n_in, n_out, W, batch, s)
-             : launch_kind<Kind, false>(bands, starts, out_row0, rows, x, out,
-                                        n_blk, win, n_in, n_out, W, batch, s);
+  return vec ? launch_kind<Kind, true>(bands, spans, starts, out_row0, rows, x,
+                                       out, n_blk, win, n_in, n_out, W, batch,
+                                       s)
+             : launch_kind<Kind, false>(bands, spans, starts, out_row0, rows,
+                                        x, out, n_blk, win, n_in, n_out, W,
+                                        batch, s);
 }
 
 }  // namespace
@@ -722,12 +864,13 @@ int launch(const typename Stage<Kind>::Elem* const* parts, const int* starts,
 // Launch the kernel on `stream` for a [batch, n_in, W] input and a
 // [batch, n_out, W] output (both contiguous float32); `starts`, `out_row0`
 // and `rows` hold n_blk int32 each; each band array is n_blk x win x 128
-// (k-major, 16-byte aligned): float32 (banded_rows_launch, _f64_launch;
-// tf32-rounded for _tf32_launch), bfloat16 (_bf16_launch, _bf16out_launch),
-// float16 (_f16_launch, _f16out_launch), or the parts of split bands in
-// order, hi first: two bfloat16 arrays (_x3_launch), three (_x6_launch,
-// _x9_launch) or two tf32-rounded float32 arrays (_tf32x3_launch).  Each
-// returns cudaGetLastError() after the launch (0 on success).
+// (k-major, 16-byte aligned): float32 (banded_rows_launch, _f64_launch,
+// which takes the sub-tiles' spans too; tf32-rounded for _tf32_launch),
+// bfloat16 (_bf16_launch, _bf16out_launch), float16 (_f16_launch,
+// _f16out_launch), or the parts of split bands in order, hi first: two
+// bfloat16 arrays (_x3_launch), three (_x6_launch, _x9_launch) or two
+// tf32-rounded float32 arrays (_tf32x3_launch).  Each returns
+// cudaGetLastError() after the launch (0 on success).
 #define BANDED_ROWS_ARGS                                                   \
   const int *starts, const int *out_row0, const int *rows, const float *x, \
       float *out, int n_blk, int win, int n_in, int n_out, int W, int batch, \
@@ -794,7 +937,12 @@ extern "C" int banded_rows_f16out_launch(
   return launch<F16Out>(parts, BANDED_ROWS_PASS);
 }
 
-extern "C" int banded_rows_f64_launch(const float* bands, BANDED_ROWS_ARGS) {
+// `spans` holds n_blk x 8 int32 pairs (RowPack.spans, 8-byte aligned).
+extern "C" int banded_rows_f64_launch(const float* bands, const int* spans,
+                                      BANDED_ROWS_ARGS) {
+  if ((reinterpret_cast<uintptr_t>(spans) & 7) != 0)
+    return static_cast<int>(cudaErrorMisalignedAddress);
   const float* parts[] = {bands};
-  return launch<F64>(parts, BANDED_ROWS_PASS);
+  return launch<F64>(parts, BANDED_ROWS_PASS,
+                     reinterpret_cast<const int2*>(spans));
 }

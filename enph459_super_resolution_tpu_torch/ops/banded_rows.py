@@ -36,7 +36,9 @@ row applies; ``ops.opmatrix.MM_PRECISIONS`` names them):
   summed in float32; F16OUT rounds the result to float16 (F16_F16_F32,
   F16_F16_F16);
 * :data:`F64` -- float32 bands and x widened to float64, the sum in
-  float64, the result rounded to float32 (F64_F64_F64).
+  float64, the result rounded to float32 (F64_F64_F64).  Its kernel walks
+  each block in row sub-tiles of :data:`SUB_ROWS` rows, each over only the
+  window rows that hold its nonzero entries (:attr:`RowPack.spans`).
 
 Products of two bf16, f16 or tf32 values are exact in float32, so the plain
 version (float32 matmuls of the rounded parts) and the kernel differ only
@@ -99,6 +101,7 @@ class Kind(NamedTuple):
     rounding: Callable[[torch.Tensor], torch.Tensor]
     out: Optional[torch.dtype] = None
     wide: torch.dtype = torch.float32
+    spans: bool = False  # the entry point takes RowPack.spans
 
 
 _BF16 = _via(torch.bfloat16)
@@ -125,11 +128,12 @@ KINDS = {
     F16OUT: Kind("banded_rows_f16out_launch", "launches_f16out",
                  torch.float16, 1, 0, _F16, torch.float16),
     F64: Kind("banded_rows_f64_launch", "launches_f64", torch.float32, 1, 0,
-              _exact, None, torch.float64),
+              _exact, None, torch.float64, spans=True),
 }
 # C signature of the entry points in csrc/banded_rows.cu: one pointer per
-# band part (hi first), five pointers (starts, out_row0, rows, x, out), six
-# ints (n_blk, win, n_in, n_out, W, batch) and the stream.
+# band part (hi first), the spans where the kind takes them, five pointers
+# (starts, out_row0, rows, x, out), six ints (n_blk, win, n_in, n_out, W,
+# batch) and the stream.
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 # Rows of one band block (the kernel's tile height) and the window padding
@@ -137,6 +141,10 @@ _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 # csrc/banded_rows.cu (BM and BK there).
 ROWS = 128
 K_CHUNK = 16
+# Rows of a row sub-tile and window rows of one step of the F64 kernel:
+# its m16n8k8 tile (SUB and KS there).
+SUB_ROWS = 16
+SUB_K = 8
 
 
 def split(v: torch.Tensor, kind) -> Tuple[torch.Tensor, ...]:
@@ -170,6 +178,10 @@ class RowPack(NamedTuple):
     n_in: int
     kind: object = torch.float32       # the band kind (a key of KINDS)
     more: Tuple[torch.Tensor, ...] = ()  # split kinds: parts 1, 2, ...
+    # F64: i32 [n_blk, ROWS // SUB_ROWS, 2], per block and sub-tile the
+    # window rows lo <= k < hi holding every nonzero of its rows, (0, 0) if
+    # none (:func:`sub_tile_spans`; the kernel's loop bounds); else None
+    spans: Optional[torch.Tensor] = None
 
     @property
     def parts(self) -> Tuple[torch.Tensor, ...]:
@@ -209,8 +221,25 @@ def pack_banded(blocks, col_ranges, n_out: int, n_in: int, device,
     storage = KINDS[dtype].storage
     parts = [p.to(storage)
              for p in split(torch.as_tensor(bands, device=device), dtype)]
+    spans = (torch.as_tensor(sub_tile_spans(bands), device=device)
+             if KINDS[dtype].spans else None)
     return RowPack(parts[0], torch.as_tensor(meta, device=device), meta,
-                   int(n_out), int(n_in), dtype, tuple(parts[1:]))
+                   int(n_out), int(n_in), dtype, tuple(parts[1:]), spans)
+
+
+def sub_tile_spans(bands: np.ndarray) -> np.ndarray:
+    """For k-major float32 bands ``[n_blk, win, ROWS]``, per block and run
+    of :data:`SUB_ROWS` output rows, the window rows ``lo <= k < hi`` that
+    hold all of its nonzero entries, ``(0, 0)`` where it has none: i32
+    ``[n_blk, ROWS // SUB_ROWS, 2]``."""
+    n_blk, win, _ = bands.shape
+    live = (bands != 0).reshape(n_blk, win, ROWS // SUB_ROWS,
+                                SUB_ROWS).any(axis=3)
+    some = live.any(axis=1)
+    lo = live.argmax(axis=1)
+    hi = win - live[:, ::-1].argmax(axis=1)
+    return np.stack([np.where(some, lo, 0), np.where(some, hi, 0)],
+                    axis=-1).astype(np.int32)
 
 
 def _check(pack: RowPack, x: torch.Tensor) -> None:
@@ -264,8 +293,10 @@ def banded_row_apply(pack: RowPack, x: torch.Tensor) -> torch.Tensor:
     from .._build import load_function
 
     spec = KINDS[pack.kind]
+    spans = (pack.spans,) if spec.spans else ()
     launch = load_function("banded_rows", spec.symbol,
-                           [ctypes.c_void_p] * len(pack.parts) + _ARGTYPES)
+                           [ctypes.c_void_p] * (len(pack.parts) + len(spans))
+                           + _ARGTYPES)
     x = x.contiguous()
     lead = x.shape[:-2]
     width = x.shape[-1]
@@ -278,7 +309,7 @@ def banded_row_apply(pack: RowPack, x: torch.Tensor) -> torch.Tensor:
     meta = pack.meta
     step = meta.stride(0) * meta.element_size()
     rc = launch(
-        *(part.data_ptr() for part in pack.parts), meta.data_ptr(),
+        *(t.data_ptr() for t in pack.parts + spans), meta.data_ptr(),
         meta.data_ptr() + step, meta.data_ptr() + 2 * step, x.data_ptr(),
         out.data_ptr(), n_blk, win, pack.n_in, pack.n_out, width, batch,
         torch.cuda.current_stream(x.device).cuda_stream)

@@ -9,16 +9,25 @@ every band kind (float32, bfloat16, the bf16 splits X3, X6 and X9, tf32 and
 its split, f16 with and without an f16 result, bf16 with a bf16 result and
 f64), windows of one chunk and of chunk counts no 32-row step divides, odd
 widths and unaligned inputs; each kind bit for bit on an exactness probe;
-and each kind against a float64 product within its class.
+and each kind against a float64 product within its class.  The F64 kind's
+row sub-tiles: packs with empty, short and staggered sub-tiles, band
+entries outside the spans poisoned with NaN (the kernel must not read
+them), and its SASS on the f64 tensor cores (DMMA, no DFMA).
 """
+
+import subprocess
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
+from enph459_super_resolution_tpu_torch._build import (build, library_path,
+                                                       nvcc_path)
 from enph459_super_resolution_tpu_torch.ops.banded_rows import (
-    BF16OUT, F16, F16OUT, F64, KINDS, TF32, TF32X3, X3, X6, X9,
-    banded_row_apply, banded_row_apply_reference, pack_banded, round_result)
+    BF16OUT, F16, F16OUT, F64, KINDS, SUB_K, SUB_ROWS, TF32, TF32X3, X3, X6,
+    X9, banded_row_apply, banded_row_apply_reference, pack_banded,
+    round_result)
 from enph459_super_resolution_tpu_torch.ops.opmatrix import (
     BandedOp, shift_op_banded, stuff_shift_op_banded, zoom_op_banded)
 
@@ -268,3 +277,120 @@ def test_each_kind_forms_exactly_its_products(cuda, dtype):
              torch.float32: X3, X9: X3, F64: X3}[dtype]
     assert not torch.equal(want, banded_row_apply_reference(
         _probe(other, cuda)[0], x))
+
+
+def _hand_pack(case, device, seed=6):
+    """F64 packs whose sub-tiles the solve's operators seldom give:
+    ``staggered`` -- a 128-row block whose rows r hold window rows r // 4
+    .. + 8 with sub-tiles 2 and 5 zero, an all-zero block of 37 rows and a
+    short block of 20 dense rows, windows of 40 (3 chunks); ``one_chunk``
+    -- blocks of 128 and 13 rows over windows of 5; ``wide`` -- a 128-row
+    band of slope 2 (rows r hold window rows 2r .. 2r + 38, the forward
+    operator's shape) over a window of 293, then a block of 1 row."""
+    rng = np.random.default_rng(seed)
+    if case == "staggered":
+        b0 = np.zeros((128, 40))
+        for r in range(128):
+            b0[r, r // 4:r // 4 + 9] = rng.uniform(0, 1.0 / 9, 9)
+        b0[32:48] = b0[80:96] = 0
+        blocks = [b0, np.zeros((37, 40)), rng.uniform(0, 1.0 / 40, (20, 40))]
+    elif case == "one_chunk":
+        blocks = [rng.uniform(0, 0.2, (128, 5)), rng.uniform(0, 0.2, (13, 5))]
+    else:
+        b0 = np.zeros((128, 293))
+        for r in range(128):
+            b0[r, 2 * r:2 * r + 39] = rng.uniform(0, 1.0 / 39, 39)
+        blocks = [b0, rng.uniform(0, 1.0 / 293, (1, 293))]
+    win = blocks[0].shape[1]
+    n_in = 2 * win + 7
+    ranges = [(i * (win // 2 + 3), i * (win // 2 + 3) + win)
+              for i in range(len(blocks))]
+    pack = pack_banded(blocks, ranges, sum(b.shape[0] for b in blocks), n_in,
+                       device, F64)
+    return pack, blocks, ranges
+
+
+F64_CASES = ("staggered", "one_chunk", "wide")
+
+
+@pytest.mark.parametrize("width", [1, 131, 256])
+@pytest.mark.parametrize("case", F64_CASES)
+def test_f64_sub_tiles_at_ragged_packs(cuda, case, width):
+    """Empty sub-tiles (all-zero rows, an all-zero block, rows past a short
+    block's own), a window of one chunk and the forward operator's slope,
+    at odd widths (4-byte copies) and aligned ones, with a batch axis and an
+    input at an offset of one float: within 2^-22 of sum|b||x| of the
+    plain float64 sum; outputs of all-zero rows exactly 0."""
+    pack, blocks, ranges = _hand_pack(case, cuda)
+    x = torch.as_tensor(np.random.default_rng(width).uniform(
+        0, 255, (2, pack.n_in, width)), dtype=torch.float32, device=cuda)
+    before = banded_row_apply.launches_f64
+    got = banded_row_apply(pack, x)
+    assert banded_row_apply.launches_f64 == before + 1
+    want = banded_row_apply_reference(pack, x)
+    torch.cuda.synchronize()
+    bound = _bound(pack, blocks, ranges, x)
+    assert ((got - want).abs() <= bound).all()
+    flat = torch.empty(x.numel() + 1, device=cuda)
+    view = flat[1:].view(x.shape)
+    view.copy_(x)
+    assert ((banded_row_apply(pack, view) - want).abs() <= bound).all()
+    if case == "staggered":
+        assert not got[:, 32:48].any() and not got[:, 80:96].any()
+        assert not got[:, 128:165].any()
+
+
+def _poisoned(pack):
+    """``pack`` with NaN in every band entry outside its sub-tile's span
+    rounded out to whole steps of ``SUB_K`` rows: the entries the F64
+    kernel skips."""
+    bands = pack.bands.clone()
+    for b, sub in enumerate(pack.spans.tolist()):
+        for s, (lo, hi) in enumerate(sub):
+            cols = slice(s * SUB_ROWS, (s + 1) * SUB_ROWS)
+            bands[b, :lo // SUB_K * SUB_K, cols] = float("nan")
+            bands[b, -(-hi // SUB_K) * SUB_K:, cols] = float("nan")
+    return pack._replace(bands=bands)
+
+
+@pytest.mark.parametrize("name,reps",
+                         [(n, r) for n in sorted(_ops()) for r in (1, 3)]
+                         + [(c, 1) for c in F64_CASES])
+def test_f64_reads_no_band_entry_outside_the_spans(cuda, name, reps):
+    """Each sub-tile multiplies only the window rows of its span: with
+    every band entry outside the spans set to NaN, the kernel's result is
+    that of the clean pack's plain version (a NaN it read would spread)."""
+    if name in F64_CASES:
+        pack, blocks, ranges = _hand_pack(name, cuda)
+    else:
+        base = BandedOp.tiled(BandedOp.from_banded(_ops()[name]), reps)
+        pack = base.astype_band(F64).to(cuda).row_pack
+        blocks, ranges = base.blocks, base.col_ranges
+    poisoned = _poisoned(pack)
+    assert torch.isnan(poisoned.bands).any()
+    x = torch.as_tensor(np.random.default_rng(9).uniform(
+        0, 255, (2, pack.n_in, 200)), dtype=torch.float32, device=cuda)
+    got = banded_row_apply(poisoned, x)
+    want = banded_row_apply_reference(pack, x)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert ((got - want).abs() <= _bound(pack, blocks, ranges, x)).all()
+
+
+def test_f64_kernel_runs_on_the_f64_tensor_cores(cuda):
+    """The built F64 kernel (both copy paths) issues DMMA and no DFMA: the
+    products cannot fall back to the f64 CUDA cores unnoticed."""
+    build("banded_rows")
+    tool = Path(nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass",
+                           str(library_path("banded_rows"))],
+                          check=True, capture_output=True, text=True).stdout
+    bodies = {}
+    for part in sass.split("Function : ")[1:]:
+        name, _, body = part.partition("\n")
+        bodies[name.strip()] = body
+    f64 = {n: b for n, b in bodies.items() if "banded_rows_f64_kernel" in n}
+    assert len(f64) == 2, sorted(bodies)
+    for name, body in f64.items():
+        assert "DMMA" in body, name
+        assert "DFMA" not in body, name

@@ -130,15 +130,21 @@ def test_cli_mm_precision_matches_jax_cli(sessions, tmp_path, monkeypatch,
                                           name):
     """``--mm-precision`` at names JAX's CPU runs: the artifacts within +-1
     uint8 of the JAX CLI's at the same name (its CLI sets the precision
-    module-wide; the monkeypatch restores it)."""
+    module-wide; the monkeypatch restores it, and the solver cache it
+    filled at that precision is emptied again)."""
     from enph459_super_resolution_tpu.ops import opmatrix as jax_opmatrix
+    from enph459_super_resolution_tpu.sr import classical as jax_classical
 
     monkeypatch.setattr(jax_opmatrix, "_MM_PRECISION",
                         jax_opmatrix._MM_PRECISION)
     data, units = sessions["mono_cal_target"]
     out_j, out_t = str(tmp_path / "jax"), str(tmp_path / "torch")
     flags = ["--mm-precision", name]
-    assert jax_run.main(_args("mono_cal_target", data, out_j) + flags) == 0
+    try:
+        assert jax_run.main(_args("mono_cal_target", data, out_j)
+                            + flags) == 0
+    finally:
+        jax_classical._compiled_solve.cache_clear()
     assert torch_run.main(_args("mono_cal_target", data, out_t) + flags
                           + ["--device", "cpu"]) == 0
     for name_png in ("native_2x.png", "SAA.png", "SAA_IBP.png"):
