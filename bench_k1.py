@@ -7,18 +7,23 @@ and for every band kind runs frame 1's row applies (``fwd_r``:
 [1, 3072, 4096] in, ``bwd_r``: [1, 1536, 2048] in), ``zoom_r`` on the
 5-frame stack and ``saa_r``, holds each against its
 plain version (per output within 2^-17 of sum|b||x|, F64 2^-22, as
-``chip_smoke.py``'s kernel phase) and times it per call and on the device
-alone; for F64, where the port has row sub-tiles, also the GFLOP they
-perform (``chip_smoke._k1_f64_macs``) and their share of the f64 peak.  It
-then runs warm mono_cal_target solves (80 iterations, f32 store) at
-F64_F64_F64: their K1 launches, the median of three warm solves, and one
-profiled solve, giving K1's share of the solve's device time.
+``chip_smoke.py``'s kernel phase), times it per call and on the device
+alone, and prints a digest of its output bytes (two commits whose kernels
+agree bit for bit print the same digests); for the kinds on the span walk
+(F64, X6, X9: a pack with ``RowPack.spans``) also the GFLOP their row
+sub-tiles perform (``chip_smoke._k1_span_macs`` times the split's
+products) and their share of the type's peak.  It then runs warm
+mono_cal_target solves (80 iterations, f32 store) at the matmul precision
+``--preset``: their K1 launches, ``SAA_IBP``'s largest difference from
+HIGHEST's, the median of three warm solves, and one profiled solve, giving
+K1's share of the solve's device time.
 
-    python3 bench_k1.py [--repo DIR]
+    python3 bench_k1.py [--repo DIR] [--preset NAME]
 
 ``--repo DIR`` imports the port from DIR, a directory inside this
 checkout, e.g. an older commit unpacked there by ``git archive``.  To
 compare two commits, run parent, change, change, parent in one call.
+``--preset`` names the solves' ``mm_precision`` (default F64_F64_F64).
 Prints the card's name and power limit, then one JSON object per line.
 Exits 2 without a card.
 """
@@ -26,6 +31,7 @@ Exits 2 without a card.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import sys
 import time
@@ -34,7 +40,9 @@ from pathlib import Path
 import numpy as np
 
 HERE = Path(__file__).resolve().parent
-PRESET = "F64_F64_F64"  # the warm solves' mm_precision
+# the span walk's step before kinds carried it (Kind.span_k): F64's k8,
+# for a commit whose F64 kind alone had spans
+F64_STEP = 8
 
 
 def _emit(obj) -> None:
@@ -46,6 +54,9 @@ def main(argv=None) -> int:
     ap.add_argument("--repo", default=str(HERE),
                     help="directory in this checkout whose port to import "
                          "(default: this checkout)")
+    ap.add_argument("--preset", default="F64_F64_F64",
+                    help="mm_precision of the warm solves "
+                         "(default: F64_F64_F64)")
     args = ap.parse_args(argv)
     repo = Path(args.repo).resolve()
     if not repo.is_relative_to(HERE):
@@ -65,10 +76,17 @@ def main(argv=None) -> int:
     from enph459_super_resolution_tpu_torch.ops.banded_rows import (
         F64, KINDS, banded_row_apply, banded_row_apply_reference,
         pack_banded)
+    from enph459_super_resolution_tpu_torch.ops.opmatrix import \
+        MM_PRECISIONS
     from enph459_super_resolution_tpu_torch.sr.classical import (
         make_gaussian_psf, solve)
     from enph459_super_resolution_tpu_torch.sr.config import WORKLOADS
 
+    preset = args.preset
+    if preset not in MM_PRECISIONS:
+        print(f"bench_k1: --preset {preset} is none of "
+              f"{', '.join(MM_PRECISIONS)}", file=sys.stderr)
+        return 2
     card = cs.nvidia_smi("name,power.limit")
     print(card, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -109,16 +127,24 @@ def main(argv=None) -> int:
                    "packed_window": int(pack.bands.shape[1]),
                    "max_rel_err": share,
                    "max_abs_err": (got - want).abs().max().item(),
+                   "out_digest": hashlib.sha1(
+                       got.cpu().numpy().tobytes()).hexdigest()[:16],
                    "kernel_ms": cs.time_ms(torch, fn, 20),
                    "kernel_device_ms": cs.device_ms(torch, fn, 20),
                    "gflop_nonzeros": 2.0 * cs._nonzeros(host_op) * width
                    * batch / 1e9, "card": card}
-            if kind == F64 and getattr(pack, "spans", None) is not None:
-                performed = 2.0 * cs._k1_f64_macs(pack) * width * batch
+            if getattr(pack, "spans", None) is not None:
+                spec = KINDS[kind]
+                products = sum(1 for a in range(spec.parts)
+                               for b in range(spec.parts)
+                               if a + b <= spec.reach)
+                step = getattr(spec, "span_k", F64_STEP)
+                performed = (2.0 * cs._k1_span_macs(pack, step) * width
+                             * batch * products)
+                peak, _, _ = cs._k1_kind_types(torch, kind, None)
                 row["kernel_gflop"] = performed / 1e9
                 row["kernel_share_of_peak"] = (
-                    performed / (row["kernel_device_ms"] * 1e-3)
-                    / cs.F64_PEAK)
+                    performed / (row["kernel_device_ms"] * 1e-3) / peak)
             _emit(row)
             del op, pack, x, got, want, absolute, scale
 
@@ -130,19 +156,19 @@ def main(argv=None) -> int:
                                        for _ in shifts]), device=dev)
     res, launches, runs, solve_s = cs._warm_solve(
         torch, lr_stack=frames, psf=psf, shifts_yx=shifts, band_store="f32",
-        mm_precision=PRESET)
+        mm_precision=preset)
     highest = solve(frames, psf, shifts, device="cuda")
 
     def warm_solve():
         torch.cuda.synchronize()
-        solve(frames, psf, shifts, device="cuda", mm_precision=PRESET)
+        solve(frames, psf, shifts, device="cuda", mm_precision=preset)
         torch.cuda.synchronize()
 
     by_kernel = {}
     busy_s, wall_s = cs.phase_profile(
-        torch, warm_solve, f"{PRESET} solve ({repo})", by_kernel)
+        torch, warm_solve, f"{preset} solve ({repo})", by_kernel)
     k1_ms = sum(t for k, t in by_kernel.items() if "banded_rows" in k)
-    _emit({"repo": str(repo), "solve": PRESET,
+    _emit({"repo": str(repo), "solve": preset,
            "k1_launches": {k: v for k, v in launches.items()
                            if k.startswith("k1_") and v},
            "ibp_vs_highest_max_diff": cs._u8_diff(res["ibp"],

@@ -41,10 +41,12 @@ or of the JAX package.  Phases, one JSON line each:
    nonzero band entry and column of x (one ``k1_bound`` line gives the
    bound over the 128-row block windows beside it, and per f32 banded
    mono_cal_target solve the sum of the per-op device times times their
-   launches, the bound and the time lost over it); for F64 also the GFLOP
-   its row sub-tiles perform (``_k1_f64_macs``: 16 rows over each span
-   rounded out to whole k8 steps) and their rate's share of the f64 peak
-   on the device alone.  The kernel's time is
+   launches, the bound and the time lost over it); for the kinds on the
+   span walk (F64, X6, X9) also the GFLOP their row sub-tiles perform
+   (``_k1_span_macs``: 16 rows over each span rounded out to whole steps of
+   the kind's ``span_k``, k8 for F64 and k16 for the splits, times the
+   split's products) and their rate's share of the type's peak (f64 66.9,
+   bf16 989 TFLOP/s) on the device alone.  The kernel's time is
    taken twice (CUDA events both): per call over calls launched one after
    another, and on the device alone over calls queued behind a device
    sleep, which leaves out the host's launch cost where a call takes longer
@@ -285,8 +287,14 @@ F64_PEAK = 66.9e12          # H100 SXM f64 DMMA rate
 # both form the same exact products and sum them in float32 in another
 # order (F64: in float64, rounded once); the card tests' SHARE and X3_SHARE
 K1_SHARE, K1_F64_SHARE = 2.0 ** -17, 2.0 ** -22
-K1_F64_DESIGN = ("f64 tensor cores (mma.sync m16n8k8 .f64, DMMA); 16-row "
-                 "sub-tiles, each over its span of window rows")
+# what the span walk's instantiations run on (the kernels line's `design`)
+_SUB_TILES = "; 16-row sub-tiles, each over its span of window rows"
+K1_SPAN_DESIGNS = {
+    "f64": "f64 tensor cores (mma.sync m16n8k8 .f64, DMMA)" + _SUB_TILES,
+    "x6": "bf16 tensor cores (mma.sync m16n8k16), 6 products of 3 parts"
+          + _SUB_TILES,
+    "x9": "bf16 tensor cores (mma.sync m16n8k16), 9 products of 3 parts"
+          + _SUB_TILES}
 # K1's exactness probe: band entries and inputs c * 2^e with c one of these,
 # each output a single product, whose parts' products and their sums are
 # exact in float32 under every kind
@@ -749,12 +757,13 @@ def phase_kernel(torch, f32_peak, host):
                + (" (tf32)" if lib_tf32 else ""),
                **_bound(ops, nbytes, peak),
                "kernel_tflops": ops / kernel_ms / 1e9}
-        if dtype == F64:
-            # what its DMMA sub-tiles perform, at the f64 tensor-core peak
-            performed = 2.0 * _k1_f64_macs(pack) * width * batch
+        if spec.span_k:
+            # what its row sub-tiles perform, at the type's peak
+            performed = (2.0 * _k1_span_macs(pack, spec.span_k) * width
+                         * batch * products)
             row["kernel_gflop"] = performed / 1e9
             row["kernel_share_of_peak"] = (
-                performed / (kernel_device_ms * 1e-3) / F64_PEAK)
+                performed / (kernel_device_ms * 1e-3) / peak)
         emit(row)
         row["block_window"] = {
             "gflop": window_ops / 1e9,
@@ -765,17 +774,17 @@ def phase_kernel(torch, f32_peak, host):
     return rows
 
 
-def _k1_f64_macs(pack) -> int:
-    """Multiply-adds per column of x that the F64 K1 performs on ``pack``
-    (csrc/banded_rows.cu ``banded_rows_f64_kernel``): each row sub-tile's
-    ``SUB_ROWS`` rows over its span (``RowPack.spans``) rounded out to
-    whole steps of ``SUB_K`` window rows."""
-    from enph459_super_resolution_tpu_torch.ops.banded_rows import (
-        SUB_K, SUB_ROWS)
+def _k1_span_macs(pack, step: int) -> int:
+    """Multiply-adds per column of x and product of parts that K1's span
+    walk performs on ``pack`` (csrc/banded_rows.cu
+    ``banded_rows_span_kernel``): each row sub-tile's ``SUB_ROWS`` rows over
+    its span (``RowPack.spans``) rounded out to whole steps of ``step``
+    window rows (the kind's ``span_k``: 8 for F64, 16 for X6 and X9)."""
+    from enph459_super_resolution_tpu_torch.ops.banded_rows import SUB_ROWS
 
     sp = pack.spans.cpu().numpy().astype(np.int64)
-    lo = sp[..., 0] // SUB_K * SUB_K
-    hi = -(-sp[..., 1] // SUB_K) * SUB_K
+    lo = sp[..., 0] // step * step
+    hi = -(-sp[..., 1] // step) * step
     return int(SUB_ROWS * (hi - lo).sum())
 
 
@@ -3684,8 +3693,9 @@ def main() -> int:
             _summary(f"banded_rows_{band}", k1_src, k1_tpu,
                      precision[f"f32 {name}"]["launches"][key], k1(band),
                      head, card), mm_precision=name,
-            **({"design": K1_F64_DESIGN, "kernel_gflop": head["kernel_gflop"]}
-               if band == "f64" else {})))
+            **({"design": K1_SPAN_DESIGNS[band],
+                "kernel_gflop": head["kernel_gflop"]}
+               if band in K1_SPAN_DESIGNS else {})))
     for kernel, line, key in (("fused_fwd", 237, "k2"),
                               ("fused_bwd", 264, "k3")):
         for dtype, launches in (("float32", f32_fused[f"{key}_f32"]),

@@ -26,7 +26,8 @@
 //   X3: P = 2, S = 1 (hi*hi, hi*lo, lo*hi; the dropped lo*lo and x's bits
 //   past its two halves are ~2^-16 of |b|*|x|, the 3-pass split XLA runs
 //   for HIGH); X6: P = 3, S = 2 (the six products whose part indices sum
-//   to <= 2, ~2^-24); X9: P = 3, all nine.
+//   to <= 2, ~2^-24); X9: P = 3, all nine.  X6 and X9 take those products
+//   on the span walk (below), X3 over the whole block window.
 // * tf32 bands (TF32_TF32_F32, _X3): mma.sync m16n8k8 .tf32 summed in f32.
 //   The bands are stored as f32 already rounded to tf32 (nearest, ties away
 //   from zero); x is rounded in registers by cvt.rna.tf32.f32, the same
@@ -58,7 +59,9 @@
 // instantiation is bound by bytes (0.023 ms), f64 too: its 0.489 GFLOP at
 // the DMMA rate (67 TFLOP/s; plain f64 FMA reaches about half) take 0.0073
 // ms.  The split kinds do P(P+1)/2 .. P^2 tensor-core products of the same
-// work, still under the bytes.
+// work, still under the bytes: X9's nine at bf16's 989 TFLOP/s take 0.0045
+// ms over the nonzeros, but 0.035 ms over the block windows, which is why
+// X6 and X9 walk spans.
 //
 // Design.  What the TPU kernel spent its code on (HBM-pinned operands,
 // scalar-prefetched window starts, hand double-buffered DMA, 8-aligned
@@ -76,29 +79,45 @@
 //   1.45 waves of 264.  Grids of whole waves measured slower on the card:
 //   one block per SM (a 7-stage ring, 2.91 waves of 132) and 96-column
 //   tiles (1.95 waves of 264) cost more per block than the partial wave.
-// * f64: 64-column tiles (BN = 64); warp w owns columns 8w .. 8w+7 of all
-//   128 rows, as 8 row sub-tiles of 16 (one m16n8 f64 accumulator each, 64
-//   registers), and walks every sub-tile, each only over the k8 steps of
-//   the window rows that hold its nonzeros (RowPack.spans, from the host;
-//   a block visits only the chunks some sub-tile meets, and copies only
-//   the band rows of the sub-tiles a chunk meets).  At fwd_r a sub-tile
-//   spans ~72 of the block's 293 window rows: 1.86x the nonzeros' products
-//   (0.91 GFLOP) instead of 7.5x.  Splitting columns, not rows, keeps all 8
-//   warps busy on every chunk.  A fragments (band, k-major, row stride 136
-//   floats) and B fragments (x, row stride 72) are f32 reads, conflict-free,
-//   widened to f64 in registers.  Why m16n8k8: on the card it took less
-//   time at fwd_r, bwd_r and in the F64 solve than m8n8k4 on 8-row
-//   sub-tiles, though those form fewer products (1.43x the nonzeros at
-//   fwd_r).  Other variants were tried without keeping their times; none
-//   is settled either way (PERF.md).
-// * 16-bit bands (bf16, f16, the bf16 splits): each of the 8 warps computes
-//   64 rows x 32 columns with mma.sync m16n8k16.  A comes from the k-major
-//   band chunk by ldmatrix.trans (row stride 272 B: the 8 rows of one
-//   matrix fall in distinct banks); B is read from the f32 x chunk (row
-//   stride 132 floats: conflict-free) and rounded or split into 16-bit
-//   pairs in registers.  A split stage holds P band chunks; per m16 tile
-//   the A fragments of each part in turn, each over the warp's four n8
-//   tiles and the x parts it pairs with.
+// * The span walk (f64, X6, X9; banded_rows_span_kernel): a block walks
+//   its 128 rows as 8 row sub-tiles of 16, each only over the steps of the
+//   window rows that hold its nonzeros (RowPack.spans, from the host,
+//   rounded out to whole steps).  Lane s of every warp holds sub-tile s's
+//   span; the block visits only the chunks some sub-tile meets, a ballot
+//   per chunk says which sub-tiles it meets (only their band rows are
+//   copied, every part's) and one per step which sub-tiles take it.  At
+//   fwd_r a sub-tile spans ~72 of the block's 293 window rows.  Warps split
+//   the columns, not the rows: the sub-tiles a chunk meets sit on the
+//   band's diagonal, so a split of rows would leave warps idle.  Each
+//   warp keeps one accumulator per sub-tile and n8 tile.  Skipped steps
+//   hold only zero band entries, and a live step sums as the whole-window
+//   tile would, so on finite x the result is that of the whole window, bit
+//   for bit.  Two step bodies:
+//   - f64: k8 steps (two a chunk), 64-column tiles (BN = 64); warp w owns
+//     columns 8w .. 8w+7, one m16n8 f64 accumulator per sub-tile (64
+//     registers).  1.86x the nonzeros' products at fwd_r (0.91 GFLOP)
+//     instead of 7.5x.  A fragments (band, k-major, row stride 136 floats)
+//     and B fragments (x, row stride 72) are f32 reads, conflict-free,
+//     widened to f64 in registers.  Why m16n8k8: on the card it took less
+//     time at fwd_r, bwd_r and in the F64 solve than m8n8k4 on 8-row
+//     sub-tiles, though those form fewer products (1.43x the nonzeros at
+//     fwd_r).  Other variants were tried without keeping their times; none
+//     is settled either way (PERF.md).
+//   - the bf16 splits X6, X9: one m16n8k16 step a chunk, 128-column tiles;
+//     warp w owns columns 16w .. 16w+15 (two n8 tiles), 8 x 2 f32
+//     accumulators.  x is split once a chunk and serves every sub-tile;
+//     per live sub-tile one ldmatrix.trans per part, then the pairs (p, q)
+//     in the whole-window tile's order.  2.08x the nonzeros' products at
+//     fwd_r instead of 7.8x.
+// * 16-bit bands (bf16, f16, X3) over the whole window: each of the 8
+//   warps computes 64 rows x 32 columns with mma.sync m16n8k16.  A comes
+//   from the k-major band chunk by ldmatrix.trans (row stride 272 B: the 8
+//   rows of one matrix fall in distinct banks; the span walk reads it
+//   alike); B is read from the f32 x chunk (row stride 132 floats:
+//   conflict-free) and rounded or split into 16-bit pairs in registers.  A
+//   split stage holds P band chunks; per m16 tile the A fragments of each
+//   part in turn, each over the warp's four n8 tiles and the x parts it
+//   pairs with.
 // * tf32 bands: the same warp tiles with mma.sync m16n8k8, two k8 steps a
 //   chunk; A fragments are 32-bit elements read straight from the k-major
 //   f32 band chunk (row stride 136 floats), B from the x chunk (row stride
@@ -124,9 +143,10 @@ constexpr int STAGES = 4;     // depth of the cp.async ring
 constexpr int THREADS = 256;
 constexpr int MAX_GRID_Z = 65535;
 constexpr int MAX_PARTS = 3;
-constexpr int SUB = 16;         // rows of a sub-tile (banded_rows.py SUB_ROWS)
+// The span walk's row sub-tiles (banded_rows.py SUB_ROWS); the window rows
+// of one step are its step body's KS (Kind.span_k there).
+constexpr int SUB = 16;
 constexpr int NSUB = BM / SUB;  // sub-tiles of a band block
-constexpr int KS = 8;           // window rows per f64 step (SUB_K there)
 
 // How a tensor-core kind rounds its f32 sum before the store.
 enum Round { kRoundF32 = 0, kRoundBf16 = 1, kRoundF16 = 2 };
@@ -137,8 +157,10 @@ enum Round { kRoundF32 = 0, kRoundBf16 = 1, kRoundF16 = 2 };
 // rounded by R.
 struct F64 {};
 struct Tf32 {};  // float storage holding tf32 values
-template <typename E, int P, int S, int R>
-struct Mma {};
+template <typename E, int P, int S, int R_>
+struct Mma {
+  static constexpr int R = R_;
+};
 
 using Bf16 = Mma<__nv_bfloat16, 1, 0, kRoundF32>;
 using Bf16Out = Mma<__nv_bfloat16, 1, 0, kRoundBf16>;
@@ -432,6 +454,18 @@ struct FmaTile {
   }
 };
 
+// Two results into columns c, c + 1 of an output row (those below W).
+template <bool kVec>
+__device__ __forceinline__ void store_pair(float* orow, int c, int W, float v0,
+                                           float v1) {
+  if (kVec) {
+    if (c < W) *reinterpret_cast<float2*>(orow + c) = make_float2(v0, v1);
+  } else {
+    if (c < W) orow[c] = v0;
+    if (c + 1 < W) orow[c + 1] = v1;
+  }
+}
+
 // The tensor-core tiles: warp (wm, wn) = (warp % 2, warp / 2) owns rows
 // wm*64 .. +63 (4 m16 tiles) and columns wn*32 .. +31 (4 n8 tiles); the C
 // fragments are stored after rounding by R.
@@ -463,71 +497,81 @@ struct MmaAcc {
         if (r >= nrow) continue;
         float* orow = oz + static_cast<size_t>(row0 + r) * W;
 #pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          const int c = w0 + (warp >> 1) * 32 + nt * 8 + 2 * q;
-          const float v0 = round_out<R>(acc[mt][nt][2 * h]);
-          const float v1 = round_out<R>(acc[mt][nt][2 * h + 1]);
-          if (kVec) {
-            if (c < W)
-              *reinterpret_cast<float2*>(orow + c) = make_float2(v0, v1);
-          } else {
-            if (c < W) orow[c] = v0;
-            if (c + 1 < W) orow[c + 1] = v1;
-          }
-        }
+        for (int nt = 0; nt < 4; ++nt)
+          store_pair<kVec>(orow, w0 + (warp >> 1) * 32 + nt * 8 + 2 * q, W,
+                           round_out<R>(acc[mt][nt][2 * h]),
+                           round_out<R>(acc[mt][nt][2 * h + 1]));
       }
   }
 };
 
-// 16-bit band kinds (bf16, f16, the bf16 splits): mma.sync m16n8k16.
-template <typename Kind>
-struct Mma16Tile;
-template <typename E, int P, int S, int R>
-struct Mma16Tile<Mma<E, P, S, R>> : MmaAcc<R> {
+// A k16 step of a 16-bit kind Mma<E, P, S, R> (the whole-window tile and
+// the span walk's split step both take their products here, so both sum
+// in one order).  A lane's x for NT n8 tiles, the first at column `col` of
+// the stage's x chunk (the lane's g included), as 16-bit pairs along k
+// split into P parts: b[nt][0] = rows 2q, 2q+1; b[nt][1] = rows 2q+8, 2q+9.
+template <typename Kind, int NT>
+struct Mma16Frag;
+template <typename E, int P, int S, int R, int NT>
+struct Mma16Frag<Mma<E, P, S, R>, NT> {
   using Kind = Mma<E, P, S, R>;
   static constexpr int AS = Stage<Kind>::AS;
   static constexpr int XS = Stage<Kind>::XS;
+  uint32_t b[NT][2][P];
 
-  __device__ __forceinline__ void step(const char* stage, int tid) {
+  __device__ __forceinline__ Mma16Frag(const float* col, int q) {
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt, col += 8) {
+      split_pair<E, P>(col[(2 * q) * XS], col[(2 * q + 1) * XS], b[nt][0]);
+      split_pair<E, P>(col[(2 * q + 8) * XS], col[(2 * q + 9) * XS],
+                       b[nt][1]);
+    }
+  }
+
+  // ldmatrix.trans addresses: lanes 8m..8m+7 address matrix m, k rows
+  // (m / 2) * 8 + lane % 8 at band rows +(m % 2) * 8 of an m16 tile
+  static __device__ __forceinline__ int a_offset(int lane) {
+    return ((lane & 7) + (lane >> 4) * 8) * AS + ((lane >> 3) & 1) * 8;
+  }
+
+  // acc += the m16 tile at `aoff` (a_offset + its first band row) times x:
+  // per band part p its A fragments, then the x parts q with p + q <= S,
+  // each over the NT n8 tiles
+  __device__ __forceinline__ void products(float (&acc)[NT][4],
+                                           const char* stage,
+                                           int aoff) const {
     using namespace mma_bf16;
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      const E* as = reinterpret_cast<const E*>(stage + p * part_bytes<Kind>());
+      uint32_t a[4];
+      ldmatrix_x4_trans(a, as + aoff);
+#pragma unroll
+      for (int qq = 0; qq < P; ++qq) {
+        if (p + qq > S) continue;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+          mma16<E>(acc[nt], a, b[nt][0][qq], b[nt][1][qq]);
+      }
+    }
+  }
+};
+
+// 16-bit band kinds over the whole window (bf16, f16, X3): mma.sync
+// m16n8k16.
+template <typename Kind>
+struct Mma16Tile : MmaAcc<Kind::R> {
+  __device__ __forceinline__ void step(const char* stage, int tid) {
     const float* xs = reinterpret_cast<const float*>(stage + a_bytes<Kind>());
     const int lane = tid & 31;
     const int warp = tid >> 5;
     const int wm = warp & 1;
     const int wn = warp >> 1;
-    const int g = lane >> 2;
-    const int q = lane & 3;
-    // x as 16-bit pairs along k, split into P parts: b[nt][0] = rows 2q,
-    // 2q+1; b[nt][1] = rows 2q+8, 2q+9
-    uint32_t b[4][2][P];
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const float* col = xs + wn * 32 + nt * 8 + g;
-      split_pair<E, P>(col[(2 * q) * XS], col[(2 * q + 1) * XS], b[nt][0]);
-      split_pair<E, P>(col[(2 * q + 8) * XS], col[(2 * q + 9) * XS],
-                       b[nt][1]);
-    }
-    // lanes 8m..8m+7 address matrix m: k rows (m / 2) * 8 + lane % 8 at
-    // band rows +(m % 2) * 8 of the m16 tile
-    const int krow = (lane & 7) + (lane >> 4) * 8;
-    const int rsub = ((lane >> 3) & 1) * 8;
-    const int aoff = krow * AS + wm * 64 + rsub;
+    const Mma16Frag<Kind, 4> x(xs + wn * 32 + (lane >> 2), lane & 3);
+    const int aoff = x.a_offset(lane) + wm * 64;
 #pragma unroll
     for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-      for (int p = 0; p < P; ++p) {
-        const E* as =
-            reinterpret_cast<const E*>(stage + p * part_bytes<Kind>());
-        uint32_t a[4];
-        ldmatrix_x4_trans(a, as + aoff + mt * 16);
-#pragma unroll
-        for (int qq = 0; qq < P; ++qq) {
-          if (p + qq > S) continue;
-#pragma unroll
-          for (int nt = 0; nt < 4; ++nt)
-            mma16<E>(this->acc[mt][nt], a, b[nt][0][qq], b[nt][1][qq]);
-        }
-      }
+      x.products(this->acc[mt], stage, aoff + mt * 16);
   }
 };
 
@@ -650,107 +694,64 @@ __device__ __forceinline__ void dmma_1688(double (&d)[4], const double (&a)[4],
       : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));
 }
 
-// The f64 kind's chunk: the band rows of the sub-tiles in `live` (bit s:
-// rows 16s .. 16s+15) and x.  The other sub-tiles' rows of the stage keep
-// what an earlier chunk left there; no step of this chunk reads them.
-template <bool kVec>
-__device__ __forceinline__ void load_f64_chunk(char* stage,
-                                               const float* band,
-                                               const Block& bl, int kc,
-                                               unsigned live, int tid) {
+// A span kind's chunk: every part's band rows of the sub-tiles in `live`
+// (bit s: rows 16s .. 16s+15), and x.  The other sub-tiles' rows of the
+// stage keep what an earlier chunk left there; no step of this chunk reads
+// them.
+template <typename Kind, bool kVec>
+__device__ __forceinline__ void load_span_chunk(
+    char* stage, const Parts<typename Stage<Kind>::Elem>& band,
+    const Block& bl, int kc, unsigned live, int tid) {
   using namespace mma_bf16;
-  constexpr int AS = Stage<F64>::AS;
-  constexpr int PER_SUB = SUB / 4;  // 16-byte pieces of a sub-tile's row
-  const float* src = band + static_cast<size_t>(kc) * BK * BM;
-  float* as = reinterpret_cast<float*>(stage);
+  using Elem = typename Stage<Kind>::Elem;
+  constexpr int AS = Stage<Kind>::AS;
+  constexpr int PER16 = 16 / static_cast<int>(sizeof(Elem));
+  constexpr int PER_SUB = SUB / PER16;  // 16-byte pieces of a sub-tile's row
 #pragma unroll
-  for (int i = 0; i < BK * NSUB * PER_SUB / THREADS; ++i) {
-    const int e = tid + i * THREADS;
-    const int k = e / (NSUB * PER_SUB);
-    const int sub = (e / PER_SUB) % NSUB;
-    const int c = sub * SUB + (e % PER_SUB) * 4;
-    if ((live >> sub) & 1) cp_async16(as + k * AS + c, src + k * BM + c, 16);
+  for (int p = 0; p < Stage<Kind>::PARTS; ++p) {
+    const Elem* src = band.p[p] + static_cast<size_t>(kc) * BK * BM;
+    Elem* as = reinterpret_cast<Elem*>(stage + p * part_bytes<Kind>());
+#pragma unroll
+    for (int i = 0; i < BK * NSUB * PER_SUB / THREADS; ++i) {
+      const int e = tid + i * THREADS;
+      const int k = e / (NSUB * PER_SUB);
+      const int sub = (e / PER_SUB) % NSUB;
+      const int c = sub * SUB + (e % PER_SUB) * PER16;
+      if ((live >> sub) & 1) cp_async16(as + k * AS + c, src + k * BM + c, 16);
+    }
   }
-  load_x<F64, kVec>(reinterpret_cast<float*>(stage + a_bytes<F64>()), bl, kc,
-                    tid);
+  load_x<Kind, kVec>(reinterpret_cast<float*>(stage + a_bytes<Kind>()), bl,
+                     kc, tid);
 }
 
+// The span walk's step bodies.  Each holds a warp's accumulators, one per
+// row sub-tile (and n8 tile), and takes a chunk's steps: `on[j]` bit s says
+// sub-tile s takes step j (window rows KS*j .. KS*j + KS - 1 of the chunk),
+// `any` is their union.  A third body (tf32 splits, k8 like F64's fragment
+// layout) would slot in beside them.
+
 // f64 bands on DMMA: warp w computes columns 8w .. 8w+7 of the 128 x 64
-// tile as 8 m16n8 accumulators, one per row sub-tile; a sub-tile takes the
-// k8 steps inside its span (rounded out to whole steps), all others skip.
-template <bool kVec>
-__global__ void __launch_bounds__(THREADS, Stage<F64>::MIN_BLOCKS)
-banded_rows_f64_kernel(const float* __restrict__ bands,
-                       const int2* __restrict__ spans,
-                       const int* __restrict__ starts,
-                       const int* __restrict__ out_row0,
-                       const int* __restrict__ rows,
-                       const float* __restrict__ x, float* __restrict__ out,
-                       int win, int n_in, int n_out, int W, int z0) {
-  using namespace mma_bf16;
-  constexpr int AS = Stage<F64>::AS;
-  constexpr int XS = Stage<F64>::XS;
-  constexpr int SB = stage_bytes<F64>();
-  constexpr int STEPS = BK / KS;
-  extern __shared__ __align__(128) char smem[];
-  const int b = blockIdx.x;
-  const size_t z = static_cast<size_t>(blockIdx.z) + z0;
-  const Block bl = {x + z * n_in * W, starts[b],
-                    static_cast<int>(blockIdx.y) * Stage<F64>::BN, n_in, W};
-  const float* band = bands + static_cast<size_t>(b) * win * BM;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  // lane s < NSUB holds sub-tile s's span, widened to whole k8 steps
-  int lo = 0, hi = 0;
-  if (lane < NSUB) {
-    const int2 sp = spans[b * NSUB + lane];
-    lo = sp.x / KS * KS;
-    hi = (sp.y + KS - 1) / KS * KS;
-  }
-  // the chunks that some sub-tile meets
-  const int first = __reduce_min_sync(~0u, lo < hi ? lo : win) / BK;
-  const int end = (__reduce_max_sync(~0u, hi) + BK - 1) / BK;
-  const int nk = end > first ? end - first : 0;
-  auto live = [&](int kc) {
-    return __ballot_sync(~0u, lo < (kc + 1) * BK && hi > kc * BK);
-  };
-
+// tile as 8 m16n8 accumulators, one per row sub-tile, in k8 steps.
+struct F64Step {
+  using Kind = F64;
+  static constexpr int KS = 8;
+  static constexpr int STEPS = BK / KS;
+  static constexpr int AS = Stage<F64>::AS;
+  static constexpr int XS = Stage<F64>::XS;
   double acc[NSUB][4];
-#pragma unroll
-  for (int s = 0; s < NSUB; ++s)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) acc[s][q] = 0.0;
 
+  __device__ __forceinline__ void zero() {
 #pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nk)
-      load_f64_chunk<kVec>(smem + s * SB, band, bl, first + s,
-                           live(first + s), tid);
-    cp_async_commit();
+    for (int s = 0; s < NSUB; ++s)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[s][q] = 0.0;
   }
-  for (int i = 0; i < nk; ++i) {
-    cp_async_wait<STAGES - 2>();
-    // chunk i has landed for every thread, and every thread is done with
-    // the stage of chunk i - 1, which is refilled next
-    __syncthreads();
-    const int next = i + STAGES - 1;
-    if (next < nk)
-      load_f64_chunk<kVec>(smem + (next % STAGES) * SB, band, bl,
-                           first + next, live(first + next), tid);
-    cp_async_commit();
-    // on[j] bit s: sub-tile s takes step j (window rows kb + 8j .. +7)
-    const int kb = (first + i) * BK;
-    unsigned on[STEPS];
-    unsigned any = 0;
-#pragma unroll
-    for (int j = 0; j < STEPS; ++j) {
-      on[j] = __ballot_sync(~0u, lo <= kb + KS * j && kb + KS * j < hi);
-      any |= on[j];
-    }
-    const char* stage = smem + (i % STAGES) * SB;
+
+  __device__ __forceinline__ void chunk(const char* stage,
+                                        const unsigned (&on)[STEPS],
+                                        unsigned any, int lane, int warp) {
+    const int g = lane >> 2;
+    const int t = lane & 3;
     const float* as = reinterpret_cast<const float*>(stage) + t * AS + g;
     const float* xs = reinterpret_cast<const float*>(stage + a_bytes<F64>()) +
                       t * XS + warp * 8 + g;
@@ -773,26 +774,173 @@ banded_rows_f64_kernel(const float* __restrict__ bands,
     }
   }
 
-  const int nrow = rows[b];
-  float* orow0 = out + z * n_out * W + static_cast<size_t>(out_row0[b]) * W;
-  const int c = bl.w0 + warp * 8 + 2 * t;
+  template <bool kVec>
+  __device__ __forceinline__ void store(float* orow0, int nrow, int w0, int W,
+                                        int lane, int warp) const {
+    const int g = lane >> 2;
+    const int c = w0 + warp * 8 + 2 * (lane & 3);
 #pragma unroll
-  for (int s = 0; s < NSUB; ++s)
+    for (int s = 0; s < NSUB; ++s)
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = s * SUB + g + 8 * h;
-      if (r >= nrow) continue;
-      float* orow = orow0 + static_cast<size_t>(r) * W;
-      const float v0 = static_cast<float>(acc[s][2 * h]);
-      const float v1 = static_cast<float>(acc[s][2 * h + 1]);
-      if (kVec) {
-        if (c < W)
-          *reinterpret_cast<float2*>(orow + c) = make_float2(v0, v1);
-      } else {
-        if (c < W) orow[c] = v0;
-        if (c + 1 < W) orow[c + 1] = v1;
+      for (int h = 0; h < 2; ++h) {
+        const int r = s * SUB + g + 8 * h;
+        if (r >= nrow) continue;
+        store_pair<kVec>(orow0 + static_cast<size_t>(r) * W, c, W,
+                         static_cast<float>(acc[s][2 * h]),
+                         static_cast<float>(acc[s][2 * h + 1]));
       }
+  }
+};
+
+// 16-bit split bands on mma.sync m16n8k16, one step a chunk: warp w
+// computes columns 16w .. 16w+15 of the 128 x 128 tile as 8 x 2 m16n8
+// accumulators, each sub-tile's products those of Mma16Tile (Mma16Frag).
+template <typename K>
+struct Mma16Step {
+  using Kind = K;
+  static constexpr int KS = BK;
+  static constexpr int STEPS = 1;
+  float acc[NSUB][2][4];
+
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int s = 0; s < NSUB; ++s)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[s][nt][q] = 0.f;
+  }
+
+  __device__ __forceinline__ void chunk(const char* stage,
+                                        const unsigned (&on)[STEPS],
+                                        unsigned, int lane, int warp) {
+    const float* xs = reinterpret_cast<const float*>(stage + a_bytes<Kind>());
+    // x is split once and serves every sub-tile
+    const Mma16Frag<Kind, 2> x(xs + warp * 16 + (lane >> 2), lane & 3);
+    const int aoff = x.a_offset(lane);
+#pragma unroll
+    for (int s = 0; s < NSUB; ++s)
+      if ((on[0] >> s) & 1) x.products(acc[s], stage, aoff + s * SUB);
+  }
+
+  template <bool kVec>
+  __device__ __forceinline__ void store(float* orow0, int nrow, int w0, int W,
+                                        int lane, int warp) const {
+    const int g = lane >> 2;
+    const int c = w0 + warp * 16 + 2 * (lane & 3);
+#pragma unroll
+    for (int s = 0; s < NSUB; ++s)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = s * SUB + g + 8 * h;
+        if (r >= nrow) continue;
+        float* orow = orow0 + static_cast<size_t>(r) * W;
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+          store_pair<kVec>(orow, c + nt * 8, W,
+                           round_out<Kind::R>(acc[s][nt][2 * h]),
+                           round_out<Kind::R>(acc[s][nt][2 * h + 1]));
+      }
+  }
+};
+
+// The kinds that run on the span walk, and their step bodies.
+template <typename Kind>
+struct SpanStep {
+  using type = void;
+};
+template <>
+struct SpanStep<F64> {
+  using type = F64Step;
+};
+template <>
+struct SpanStep<SplitX6> {
+  using type = Mma16Step<SplitX6>;
+};
+template <>
+struct SpanStep<SplitX9> {
+  using type = Mma16Step<SplitX9>;
+};
+template <typename Kind>
+constexpr bool kSpans = !std::is_void_v<typename SpanStep<Kind>::type>;
+
+// The span walk: one CUDA block per 128-row band block, BN-column tile and
+// batch index; each row sub-tile takes the steps inside its span (rounded
+// out to whole steps of Step::KS rows), all others skip.
+template <typename Step, bool kVec>
+__global__ void __launch_bounds__(THREADS,
+                                  Stage<typename Step::Kind>::MIN_BLOCKS)
+banded_rows_span_kernel(
+    const Parts<typename Stage<typename Step::Kind>::Elem> bands,
+    const int2* __restrict__ spans, const int* __restrict__ starts,
+    const int* __restrict__ out_row0, const int* __restrict__ rows,
+    const float* __restrict__ x, float* __restrict__ out, int win, int n_in,
+    int n_out, int W, int z0) {
+  using namespace mma_bf16;
+  using Kind = typename Step::Kind;
+  constexpr int KS = Step::KS;
+  constexpr int SB = stage_bytes<Kind>();
+  extern __shared__ __align__(128) char smem[];
+  const int b = blockIdx.x;
+  const size_t z = static_cast<size_t>(blockIdx.z) + z0;
+  const Block bl = {x + z * n_in * W, starts[b],
+                    static_cast<int>(blockIdx.y) * Stage<Kind>::BN, n_in, W};
+  Parts<typename Stage<Kind>::Elem> band = bands;
+#pragma unroll
+  for (int p = 0; p < Stage<Kind>::PARTS; ++p)
+    band.p[p] += static_cast<size_t>(b) * win * BM;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  // lane s < NSUB holds sub-tile s's span, widened to whole steps
+  int lo = 0, hi = 0;
+  if (lane < NSUB) {
+    const int2 sp = spans[b * NSUB + lane];
+    lo = sp.x / KS * KS;
+    hi = (sp.y + KS - 1) / KS * KS;
+  }
+  // the chunks that some sub-tile meets
+  const int first = __reduce_min_sync(~0u, lo < hi ? lo : win) / BK;
+  const int end = (__reduce_max_sync(~0u, hi) + BK - 1) / BK;
+  const int nk = end > first ? end - first : 0;
+  auto live = [&](int kc) {
+    return __ballot_sync(~0u, lo < (kc + 1) * BK && hi > kc * BK);
+  };
+
+  Step step;
+  step.zero();
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nk)
+      load_span_chunk<Kind, kVec>(smem + s * SB, band, bl, first + s,
+                                  live(first + s), tid);
+    cp_async_commit();
+  }
+  for (int i = 0; i < nk; ++i) {
+    cp_async_wait<STAGES - 2>();
+    // chunk i has landed for every thread, and every thread is done with
+    // the stage of chunk i - 1, which is refilled next
+    __syncthreads();
+    const int next = i + STAGES - 1;
+    if (next < nk)
+      load_span_chunk<Kind, kVec>(smem + (next % STAGES) * SB, band, bl,
+                                  first + next, live(first + next), tid);
+    cp_async_commit();
+    // on[j] bit s: sub-tile s takes step j (window rows kb + KS*j .. +KS-1)
+    const int kb = (first + i) * BK;
+    unsigned on[Step::STEPS];
+    unsigned any = 0;
+#pragma unroll
+    for (int j = 0; j < Step::STEPS; ++j) {
+      on[j] = __ballot_sync(~0u, lo <= kb + KS * j && kb + KS * j < hi);
+      any |= on[j];
     }
+    step.chunk(smem + (i % STAGES) * SB, on, any, lane, warp);
+  }
+  step.template store<kVec>(
+      out + z * n_out * W + static_cast<size_t>(out_row0[b]) * W, rows[b],
+      bl.w0, W, lane, warp);
 }
 
 // Launch `kernel`, Kind's instantiation, over band blocks x column tiles x
@@ -822,25 +970,29 @@ int launch_kind(const Parts<typename Stage<Kind>::Elem>& bands,
                 const int* rows, const float* x, float* out, int n_blk,
                 int win, int n_in, int n_out, int W, int batch,
                 cudaStream_t s) {
-  if constexpr (std::is_same_v<Kind, F64>)
-    return launch_grid<Kind>(banded_rows_f64_kernel<kVec>, n_blk, win, n_in,
-                             n_out, W, batch, s, bands.p[0], spans, starts,
-                             out_row0, rows, x, out);
+  if constexpr (kSpans<Kind>)
+    return launch_grid<Kind>(
+        banded_rows_span_kernel<typename SpanStep<Kind>::type, kVec>, n_blk,
+        win, n_in, n_out, W, batch, s, bands, spans, starts, out_row0, rows,
+        x, out);
   else
     return launch_grid<Kind>(banded_rows_kernel<Kind, kVec>, n_blk, win, n_in,
                              n_out, W, batch, s, bands, starts, out_row0,
                              rows, x, out);
 }
 
-// `spans` is read by the F64 kind alone.
+// `spans` (n_blk x NSUB int2, 8-byte aligned) is read by the span kinds
+// alone, which refuse to launch without it.
 template <typename Kind>
 int launch(const typename Stage<Kind>::Elem* const* parts, const int* starts,
            const int* out_row0, const int* rows, const float* x, float* out,
            int n_blk, int win, int n_in, int n_out, int W, int batch,
-           void* stream, const int2* spans = nullptr) {
+           void* stream, const int* spans = nullptr) {
   if (n_blk <= 0 || win <= 0 || win % BK != 0 || n_in <= 0 || n_out <= 0 ||
-      W <= 0 || batch <= 0)
+      W <= 0 || batch <= 0 || (kSpans<Kind> && spans == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
+  if ((reinterpret_cast<uintptr_t>(spans) & 7) != 0)
+    return static_cast<int>(cudaErrorMisalignedAddress);
   Parts<typename Stage<Kind>::Elem> bands = {};
   for (int p = 0; p < Stage<Kind>::PARTS; ++p) {
     if ((reinterpret_cast<uintptr_t>(parts[p]) & 15) != 0)
@@ -848,14 +1000,15 @@ int launch(const typename Stage<Kind>::Elem* const* parts, const int* starts,
     bands.p[p] = parts[p];
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int2* sp = reinterpret_cast<const int2*>(spans);
   // 16-byte copies and stores need every row of x and out 16-byte aligned
   const bool vec = W % 4 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0 &&
                    (reinterpret_cast<uintptr_t>(out) & 15) == 0;
-  return vec ? launch_kind<Kind, true>(bands, spans, starts, out_row0, rows, x,
+  return vec ? launch_kind<Kind, true>(bands, sp, starts, out_row0, rows, x,
                                        out, n_blk, win, n_in, n_out, W, batch,
                                        s)
-             : launch_kind<Kind, false>(bands, spans, starts, out_row0, rows,
-                                        x, out, n_blk, win, n_in, n_out, W,
+             : launch_kind<Kind, false>(bands, sp, starts, out_row0, rows, x,
+                                        out, n_blk, win, n_in, n_out, W,
                                         batch, s);
 }
 
@@ -864,13 +1017,15 @@ int launch(const typename Stage<Kind>::Elem* const* parts, const int* starts,
 // Launch the kernel on `stream` for a [batch, n_in, W] input and a
 // [batch, n_out, W] output (both contiguous float32); `starts`, `out_row0`
 // and `rows` hold n_blk int32 each; each band array is n_blk x win x 128
-// (k-major, 16-byte aligned): float32 (banded_rows_launch, _f64_launch,
-// which takes the sub-tiles' spans too; tf32-rounded for _tf32_launch),
-// bfloat16 (_bf16_launch, _bf16out_launch), float16 (_f16_launch,
-// _f16out_launch), or the parts of split bands in order, hi first: two
-// bfloat16 arrays (_x3_launch), three (_x6_launch, _x9_launch) or two
-// tf32-rounded float32 arrays (_tf32x3_launch).  Each returns
-// cudaGetLastError() after the launch (0 on success).
+// (k-major, 16-byte aligned): float32 (banded_rows_launch, _f64_launch;
+// tf32-rounded for _tf32_launch), bfloat16 (_bf16_launch,
+// _bf16out_launch), float16 (_f16_launch, _f16out_launch), or the parts of
+// split bands in order, hi first: two bfloat16 arrays (_x3_launch), three
+// (_x6_launch, _x9_launch) or two tf32-rounded float32 arrays
+// (_tf32x3_launch).  The span kinds' entry points (_f64_launch,
+// _x6_launch, _x9_launch) take the sub-tiles' spans after the bands:
+// n_blk x 8 int32 pairs (RowPack.spans, 8-byte aligned, not null).  Each
+// returns cudaGetLastError() after the launch (0 on success).
 #define BANDED_ROWS_ARGS                                                   \
   const int *starts, const int *out_row0, const int *rows, const float *x, \
       float *out, int n_blk, int win, int n_in, int n_out, int W, int batch, \
@@ -903,16 +1058,16 @@ extern "C" int banded_rows_x3_launch(
 
 extern "C" int banded_rows_x6_launch(
     const __nv_bfloat16* hi, const __nv_bfloat16* mid, const __nv_bfloat16* lo,
-    BANDED_ROWS_ARGS) {
+    const int* spans, BANDED_ROWS_ARGS) {
   const __nv_bfloat16* parts[] = {hi, mid, lo};
-  return launch<SplitX6>(parts, BANDED_ROWS_PASS);
+  return launch<SplitX6>(parts, BANDED_ROWS_PASS, spans);
 }
 
 extern "C" int banded_rows_x9_launch(
     const __nv_bfloat16* hi, const __nv_bfloat16* mid, const __nv_bfloat16* lo,
-    BANDED_ROWS_ARGS) {
+    const int* spans, BANDED_ROWS_ARGS) {
   const __nv_bfloat16* parts[] = {hi, mid, lo};
-  return launch<SplitX9>(parts, BANDED_ROWS_PASS);
+  return launch<SplitX9>(parts, BANDED_ROWS_PASS, spans);
 }
 
 extern "C" int banded_rows_tf32_launch(const float* bands, BANDED_ROWS_ARGS) {
@@ -937,12 +1092,8 @@ extern "C" int banded_rows_f16out_launch(
   return launch<F16Out>(parts, BANDED_ROWS_PASS);
 }
 
-// `spans` holds n_blk x 8 int32 pairs (RowPack.spans, 8-byte aligned).
 extern "C" int banded_rows_f64_launch(const float* bands, const int* spans,
                                       BANDED_ROWS_ARGS) {
-  if ((reinterpret_cast<uintptr_t>(spans) & 7) != 0)
-    return static_cast<int>(cudaErrorMisalignedAddress);
   const float* parts[] = {bands};
-  return launch<F64>(parts, BANDED_ROWS_PASS,
-                     reinterpret_cast<const int2*>(spans));
+  return launch<F64>(parts, BANDED_ROWS_PASS, spans);
 }

@@ -36,9 +36,13 @@ row applies; ``ops.opmatrix.MM_PRECISIONS`` names them):
   summed in float32; F16OUT rounds the result to float16 (F16_F16_F32,
   F16_F16_F16);
 * :data:`F64` -- float32 bands and x widened to float64, the sum in
-  float64, the result rounded to float32 (F64_F64_F64).  Its kernel walks
-  each block in row sub-tiles of :data:`SUB_ROWS` rows, each over only the
-  window rows that hold its nonzero entries (:attr:`RowPack.spans`).
+  float64, the result rounded to float32 (F64_F64_F64).
+
+The kernels of F64, X6 and X9 (the kinds whose :attr:`Kind.span_k` is not
+0) walk each block in row sub-tiles of :data:`SUB_ROWS` rows, each over
+only the window rows that hold its nonzero entries (:attr:`RowPack.spans`),
+rounded out to whole steps of ``span_k`` rows: F64's k8 DMMA steps, one
+k16 ``mma.sync`` step a chunk for the splits.
 
 Products of two bf16, f16 or tf32 values are exact in float32, so the plain
 version (float32 matmuls of the rounded parts) and the kernel differ only
@@ -91,7 +95,9 @@ class Kind(NamedTuple):
     """How one band kind computes: its CUDA entry point and launch counter,
     the storage type and number of its band parts, the pairs of parts
     ``(p, q)`` with ``p + q <= reach`` it multiplies, the operand rounding,
-    the result's rounding (or None) and the type the sum is taken in."""
+    the result's rounding (or None), the type the sum is taken in, and the
+    window rows of one step of its kernel's span walk (0: the kind takes
+    no spans and its kernel walks the whole block window)."""
 
     symbol: str
     counter: str
@@ -101,7 +107,7 @@ class Kind(NamedTuple):
     rounding: Callable[[torch.Tensor], torch.Tensor]
     out: Optional[torch.dtype] = None
     wide: torch.dtype = torch.float32
-    spans: bool = False  # the entry point takes RowPack.spans
+    span_k: int = 0  # > 0: the entry point takes RowPack.spans
 
 
 _BF16 = _via(torch.bfloat16)
@@ -116,9 +122,9 @@ KINDS = {
     X3: Kind("banded_rows_x3_launch", "launches_x3", torch.bfloat16, 2, 1,
              _BF16),
     X6: Kind("banded_rows_x6_launch", "launches_x6", torch.bfloat16, 3, 2,
-             _BF16),
+             _BF16, span_k=16),
     X9: Kind("banded_rows_x9_launch", "launches_x9", torch.bfloat16, 3, 4,
-             _BF16),
+             _BF16, span_k=16),
     TF32: Kind("banded_rows_tf32_launch", "launches_tf32", torch.float32, 1,
                0, round_tf32),
     TF32X3: Kind("banded_rows_tf32x3_launch", "launches_tf32x3",
@@ -128,7 +134,7 @@ KINDS = {
     F16OUT: Kind("banded_rows_f16out_launch", "launches_f16out",
                  torch.float16, 1, 0, _F16, torch.float16),
     F64: Kind("banded_rows_f64_launch", "launches_f64", torch.float32, 1, 0,
-              _exact, None, torch.float64, spans=True),
+              _exact, None, torch.float64, span_k=8),
 }
 # C signature of the entry points in csrc/banded_rows.cu: one pointer per
 # band part (hi first), the spans where the kind takes them, five pointers
@@ -141,10 +147,9 @@ _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 # csrc/banded_rows.cu (BM and BK there).
 ROWS = 128
 K_CHUNK = 16
-# Rows of a row sub-tile and window rows of one step of the F64 kernel:
-# its m16n8k8 tile (SUB and KS there).
+# Rows of a row sub-tile of the span walk (SUB there; the window rows of
+# one step are each kind's ``span_k``, its step body's KS).
 SUB_ROWS = 16
-SUB_K = 8
 
 
 def split(v: torch.Tensor, kind) -> Tuple[torch.Tensor, ...]:
@@ -178,9 +183,10 @@ class RowPack(NamedTuple):
     n_in: int
     kind: object = torch.float32       # the band kind (a key of KINDS)
     more: Tuple[torch.Tensor, ...] = ()  # split kinds: parts 1, 2, ...
-    # F64: i32 [n_blk, ROWS // SUB_ROWS, 2], per block and sub-tile the
-    # window rows lo <= k < hi holding every nonzero of its rows, (0, 0) if
-    # none (:func:`sub_tile_spans`; the kernel's loop bounds); else None
+    # the span kinds (F64, X6, X9): i32 [n_blk, ROWS // SUB_ROWS, 2], per
+    # block and sub-tile the window rows lo <= k < hi holding every nonzero
+    # of its rows, (0, 0) if none (:func:`sub_tile_spans` of the float32
+    # bands, so of every split part; the kernel's loop bounds); else None
     spans: Optional[torch.Tensor] = None
 
     @property
@@ -222,7 +228,7 @@ def pack_banded(blocks, col_ranges, n_out: int, n_in: int, device,
     parts = [p.to(storage)
              for p in split(torch.as_tensor(bands, device=device), dtype)]
     spans = (torch.as_tensor(sub_tile_spans(bands), device=device)
-             if KINDS[dtype].spans else None)
+             if KINDS[dtype].span_k else None)
     return RowPack(parts[0], torch.as_tensor(meta, device=device), meta,
                    int(n_out), int(n_in), dtype, tuple(parts[1:]), spans)
 
@@ -283,7 +289,8 @@ def banded_row_apply(pack: RowPack, x: torch.Tensor) -> torch.Tensor:
 
     A CUDA tensor goes through the CUDA kernel's instantiation for the
     pack's band kind (:attr:`RowPack.kind`), always: there is no shape gate
-    and no fallback.  A CPU tensor goes through the plain version.
+    and no fallback; a span kind's pack without spans raises.  A CPU tensor
+    goes through the plain version.
     """
     if x.device.type == "cpu":
         return banded_row_apply_reference(pack, x)
@@ -293,7 +300,10 @@ def banded_row_apply(pack: RowPack, x: torch.Tensor) -> torch.Tensor:
     from .._build import load_function
 
     spec = KINDS[pack.kind]
-    spans = (pack.spans,) if spec.spans else ()
+    if spec.span_k and pack.spans is None:
+        raise ValueError(f"a {pack.kind} pack needs its sub-tile spans "
+                         "(RowPack.spans, from pack_banded)")
+    spans = (pack.spans,) if spec.span_k else ()
     launch = load_function("banded_rows", spec.symbol,
                            [ctypes.c_void_p] * (len(pack.parts) + len(spans))
                            + _ARGTYPES)

@@ -1,14 +1,17 @@
 """The row pack's sub-tile spans (``RowPack.spans``) on the CPU.
 
-The F64 instantiation of the banded-row kernel walks each 128-row block in
-sub-tiles of ``SUB_ROWS`` rows, each over only the window rows its span
-names (rounded out to whole steps of ``SUB_K`` rows), and copies only the
-band rows of the sub-tiles a chunk meets.  These tests hold the spans to
-the operators the solve builds at a small size (mono and rep-tiled, rank-1
-and rank-2 PSFs): every nonzero lies inside its sub-tile's span, the span
-rounded out to whole steps stays inside the window, and the plain sum over
-the spans alone equals the full plain sum bit for bit.  The kernel itself
-is held to them by the card tests (tests/test_torch_banded_rows_cuda.py).
+The F64, X6 and X9 instantiations of the banded-row kernel walk each
+128-row block in sub-tiles of ``SUB_ROWS`` rows, each over only the window
+rows its span names (rounded out to whole steps of the kind's ``span_k``
+rows: 8 for F64, 16 for the bf16 splits), and copy only the band rows of
+the sub-tiles a chunk meets.  These tests hold the spans to the operators
+the solve builds at a small size (mono and rep-tiled, rank-1 and rank-2
+PSFs): every nonzero of every band part lies inside its sub-tile's span,
+the split packs carry the F64 pack's spans, the span rounded out to whole
+steps stays inside the window, and the plain sum over the spans alone
+equals the full plain sum bit for bit; the other kinds carry no spans.
+The kernel itself is held to them by the card tests
+(tests/test_torch_banded_rows_cuda.py).
 """
 
 import numpy as np
@@ -18,7 +21,7 @@ import torch
 from enph459_super_resolution_tpu_torch.data.sessions import (
     CENTER_SHIFT_FILES)
 from enph459_super_resolution_tpu_torch.ops.banded_rows import (
-    F64, ROWS, SUB_K, SUB_ROWS, banded_row_apply_reference,
+    F64, KINDS, ROWS, SUB_ROWS, X6, X9, banded_row_apply_reference,
     pack_banded, sub_tile_spans)
 from enph459_super_resolution_tpu_torch.sr.classical import (
     _host_solve_matrices, make_gaussian_psf)
@@ -82,60 +85,89 @@ def _x(op, width=9, seed=0):
                            dtype=torch.float32)
 
 
-@pytest.mark.parametrize("name", sorted(OPS))
-def test_spans_hold_every_nonzero_and_no_more(name):
+SPAN_KINDS = (F64, X6, X9)
+KIND_IDS = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+# F64's cases keep the bare op name; the splits' carry their kind
+@pytest.mark.parametrize("kind,name", [
+    pytest.param(kind, name, id=name if kind == F64 else f"{kind}-{name}")
+    for kind in SPAN_KINDS for name in sorted(OPS)])
+def test_spans_hold_every_nonzero_and_no_more(kind, name):
     op = OPS[name]
-    pack = _pack(op)
+    pack = _pack(op, kind)
+    step = KINDS[kind].span_k
     spans = pack.spans.numpy()
-    bands = pack.bands.numpy()
-    n_blk, win, _ = bands.shape
+    parts = [part.float().numpy() for part in pack.parts]
+    n_blk, win, _ = parts[0].shape
     assert spans.shape == (n_blk, ROWS // SUB_ROWS, 2)
     assert spans.dtype == np.int32
+    # the spans of the float32 bands, whatever the kind splits them into
+    np.testing.assert_array_equal(spans, _pack(op).spans.numpy())
     for b in range(n_blk):
         nrow = int(pack.meta_host[2, b])
         for s in range(ROWS // SUB_ROWS):
             lo, hi = spans[b, s]
-            k, _ = np.nonzero(bands[b, :, s * SUB_ROWS:(s + 1) * SUB_ROWS])
+            rows = slice(s * SUB_ROWS, (s + 1) * SUB_ROWS)
+            k = np.concatenate([np.nonzero(part[b, :, rows])[0]
+                                for part in parts])
             if k.size == 0:
                 assert lo == hi == 0, (b, s)
                 continue
-            # every nonzero inside, and the first and last on its ends
-            assert (lo, hi) == (k.min(), k.max() + 1), (b, s)
+            # every nonzero of every part inside, the first and last of
+            # part 0 (the bands rounded to nearest) on its ends
+            k0, _ = np.nonzero(parts[0][b, :, rows])
+            assert (lo, hi) == (k0.min(), k0.max() + 1), (b, s)
+            assert lo <= k.min() and k.max() < hi, (b, s)
             assert 0 <= lo < hi <= win
-            # the kernel's whole steps of SUB_K rows stay in the window
-            assert 0 <= lo // SUB_K * SUB_K <= lo
-            assert hi <= -(-hi // SUB_K) * SUB_K <= win
+            # the kernel's whole steps of span_k rows stay in the window
+            assert 0 <= lo // step * step <= lo
+            assert hi <= -(-hi // step) * step <= win
             assert s * SUB_ROWS < nrow  # rows past the block's own are 0
     # the short last block of each rep leaves sub-tiles with empty spans
     assert (spans[-1] == 0).all(axis=1).sum() >= ROWS // SUB_ROWS - -(
         -int(pack.meta_host[2, -1]) // SUB_ROWS)
-    # only the kind whose kernel reads them carries them
+    # only the kinds whose kernels read them carry them
     assert _pack(op, torch.float32).spans is None
 
 
-def _masked(pack, spans):
-    """``pack`` with every band entry outside its sub-tile's span (of the
-    F64 pack's ``spans``) zeroed."""
-    bands = pack.bands.clone()
+@pytest.mark.parametrize("kind", list(KINDS),
+                         ids=[KIND_IDS.get(k, k) for k in KINDS])
+def test_only_the_span_kinds_carry_spans(kind):
+    pack = _pack(OPS["fwd_r0_gauss_x3"], kind)
+    assert (pack.spans is not None) == (kind in SPAN_KINDS)
+    assert (KINDS[kind].span_k > 0) == (kind in SPAN_KINDS)
+
+
+def _masked(pack, spans, step=1):
+    """``pack`` with every entry of every band part outside its sub-tile's
+    span (of the F64 pack's ``spans``), rounded out to whole steps of
+    ``step`` rows, zeroed."""
+    parts = [part.clone() for part in pack.parts]
     for b, sub in enumerate(spans.tolist()):
         for s, (lo, hi) in enumerate(sub):
             cols = slice(s * SUB_ROWS, (s + 1) * SUB_ROWS)
-            bands[b, :lo, cols] = 0
-            bands[b, hi:, cols] = 0
-    return pack._replace(bands=bands)
+            for part in parts:
+                part[b, :lo // step * step, cols] = 0
+                part[b, -(-hi // step) * step:, cols] = 0
+    return pack._replace(bands=parts[0], more=tuple(parts[1:]))
 
 
-@pytest.mark.parametrize("kind", [F64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("kind", [F64, torch.float32, X6, X9],
+                         ids=["f64", "f32", "x6", "x9"])
 @pytest.mark.parametrize("name", sorted(OPS))
 def test_plain_sum_over_the_spans_is_the_full_sum(name, kind):
+    """Zeroed outside the spans themselves, and outside the spans rounded
+    out to the kind's step (the rows its kernel walks)."""
     op = OPS[name]
     pack = _pack(op, kind)
     x = _x(op)
     full = banded_row_apply_reference(pack, x)
     spans = _pack(op).spans
-    torch.testing.assert_close(
-        banded_row_apply_reference(_masked(pack, spans), x), full, rtol=0,
-        atol=0)
+    for step in {1, KINDS[kind].span_k or 1}:
+        torch.testing.assert_close(
+            banded_row_apply_reference(_masked(pack, spans, step), x), full,
+            rtol=0, atol=0)
 
 
 def test_spans_of_a_hand_made_pack():

@@ -9,12 +9,16 @@ every band kind (float32, bfloat16, the bf16 splits X3, X6 and X9, tf32 and
 its split, f16 with and without an f16 result, bf16 with a bf16 result and
 f64), windows of one chunk and of chunk counts no 32-row step divides, odd
 widths and unaligned inputs; each kind bit for bit on an exactness probe;
-and each kind against a float64 product within its class.  The F64 kind's
-row sub-tiles: packs with empty, short and staggered sub-tiles, band
-entries outside the spans poisoned with NaN (the kernel must not read
-them), and its SASS on the f64 tensor cores (DMMA, no DFMA).
+and each kind against a float64 product within its class.  The span
+walk's row sub-tiles (F64, X6, X9): packs with empty, short and staggered
+sub-tiles, band entries outside the spans (rounded out to the kind's step)
+poisoned with NaN (the kernel must not read them), the kernel equal bit for
+bit to itself with every span widened to the whole window, a pack without
+spans refused, and the SASS: F64 on the f64 tensor cores (DMMA, no DFMA),
+X6 and X9 on HMMA in the span kernel and in no whole-window kernel.
 """
 
+import ctypes
 import subprocess
 from pathlib import Path
 
@@ -23,10 +27,11 @@ import pytest
 import torch
 
 from enph459_super_resolution_tpu_torch._build import (build, library_path,
+                                                       load_function,
                                                        nvcc_path)
 from enph459_super_resolution_tpu_torch.ops.banded_rows import (
-    BF16OUT, F16, F16OUT, F64, KINDS, SUB_K, SUB_ROWS, TF32, TF32X3, X3, X6,
-    X9, banded_row_apply, banded_row_apply_reference, pack_banded,
+    _ARGTYPES, BF16OUT, F16, F16OUT, F64, KINDS, SUB_ROWS, TF32, TF32X3, X3,
+    X6, X9, banded_row_apply, banded_row_apply_reference, pack_banded,
     round_result)
 from enph459_super_resolution_tpu_torch.ops.opmatrix import (
     BandedOp, shift_op_banded, stuff_shift_op_banded, zoom_op_banded)
@@ -279,8 +284,9 @@ def test_each_kind_forms_exactly_its_products(cuda, dtype):
         _probe(other, cuda)[0], x))
 
 
-def _hand_pack(case, device, seed=6):
-    """F64 packs whose sub-tiles the solve's operators seldom give:
+def _hand_pack(case, device, seed=6, kind=F64):
+    """Packs of a span kind whose sub-tiles the solve's operators seldom
+    give:
     ``staggered`` -- a 128-row block whose rows r hold window rows r // 4
     .. + 8 with sub-tiles 2 and 5 zero, an all-zero block of 37 rows and a
     short block of 20 dense rows, windows of 40 (3 chunks); ``one_chunk``
@@ -306,27 +312,23 @@ def _hand_pack(case, device, seed=6):
     ranges = [(i * (win // 2 + 3), i * (win // 2 + 3) + win)
               for i in range(len(blocks))]
     pack = pack_banded(blocks, ranges, sum(b.shape[0] for b in blocks), n_in,
-                       device, F64)
+                       device, kind)
     return pack, blocks, ranges
 
 
 F64_CASES = ("staggered", "one_chunk", "wide")
+SPLIT_KINDS = (X6, X9)
+SPAN_KINDS = (F64,) + SPLIT_KINDS
 
 
-@pytest.mark.parametrize("width", [1, 131, 256])
-@pytest.mark.parametrize("case", F64_CASES)
-def test_f64_sub_tiles_at_ragged_packs(cuda, case, width):
-    """Empty sub-tiles (all-zero rows, an all-zero block, rows past a short
-    block's own), a window of one chunk and the forward operator's slope,
-    at odd widths (4-byte copies) and aligned ones, with a batch axis and an
-    input at an offset of one float: within 2^-22 of sum|b||x| of the
-    plain float64 sum; outputs of all-zero rows exactly 0."""
-    pack, blocks, ranges = _hand_pack(case, cuda)
+def _sub_tiles_at_ragged_pack(cuda, kind, case, width):
+    pack, blocks, ranges = _hand_pack(case, cuda, kind=kind)
     x = torch.as_tensor(np.random.default_rng(width).uniform(
         0, 255, (2, pack.n_in, width)), dtype=torch.float32, device=cuda)
-    before = banded_row_apply.launches_f64
+    counter = KINDS[kind].counter
+    before = getattr(banded_row_apply, counter)
     got = banded_row_apply(pack, x)
-    assert banded_row_apply.launches_f64 == before + 1
+    assert getattr(banded_row_apply, counter) == before + 1
     want = banded_row_apply_reference(pack, x)
     torch.cuda.synchronize()
     bound = _bound(pack, blocks, ranges, x)
@@ -340,34 +342,55 @@ def test_f64_sub_tiles_at_ragged_packs(cuda, case, width):
         assert not got[:, 128:165].any()
 
 
+@pytest.mark.parametrize("width", [1, 131, 256])
+@pytest.mark.parametrize("case", F64_CASES)
+def test_f64_sub_tiles_at_ragged_packs(cuda, case, width):
+    """Empty sub-tiles (all-zero rows, an all-zero block, rows past a short
+    block's own), a window of one chunk and the forward operator's slope,
+    at odd widths (4-byte copies) and aligned ones, with a batch axis and an
+    input at an offset of one float: within 2^-22 of sum|b||x| of the
+    plain float64 sum; outputs of all-zero rows exactly 0."""
+    _sub_tiles_at_ragged_pack(cuda, F64, case, width)
+
+
+@pytest.mark.parametrize("width", [1, 131, 256])
+@pytest.mark.parametrize("case", F64_CASES)
+@pytest.mark.parametrize("kind", SPLIT_KINDS)
+def test_split_sub_tiles_at_ragged_packs(cuda, kind, case, width):
+    """As the F64 test, for X6 and X9 (one k16 step a chunk, 128-column
+    tiles): within 2^-17 of sum|b||x| of the plain sum."""
+    _sub_tiles_at_ragged_pack(cuda, kind, case, width)
+
+
 def _poisoned(pack):
-    """``pack`` with NaN in every band entry outside its sub-tile's span
-    rounded out to whole steps of ``SUB_K`` rows: the entries the F64
-    kernel skips."""
-    bands = pack.bands.clone()
+    """``pack`` with NaN in every entry of every band part outside its
+    sub-tile's span rounded out to whole steps of the kind's ``span_k``
+    rows: the entries its kernel skips."""
+    step = KINDS[pack.kind].span_k
+    parts = [part.clone() for part in pack.parts]
     for b, sub in enumerate(pack.spans.tolist()):
         for s, (lo, hi) in enumerate(sub):
             cols = slice(s * SUB_ROWS, (s + 1) * SUB_ROWS)
-            bands[b, :lo // SUB_K * SUB_K, cols] = float("nan")
-            bands[b, -(-hi // SUB_K) * SUB_K:, cols] = float("nan")
-    return pack._replace(bands=bands)
+            for part in parts:
+                part[b, :lo // step * step, cols] = float("nan")
+                part[b, -(-hi // step) * step:, cols] = float("nan")
+    return pack._replace(bands=parts[0], more=tuple(parts[1:]))
 
 
-@pytest.mark.parametrize("name,reps",
-                         [(n, r) for n in sorted(_ops()) for r in (1, 3)]
-                         + [(c, 1) for c in F64_CASES])
-def test_f64_reads_no_band_entry_outside_the_spans(cuda, name, reps):
-    """Each sub-tile multiplies only the window rows of its span: with
-    every band entry outside the spans set to NaN, the kernel's result is
-    that of the clean pack's plain version (a NaN it read would spread)."""
+def _span_pack(kind, name, reps, cuda):
+    """(pack, blocks, col_ranges) of one of ``_ops()`` tiled ``reps``
+    times, or of a hand pack (``F64_CASES``), as ``kind``."""
     if name in F64_CASES:
-        pack, blocks, ranges = _hand_pack(name, cuda)
-    else:
-        base = BandedOp.tiled(BandedOp.from_banded(_ops()[name]), reps)
-        pack = base.astype_band(F64).to(cuda).row_pack
-        blocks, ranges = base.blocks, base.col_ranges
+        return _hand_pack(name, cuda, kind=kind)
+    base = BandedOp.tiled(BandedOp.from_banded(_ops()[name]), reps)
+    return (base.astype_band(kind).to(cuda).row_pack, base.blocks,
+            base.col_ranges)
+
+
+def _reads_no_band_entry_outside_the_spans(cuda, kind, name, reps):
+    pack, blocks, ranges = _span_pack(kind, name, reps, cuda)
     poisoned = _poisoned(pack)
-    assert torch.isnan(poisoned.bands).any()
+    assert all(torch.isnan(part.float()).any() for part in poisoned.parts)
     x = torch.as_tensor(np.random.default_rng(9).uniform(
         0, 255, (2, pack.n_in, 200)), dtype=torch.float32, device=cuda)
     got = banded_row_apply(poisoned, x)
@@ -377,9 +400,80 @@ def test_f64_reads_no_band_entry_outside_the_spans(cuda, name, reps):
     assert ((got - want).abs() <= _bound(pack, blocks, ranges, x)).all()
 
 
+SPAN_PACKS = ([(n, r) for n in sorted(_ops()) for r in (1, 3)]
+              + [(c, 1) for c in F64_CASES])
+
+
+@pytest.mark.parametrize("name,reps", SPAN_PACKS)
+def test_f64_reads_no_band_entry_outside_the_spans(cuda, name, reps):
+    """Each sub-tile multiplies only the window rows of its span: with
+    every band entry outside the spans set to NaN, the kernel's result is
+    that of the clean pack's plain version (a NaN it read would spread)."""
+    _reads_no_band_entry_outside_the_spans(cuda, F64, name, reps)
+
+
+@pytest.mark.parametrize("name,reps", SPAN_PACKS)
+@pytest.mark.parametrize("kind", SPLIT_KINDS)
+def test_split_reads_no_band_entry_outside_the_spans(cuda, kind, name, reps):
+    """As the F64 test, for X6 and X9: NaN in every part outside the spans
+    rounded out to whole k16 steps."""
+    _reads_no_band_entry_outside_the_spans(cuda, kind, name, reps)
+
+
+@pytest.mark.parametrize("name,reps", SPAN_PACKS)
+@pytest.mark.parametrize("kind", SPAN_KINDS)
+def test_span_kernel_equals_its_whole_window_walk(cuda, kind, name, reps):
+    """Skipping a step that holds only zero band entries changes no bit:
+    the kernel with every sub-tile's span widened to the whole window
+    (every step taken, as the whole-window tile takes them) equals the
+    kernel on the real spans bit for bit, at a width off the tile and an
+    aligned one."""
+    pack, _, _ = _span_pack(kind, name, reps, cuda)
+    win = pack.bands.shape[1]
+    wide = pack._replace(spans=torch.tensor(
+        [0, win], dtype=torch.int32, device=cuda).expand_as(
+            pack.spans).contiguous())
+    rng = np.random.default_rng(10)
+    for width in (131, 256):
+        x = torch.as_tensor(rng.uniform(-255, 255, (2, pack.n_in, width)),
+                            dtype=torch.float32, device=cuda)
+        got = banded_row_apply(pack, x)
+        assert torch.equal(got, banded_row_apply(wide, x))
+
+
+@pytest.mark.parametrize("kind", SPAN_KINDS)
+def test_span_kinds_refuse_a_pack_without_spans(cuda, kind):
+    """No whole-window fallback: the wrapper raises on a span kind's pack
+    without spans, and the entry point refuses null or misaligned spans
+    (cudaErrorInvalidValue, cudaErrorMisalignedAddress) before any launch."""
+    pack, _, _ = _hand_pack("one_chunk", cuda, kind=kind)
+    x = torch.zeros(1, pack.n_in, 8, device=cuda)
+    counter = KINDS[kind].counter
+    before = getattr(banded_row_apply, counter)
+    with pytest.raises(ValueError, match="spans"):
+        banded_row_apply(pack._replace(spans=None), x)
+    assert getattr(banded_row_apply, counter) == before
+    out = torch.empty(1, pack.n_out, 8, device=cuda)
+    launch = load_function(
+        "banded_rows", KINDS[kind].symbol,
+        [ctypes.c_void_p] * (len(pack.parts) + 1) + _ARGTYPES)
+    meta = pack.meta
+    step = meta.stride(0) * meta.element_size()
+    for spans, rc in ((0, 1), (pack.spans.data_ptr() + 4, 716)):
+        assert launch(
+            *(p.data_ptr() for p in pack.parts), spans, meta.data_ptr(),
+            meta.data_ptr() + step, meta.data_ptr() + 2 * step, x.data_ptr(),
+            out.data_ptr(), pack.bands.shape[0], pack.bands.shape[1],
+            pack.n_in, pack.n_out, 8, 1,
+            torch.cuda.current_stream().cuda_stream) == rc
+
+
 def test_f64_kernel_runs_on_the_f64_tensor_cores(cuda):
-    """The built F64 kernel (both copy paths) issues DMMA and no DFMA: the
-    products cannot fall back to the f64 CUDA cores unnoticed."""
+    """The span kernel's F64 instantiation (both copy paths) issues DMMA and
+    no DFMA: the products cannot fall back to the f64 CUDA cores unnoticed.
+    Its X6 and X9 instantiations issue HMMA, and no whole-window kernel is
+    built for a kind of three bf16 parts: X6 and X9 launches run the span
+    walk."""
     build("banded_rows")
     tool = Path(nvcc_path()).with_name("cuobjdump")
     sass = subprocess.run([str(tool), "-sass",
@@ -389,8 +483,18 @@ def test_f64_kernel_runs_on_the_f64_tensor_cores(cuda):
     for part in sass.split("Function : ")[1:]:
         name, _, body = part.partition("\n")
         bodies[name.strip()] = body
-    f64 = {n: b for n, b in bodies.items() if "banded_rows_f64_kernel" in n}
+    span = {n: b for n, b in bodies.items() if "banded_rows_span_kernel" in n}
+    f64 = {n: b for n, b in span.items() if "F64Step" in n}
     assert len(f64) == 2, sorted(bodies)
     for name, body in f64.items():
         assert "DMMA" in body, name
         assert "DFMA" not in body, name
+    # Mma<__nv_bfloat16, 3, 2 (X6) or 4 (X9), 0> in the mangled names
+    split = {n: b for n, b in span.items() if "Mma16Step" in n}
+    assert len(split) == 4 and len(span) == 6, sorted(span)
+    for reach in ("Li3ELi2E", "Li3ELi4E"):
+        assert sum(reach in n for n in split) == 2, sorted(split)
+    for name, body in split.items():
+        assert "HMMA" in body, name
+    whole = [n for n in bodies if "banded_rows_kernel" in n]
+    assert whole and not any("Li3E" in n for n in whole), sorted(whole)
