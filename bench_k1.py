@@ -10,8 +10,8 @@ plain version (per output within 2^-17 of sum|b||x|, F64 2^-22, as
 ``chip_smoke.py``'s kernel phase), times it per call and on the device
 alone, and prints a digest of its output bytes (two commits whose kernels
 agree bit for bit print the same digests); for the kinds on the span walk
-(F64, X6, X9: a pack with ``RowPack.spans``) also the GFLOP their row
-sub-tiles perform (``chip_smoke._k1_span_macs`` times the split's
+(F64, X3, X6, X9, TF32_X3: a pack with ``RowPack.spans``) also the GFLOP
+their row sub-tiles perform (``chip_smoke._k1_span_macs`` times the split's
 products) and their share of the type's peak.  It then runs warm
 mono_cal_target solves (80 iterations, f32 store) at the matmul precision
 ``--preset``: their K1 launches, ``SAA_IBP``'s largest difference from

@@ -42,15 +42,16 @@ or of the JAX package.  Phases, one JSON line each:
    bound over the 128-row block windows beside it, and per f32 banded
    mono_cal_target solve the sum of the per-op device times times their
    launches, the bound and the time lost over it); for the kinds on the
-   span walk (F64, X6, X9) also the GFLOP their row sub-tiles perform
-   (``_k1_span_macs``: 16 rows over each span rounded out to whole steps of
-   the kind's ``span_k``, k8 for F64 and k16 for the splits, times the
-   split's products) and their rate's share of the type's peak (f64 66.9,
-   bf16 989 TFLOP/s) on the device alone.  The kernel's time is
-   taken twice (CUDA events both): per call over calls launched one after
-   another, and on the device alone over calls queued behind a device
-   sleep, which leaves out the host's launch cost where a call takes longer
-   to enqueue than to run (also for K4 below).
+   span walk (F64, X3, X6, X9, TF32_X3) also the GFLOP their row sub-tiles
+   perform (``_k1_span_macs``: 16 rows over each span rounded out to whole
+   steps of the kind's ``span_k``, k8 for F64 and TF32_X3 and k16 for the
+   bf16 splits, times the split's products) and their rate's share of the
+   type's peak (f64 66.9, bf16 989, tf32 494.7 TFLOP/s) on the device
+   alone.  The kernel's time is taken twice (CUDA events both): per call
+   over calls launched one after another, and on the device alone over
+   calls queued behind a device sleep, which leaves out the host's launch
+   cost where a call takes longer to enqueue than to run (also for K4
+   below).
 3. fused -- the fused IBP kernels K2 (forward error of every frame) and K3
    (back-projection update) against their plain versions at the full-size
    mono pack and the 4-rep rgb pack, float32 and bfloat16 bands;
@@ -291,10 +292,14 @@ K1_SHARE, K1_F64_SHARE = 2.0 ** -17, 2.0 ** -22
 _SUB_TILES = "; 16-row sub-tiles, each over its span of window rows"
 K1_SPAN_DESIGNS = {
     "f64": "f64 tensor cores (mma.sync m16n8k8 .f64, DMMA)" + _SUB_TILES,
+    "x3": "bf16 tensor cores (mma.sync m16n8k16), 3 products of 2 parts"
+          + _SUB_TILES,
     "x6": "bf16 tensor cores (mma.sync m16n8k16), 6 products of 3 parts"
           + _SUB_TILES,
     "x9": "bf16 tensor cores (mma.sync m16n8k16), 9 products of 3 parts"
-          + _SUB_TILES}
+          + _SUB_TILES,
+    "tf32x3": "tf32 tensor cores (mma.sync m16n8k8 .tf32), 3 products of 2 "
+              "parts" + _SUB_TILES}
 # K1's exactness probe: band entries and inputs c * 2^e with c one of these,
 # each output a single product, whose parts' products and their sums are
 # exact in float32 under every kind
@@ -779,7 +784,8 @@ def _k1_span_macs(pack, step: int) -> int:
     walk performs on ``pack`` (csrc/banded_rows.cu
     ``banded_rows_span_kernel``): each row sub-tile's ``SUB_ROWS`` rows over
     its span (``RowPack.spans``) rounded out to whole steps of ``step``
-    window rows (the kind's ``span_k``: 8 for F64, 16 for X6 and X9)."""
+    window rows (the kind's ``span_k``: 8 for F64 and TF32_X3, 16 for X3,
+    X6 and X9)."""
     from enph459_super_resolution_tpu_torch.ops.banded_rows import SUB_ROWS
 
     sp = pack.spans.cpu().numpy().astype(np.int64)
@@ -3673,6 +3679,15 @@ def main() -> int:
         return [r for r in fused_rows
                 if r["kernel"] == kernel and r["bands"] == dtype]
 
+    def k1_entry(band, launches, **more):
+        # a kind on the span walk adds its design and performed GFLOP
+        head = next(r for r in k1_rows if r["op"] == f"fwd_r_{band}")
+        return dict(_summary(f"banded_rows_{band}", k1_src, k1_tpu, launches,
+                             k1(band), head, card), **more,
+                    **({"design": K1_SPAN_DESIGNS[band],
+                        "kernel_gflop": head["kernel_gflop"]}
+                       if band in K1_SPAN_DESIGNS else {}))
+
     entries = [
         dict(_summary("banded_rows", k1_src, k1_tpu,
                       mono["launches"]["k1_f32"], k1("float32"),
@@ -3682,20 +3697,12 @@ def main() -> int:
         _summary("banded_rows_bf16", k1_src, k1_tpu, bf16_launches["k1_bf16"],
                  k1("bfloat16"),
                  next(r for r in k1_rows if r["op"] == "fwd_r_bf16"), card),
-        _summary("banded_rows_x3", k1_src, k1_tpu,
-                 precision["f32 BF16_BF16_F32_X3"]["launches"]["k1_x3"],
-                 k1("x3"), next(r for r in k1_rows if r["op"] == "fwd_r_x3"),
-                 card)]
+        k1_entry("x3",
+                 precision["f32 BF16_BF16_F32_X3"]["launches"]["k1_x3"])]
     for name, key, _ in NEW_PRESETS:
-        band = key[len("k1_"):]
-        head = next(r for r in k1_rows if r["op"] == f"fwd_r_{band}")
-        entries.append(dict(
-            _summary(f"banded_rows_{band}", k1_src, k1_tpu,
-                     precision[f"f32 {name}"]["launches"][key], k1(band),
-                     head, card), mm_precision=name,
-            **({"design": K1_SPAN_DESIGNS[band],
-                "kernel_gflop": head["kernel_gflop"]}
-               if band in K1_SPAN_DESIGNS else {})))
+        entries.append(k1_entry(key[len("k1_"):],
+                                precision[f"f32 {name}"]["launches"][key],
+                                mm_precision=name))
     for kernel, line, key in (("fused_fwd", 237, "k2"),
                               ("fused_bwd", 264, "k3")):
         for dtype, launches in (("float32", f32_fused[f"{key}_f32"]),

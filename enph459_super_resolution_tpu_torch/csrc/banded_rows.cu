@@ -26,14 +26,15 @@
 //   X3: P = 2, S = 1 (hi*hi, hi*lo, lo*hi; the dropped lo*lo and x's bits
 //   past its two halves are ~2^-16 of |b|*|x|, the 3-pass split XLA runs
 //   for HIGH); X6: P = 3, S = 2 (the six products whose part indices sum
-//   to <= 2, ~2^-24); X9: P = 3, all nine.  X6 and X9 take those products
-//   on the span walk (below), X3 over the whole block window.
+//   to <= 2, ~2^-24); X9: P = 3, all nine.  All three take those products
+//   on the span walk (below).
 // * tf32 bands (TF32_TF32_F32, _X3): mma.sync m16n8k8 .tf32 summed in f32.
 //   The bands are stored as f32 already rounded to tf32 (nearest, ties away
 //   from zero); x is rounded in registers by cvt.rna.tf32.f32, the same
 //   rule.  _X3 splits both into two tf32 parts, hi = tf32(v) and lo =
-//   tf32(v - hi), and sums hi*hi + hi*lo + lo*hi.  Products of two tf32
-//   values (11-bit significands) are exact in f32.
+//   tf32(v - hi), and sums hi*hi + hi*lo + lo*hi, on the span walk (TF32's
+//   one pass over the whole block window).  Products of two tf32 values
+//   (11-bit significands) are exact in f32.
 // * f16 bands (F16_F16_F32, F16_F16_F16): mma.sync m16n8k16 .f16 summed in
 //   f32, x rounded to f16 (nearest even) in registers; F16_F16_F16 rounds
 //   the result to f16 in the epilogue (JAX's CPU backend: f16 operands, a
@@ -59,9 +60,10 @@
 // instantiation is bound by bytes (0.023 ms), f64 too: its 0.489 GFLOP at
 // the DMMA rate (67 TFLOP/s; plain f64 FMA reaches about half) take 0.0073
 // ms.  The split kinds do P(P+1)/2 .. P^2 tensor-core products of the same
-// work, still under the bytes: X9's nine at bf16's 989 TFLOP/s take 0.0045
-// ms over the nonzeros, but 0.035 ms over the block windows, which is why
-// X6 and X9 walk spans.
+// work, still under the bytes over the nonzeros (X9's nine at bf16's 989
+// TFLOP/s take 0.0045 ms), but not over the block windows: X9 0.035 ms,
+// TF32_X3's three at tf32's 494.7 TFLOP/s 0.022 ms.  That is why the
+// splits walk spans.
 //
 // Design.  What the TPU kernel spent its code on (HBM-pinned operands,
 // scalar-prefetched window starts, hand double-buffered DMA, 8-aligned
@@ -79,10 +81,10 @@
 //   1.45 waves of 264.  Grids of whole waves measured slower on the card:
 //   one block per SM (a 7-stage ring, 2.91 waves of 132) and 96-column
 //   tiles (1.95 waves of 264) cost more per block than the partial wave.
-// * The span walk (f64, X6, X9; banded_rows_span_kernel): a block walks
-//   its 128 rows as 8 row sub-tiles of 16, each only over the steps of the
-//   window rows that hold its nonzeros (RowPack.spans, from the host,
-//   rounded out to whole steps).  Lane s of every warp holds sub-tile s's
+// * The span walk (f64, X3, X6, X9, TF32_X3; banded_rows_span_kernel): a
+//   block walks its 128 rows as 8 row sub-tiles of 16, each only over the
+//   steps of the window rows that hold its nonzeros (RowPack.spans, from
+//   the host, rounded out to whole steps).  Lane s of every warp holds sub-tile s's
 //   span; the block visits only the chunks some sub-tile meets, a ballot
 //   per chunk says which sub-tiles it meets (only their band rows are
 //   copied, every part's) and one per step which sub-tiles take it.  At
@@ -92,7 +94,7 @@
 //   warp keeps one accumulator per sub-tile and n8 tile.  Skipped steps
 //   hold only zero band entries, and a live step sums as the whole-window
 //   tile would, so on finite x the result is that of the whole window, bit
-//   for bit.  Two step bodies:
+//   for bit.  Three step bodies:
 //   - f64: k8 steps (two a chunk), 64-column tiles (BN = 64); warp w owns
 //     columns 8w .. 8w+7, one m16n8 f64 accumulator per sub-tile (64
 //     registers).  1.86x the nonzeros' products at fwd_r (0.91 GFLOP)
@@ -103,25 +105,29 @@
 //     sub-tiles, though those form fewer products (1.43x the nonzeros at
 //     fwd_r).  Other variants were tried without keeping their times; none
 //     is settled either way (PERF.md).
-//   - the bf16 splits X6, X9: one m16n8k16 step a chunk, 128-column tiles;
-//     warp w owns columns 16w .. 16w+15 (two n8 tiles), 8 x 2 f32
+//   - the bf16 splits X3, X6, X9: one m16n8k16 step a chunk, 128-column
+//     tiles; warp w owns columns 16w .. 16w+15 (two n8 tiles), 8 x 2 f32
 //     accumulators.  x is split once a chunk and serves every sub-tile;
 //     per live sub-tile one ldmatrix.trans per part, then the pairs (p, q)
 //     in the whole-window tile's order.  2.08x the nonzeros' products at
 //     fwd_r instead of 7.8x.
-// * 16-bit bands (bf16, f16, X3) over the whole window: each of the 8
+//   - the tf32 split TF32_X3: m16n8k8 in k8 steps (two a chunk, F64's
+//     steps and fragment layout), the bf16 splits' 128-column tiles and
+//     accumulators.  x is split once a step and serves every sub-tile; per
+//     live sub-tile and part one A fragment (four f32 reads), then the
+//     pairs (p, q) in the whole-window tile's order (Tf32Frag).  1.86x the
+//     nonzeros' products at fwd_r instead of 7.5x.
+// * 16-bit bands (bf16, f16) over the whole window: each of the 8
 //   warps computes 64 rows x 32 columns with mma.sync m16n8k16.  A comes
 //   from the k-major band chunk by ldmatrix.trans (row stride 272 B: the 8
 //   rows of one matrix fall in distinct banks; the span walk reads it
 //   alike); B is read from the f32 x chunk (row stride 132 floats:
-//   conflict-free) and rounded or split into 16-bit pairs in registers.  A
-//   split stage holds P band chunks; per m16 tile the A fragments of each
-//   part in turn, each over the warp's four n8 tiles and the x parts it
-//   pairs with.
-// * tf32 bands: the same warp tiles with mma.sync m16n8k8, two k8 steps a
-//   chunk; A fragments are 32-bit elements read straight from the k-major
-//   f32 band chunk (row stride 136 floats), B from the x chunk (row stride
-//   136 floats), both conflict-free.
+//   conflict-free) and rounded into 16-bit pairs in registers.
+// * tf32 bands (TF32) over the whole window: the same warp tiles with
+//   mma.sync m16n8k8, two k8 steps a chunk; A fragments are 32-bit elements
+//   read straight from the k-major f32 band chunk (row stride 136 floats),
+//   B from the x chunk (row stride 136 floats), both conflict-free; the
+//   tf32 split step reads them alike.
 // The ragged edges are masked (columns >= W, window rows >= n_in, rows >=
 // rows_b), so every shape runs on the kernel.  Compile without
 // --use_fast_math.
@@ -557,7 +563,7 @@ struct Mma16Frag<Mma<E, P, S, R>, NT> {
   }
 };
 
-// 16-bit band kinds over the whole window (bf16, f16, X3): mma.sync
+// 16-bit band kinds over the whole window (bf16, f16): mma.sync
 // m16n8k16.
 template <typename Kind>
 struct Mma16Tile : MmaAcc<Kind::R> {
@@ -575,7 +581,53 @@ struct Mma16Tile : MmaAcc<Kind::R> {
   }
 };
 
-// tf32 band kinds: mma.sync m16n8k8, two k8 steps per chunk.
+// A k8 step of a tf32 kind Mma<Tf32, P, S, R> (the whole-window tile and
+// the span walk's tf32 step both take their products here, so both sum in
+// one order).  A lane's x for NT n8 tiles, the first at `col` (the x chunk
+// at the step's window row t and the lane's column g), split into P tf32
+// parts: b[nt][0] = window row t, b[nt][1] = row t + 4.
+template <typename Kind, int NT>
+struct Tf32Frag;
+template <int P, int S, int R, int NT>
+struct Tf32Frag<Mma<Tf32, P, S, R>, NT> {
+  using Kind = Mma<Tf32, P, S, R>;
+  static constexpr int AS = Stage<Kind>::AS;
+  static constexpr int XS = Stage<Kind>::XS;
+  uint32_t b[NT][2][P];
+
+  __device__ __forceinline__ explicit Tf32Frag(const float* col) {
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt, col += 8) {
+      split_tf32<P>(col[0], b[nt][0]);
+      split_tf32<P>(col[4 * XS], b[nt][1]);
+    }
+  }
+
+  // acc += the m16 tile whose A fragment starts `aoff` floats into each
+  // band part's chunk (the step's window row t, the tile's band row g): per
+  // band part p its A fragment, then the x parts q with p + q <= S, each
+  // over the NT n8 tiles
+  __device__ __forceinline__ void products(float (&acc)[NT][4],
+                                           const char* stage,
+                                           int aoff) const {
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      const uint32_t* ap = reinterpret_cast<const uint32_t*>(
+                               stage + p * part_bytes<Kind>()) + aoff;
+      const uint32_t a[4] = {ap[0], ap[8], ap[4 * AS], ap[4 * AS + 8]};
+#pragma unroll
+      for (int qq = 0; qq < P; ++qq) {
+        if (p + qq > S) continue;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+          mma_1688_tf32(acc[nt], a, b[nt][0][qq], b[nt][1][qq]);
+      }
+    }
+  }
+};
+
+// tf32 band kinds over the whole window (TF32): mma.sync m16n8k8, two k8
+// steps per chunk.
 template <int P, int S, int R>
 struct Tf32Tile : MmaAcc<R> {
   using Kind = Mma<Tf32, P, S, R>;
@@ -592,29 +644,11 @@ struct Tf32Tile : MmaAcc<R> {
     const int t = lane & 3;
 #pragma unroll
     for (int k0 = 0; k0 < BK; k0 += 8) {
-      uint32_t b[4][2][P];
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const float* col = xs + wn * 32 + nt * 8 + g;
-        split_tf32<P>(col[(k0 + t) * XS], b[nt][0]);
-        split_tf32<P>(col[(k0 + t + 4) * XS], b[nt][1]);
-      }
+      const Tf32Frag<Kind, 4> x(xs + (k0 + t) * XS + wn * 32 + g);
 #pragma unroll
       for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-        for (int p = 0; p < P; ++p) {
-          const uint32_t* ap = reinterpret_cast<const uint32_t*>(
-                                   stage + p * part_bytes<Kind>()) +
-                               (k0 + t) * AS + wm * 64 + mt * 16 + g;
-          const uint32_t a[4] = {ap[0], ap[8], ap[4 * AS], ap[4 * AS + 8]};
-#pragma unroll
-          for (int qq = 0; qq < P; ++qq) {
-            if (p + qq > S) continue;
-#pragma unroll
-            for (int nt = 0; nt < 4; ++nt)
-              mma_1688_tf32(this->acc[mt][nt], a, b[nt][0][qq], b[nt][1][qq]);
-          }
-        }
+        x.products(this->acc[mt], stage,
+                   (k0 + t) * AS + wm * 64 + mt * 16 + g);
     }
   }
 };
@@ -727,8 +761,8 @@ __device__ __forceinline__ void load_span_chunk(
 // The span walk's step bodies.  Each holds a warp's accumulators, one per
 // row sub-tile (and n8 tile), and takes a chunk's steps: `on[j]` bit s says
 // sub-tile s takes step j (window rows KS*j .. KS*j + KS - 1 of the chunk),
-// `any` is their union.  A third body (tf32 splits, k8 like F64's fragment
-// layout) would slot in beside them.
+// `any` is their union.  Three bodies: F64's k8 DMMA step, the bf16
+// splits' k16 step and the tf32 split's k8 step (F64's fragment layout).
 
 // f64 bands on DMMA: warp w computes columns 8w .. 8w+7 of the 128 x 64
 // tile as 8 m16n8 accumulators, one per row sub-tile, in k8 steps.
@@ -792,14 +826,11 @@ struct F64Step {
   }
 };
 
-// 16-bit split bands on mma.sync m16n8k16, one step a chunk: warp w
-// computes columns 16w .. 16w+15 of the 128 x 128 tile as 8 x 2 m16n8
-// accumulators, each sub-tile's products those of Mma16Tile (Mma16Frag).
-template <typename K>
-struct Mma16Step {
-  using Kind = K;
-  static constexpr int KS = BK;
-  static constexpr int STEPS = 1;
+// The 128-column step bodies' accumulators: warp w computes columns 16w ..
+// 16w+15 of the 128 x 128 tile as 8 x 2 m16n8 f32 accumulators, one per
+// row sub-tile and n8 tile, stored after rounding by R.
+template <int R>
+struct SubTileAcc {
   float acc[NSUB][2][4];
 
   __device__ __forceinline__ void zero() {
@@ -809,18 +840,6 @@ struct Mma16Step {
       for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
         for (int q = 0; q < 4; ++q) acc[s][nt][q] = 0.f;
-  }
-
-  __device__ __forceinline__ void chunk(const char* stage,
-                                        const unsigned (&on)[STEPS],
-                                        unsigned, int lane, int warp) {
-    const float* xs = reinterpret_cast<const float*>(stage + a_bytes<Kind>());
-    // x is split once and serves every sub-tile
-    const Mma16Frag<Kind, 2> x(xs + warp * 16 + (lane >> 2), lane & 3);
-    const int aoff = x.a_offset(lane);
-#pragma unroll
-    for (int s = 0; s < NSUB; ++s)
-      if ((on[0] >> s) & 1) x.products(acc[s], stage, aoff + s * SUB);
   }
 
   template <bool kVec>
@@ -838,9 +857,59 @@ struct Mma16Step {
 #pragma unroll
         for (int nt = 0; nt < 2; ++nt)
           store_pair<kVec>(orow, c + nt * 8, W,
-                           round_out<Kind::R>(acc[s][nt][2 * h]),
-                           round_out<Kind::R>(acc[s][nt][2 * h + 1]));
+                           round_out<R>(acc[s][nt][2 * h]),
+                           round_out<R>(acc[s][nt][2 * h + 1]));
       }
+  }
+};
+
+// 16-bit split bands on mma.sync m16n8k16, one step a chunk, each
+// sub-tile's products those of Mma16Tile (Mma16Frag).
+template <typename K>
+struct Mma16Step : SubTileAcc<K::R> {
+  using Kind = K;
+  static constexpr int KS = BK;
+  static constexpr int STEPS = 1;
+
+  __device__ __forceinline__ void chunk(const char* stage,
+                                        const unsigned (&on)[STEPS],
+                                        unsigned, int lane, int warp) {
+    const float* xs = reinterpret_cast<const float*>(stage + a_bytes<Kind>());
+    // x is split once and serves every sub-tile
+    const Mma16Frag<Kind, 2> x(xs + warp * 16 + (lane >> 2), lane & 3);
+    const int aoff = x.a_offset(lane);
+#pragma unroll
+    for (int s = 0; s < NSUB; ++s)
+      if ((on[0] >> s) & 1) x.products(this->acc[s], stage, aoff + s * SUB);
+  }
+};
+
+// tf32 split bands on mma.sync m16n8k8, in k8 steps (two a chunk), each
+// sub-tile's products those of Tf32Tile (Tf32Frag).
+template <int P, int S, int R>
+struct Tf32Step : SubTileAcc<R> {
+  using Kind = Mma<Tf32, P, S, R>;
+  static constexpr int KS = 8;
+  static constexpr int STEPS = BK / KS;
+  static constexpr int AS = Stage<Kind>::AS;
+  static constexpr int XS = Stage<Kind>::XS;
+
+  __device__ __forceinline__ void chunk(const char* stage,
+                                        const unsigned (&on)[STEPS],
+                                        unsigned, int lane, int warp) {
+    const float* xs = reinterpret_cast<const float*>(stage + a_bytes<Kind>());
+    const int g = lane >> 2;
+    const int t = lane & 3;
+#pragma unroll
+    for (int j = 0; j < STEPS; ++j) {
+      if (!on[j]) continue;
+      // x is split once a step and serves every sub-tile that takes it
+      const Tf32Frag<Kind, 2> x(xs + (KS * j + t) * XS + warp * 16 + g);
+#pragma unroll
+      for (int s = 0; s < NSUB; ++s)
+        if ((on[j] >> s) & 1)
+          x.products(this->acc[s], stage, (KS * j + t) * AS + s * SUB + g);
+    }
   }
 };
 
@@ -854,12 +923,20 @@ struct SpanStep<F64> {
   using type = F64Step;
 };
 template <>
+struct SpanStep<SplitX3> {
+  using type = Mma16Step<SplitX3>;
+};
+template <>
 struct SpanStep<SplitX6> {
   using type = Mma16Step<SplitX6>;
 };
 template <>
 struct SpanStep<SplitX9> {
   using type = Mma16Step<SplitX9>;
+};
+template <>
+struct SpanStep<Tf32x3> {
+  using type = Tf32Step<2, 1, kRoundF32>;
 };
 template <typename Kind>
 constexpr bool kSpans = !std::is_void_v<typename SpanStep<Kind>::type>;
@@ -1023,7 +1100,8 @@ int launch(const typename Stage<Kind>::Elem* const* parts, const int* starts,
 // split bands in order, hi first: two bfloat16 arrays (_x3_launch), three
 // (_x6_launch, _x9_launch) or two tf32-rounded float32 arrays
 // (_tf32x3_launch).  The span kinds' entry points (_f64_launch,
-// _x6_launch, _x9_launch) take the sub-tiles' spans after the bands:
+// _x3_launch, _x6_launch, _x9_launch, _tf32x3_launch) take the sub-tiles'
+// spans after the bands:
 // n_blk x 8 int32 pairs (RowPack.spans, 8-byte aligned, not null).  Each
 // returns cudaGetLastError() after the launch (0 on success).
 #define BANDED_ROWS_ARGS                                                   \
@@ -1051,9 +1129,10 @@ extern "C" int banded_rows_bf16out_launch(
 }
 
 extern "C" int banded_rows_x3_launch(
-    const __nv_bfloat16* hi, const __nv_bfloat16* lo, BANDED_ROWS_ARGS) {
+    const __nv_bfloat16* hi, const __nv_bfloat16* lo, const int* spans,
+    BANDED_ROWS_ARGS) {
   const __nv_bfloat16* parts[] = {hi, lo};
-  return launch<SplitX3>(parts, BANDED_ROWS_PASS);
+  return launch<SplitX3>(parts, BANDED_ROWS_PASS, spans);
 }
 
 extern "C" int banded_rows_x6_launch(
@@ -1076,9 +1155,9 @@ extern "C" int banded_rows_tf32_launch(const float* bands, BANDED_ROWS_ARGS) {
 }
 
 extern "C" int banded_rows_tf32x3_launch(
-    const float* hi, const float* lo, BANDED_ROWS_ARGS) {
+    const float* hi, const float* lo, const int* spans, BANDED_ROWS_ARGS) {
   const float* parts[] = {hi, lo};
-  return launch<Tf32x3>(parts, BANDED_ROWS_PASS);
+  return launch<Tf32x3>(parts, BANDED_ROWS_PASS, spans);
 }
 
 extern "C" int banded_rows_f16_launch(const __half* bands, BANDED_ROWS_ARGS) {

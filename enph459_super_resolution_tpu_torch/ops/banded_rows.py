@@ -38,11 +38,12 @@ row applies; ``ops.opmatrix.MM_PRECISIONS`` names them):
 * :data:`F64` -- float32 bands and x widened to float64, the sum in
   float64, the result rounded to float32 (F64_F64_F64).
 
-The kernels of F64, X6 and X9 (the kinds whose :attr:`Kind.span_k` is not
-0) walk each block in row sub-tiles of :data:`SUB_ROWS` rows, each over
-only the window rows that hold its nonzero entries (:attr:`RowPack.spans`),
-rounded out to whole steps of ``span_k`` rows: F64's k8 DMMA steps, one
-k16 ``mma.sync`` step a chunk for the splits.
+The kernels of F64 and the splits X3, X6, X9 and TF32X3 (the kinds whose
+:attr:`Kind.span_k` is not 0) walk each block in row sub-tiles of
+:data:`SUB_ROWS` rows, each over only the window rows that hold its nonzero
+entries (:attr:`RowPack.spans`), rounded out to whole steps of ``span_k``
+rows: k8 steps for F64 (DMMA) and TF32X3 (tf32 ``mma.sync`` m16n8k8), one
+k16 ``mma.sync`` step a chunk for the bf16 splits.
 
 Products of two bf16, f16 or tf32 values are exact in float32, so the plain
 version (float32 matmuls of the rounded parts) and the kernel differ only
@@ -120,7 +121,7 @@ KINDS = {
     BF16OUT: Kind("banded_rows_bf16out_launch", "launches_bf16out",
                   torch.bfloat16, 1, 0, _BF16, torch.bfloat16),
     X3: Kind("banded_rows_x3_launch", "launches_x3", torch.bfloat16, 2, 1,
-             _BF16),
+             _BF16, span_k=16),
     X6: Kind("banded_rows_x6_launch", "launches_x6", torch.bfloat16, 3, 2,
              _BF16, span_k=16),
     X9: Kind("banded_rows_x9_launch", "launches_x9", torch.bfloat16, 3, 4,
@@ -128,7 +129,7 @@ KINDS = {
     TF32: Kind("banded_rows_tf32_launch", "launches_tf32", torch.float32, 1,
                0, round_tf32),
     TF32X3: Kind("banded_rows_tf32x3_launch", "launches_tf32x3",
-                 torch.float32, 2, 1, round_tf32),
+                 torch.float32, 2, 1, round_tf32, span_k=8),
     F16: Kind("banded_rows_f16_launch", "launches_f16", torch.float16, 1, 0,
               _F16),
     F16OUT: Kind("banded_rows_f16out_launch", "launches_f16out",
@@ -183,10 +184,11 @@ class RowPack(NamedTuple):
     n_in: int
     kind: object = torch.float32       # the band kind (a key of KINDS)
     more: Tuple[torch.Tensor, ...] = ()  # split kinds: parts 1, 2, ...
-    # the span kinds (F64, X6, X9): i32 [n_blk, ROWS // SUB_ROWS, 2], per
-    # block and sub-tile the window rows lo <= k < hi holding every nonzero
-    # of its rows, (0, 0) if none (:func:`sub_tile_spans` of the float32
-    # bands, so of every split part; the kernel's loop bounds); else None
+    # the span kinds (F64, X3, X6, X9, TF32X3): i32 [n_blk, ROWS // SUB_ROWS,
+    # 2], per block and sub-tile the window rows lo <= k < hi holding every
+    # nonzero of its rows, (0, 0) if none (:func:`sub_tile_spans` of the
+    # float32 bands, so of every split part; the kernel's loop bounds);
+    # else None
     spans: Optional[torch.Tensor] = None
 
     @property

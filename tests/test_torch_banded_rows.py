@@ -1,12 +1,12 @@
 """The row pack's sub-tile spans (``RowPack.spans``) on the CPU.
 
-The F64, X6 and X9 instantiations of the banded-row kernel walk each
-128-row block in sub-tiles of ``SUB_ROWS`` rows, each over only the window
-rows its span names (rounded out to whole steps of the kind's ``span_k``
-rows: 8 for F64, 16 for the bf16 splits), and copy only the band rows of
-the sub-tiles a chunk meets.  These tests hold the spans to the operators
-the solve builds at a small size (mono and rep-tiled, rank-1 and rank-2
-PSFs): every nonzero of every band part lies inside its sub-tile's span,
+The F64, X3, X6, X9 and TF32X3 instantiations of the banded-row kernel
+walk each 128-row block in sub-tiles of ``SUB_ROWS`` rows, each over only
+the window rows its span names (rounded out to whole steps of the kind's
+``span_k`` rows: 8 for F64 and TF32X3, 16 for the bf16 splits), and copy
+only the band rows of the sub-tiles a chunk meets.  These tests hold the
+spans to the operators the solve builds at a small size (mono and
+rep-tiled, rank-1 and rank-2 PSFs): every nonzero of every band part lies inside its sub-tile's span,
 the split packs carry the F64 pack's spans, the span rounded out to whole
 steps stays inside the window, and the plain sum over the spans alone
 equals the full plain sum bit for bit; the other kinds carry no spans.
@@ -21,8 +21,8 @@ import torch
 from enph459_super_resolution_tpu_torch.data.sessions import (
     CENTER_SHIFT_FILES)
 from enph459_super_resolution_tpu_torch.ops.banded_rows import (
-    F64, KINDS, ROWS, SUB_ROWS, X6, X9, banded_row_apply_reference,
-    pack_banded, sub_tile_spans)
+    F64, KINDS, ROWS, SUB_ROWS, TF32X3, X3, X6, X9,
+    banded_row_apply_reference, pack_banded, sub_tile_spans)
 from enph459_super_resolution_tpu_torch.sr.classical import (
     _host_solve_matrices, make_gaussian_psf)
 
@@ -85,7 +85,7 @@ def _x(op, width=9, seed=0):
                            dtype=torch.float32)
 
 
-SPAN_KINDS = (F64, X6, X9)
+SPAN_KINDS = (F64, X3, X6, X9, TF32X3)
 KIND_IDS = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
@@ -153,8 +153,8 @@ def _masked(pack, spans, step=1):
     return pack._replace(bands=parts[0], more=tuple(parts[1:]))
 
 
-@pytest.mark.parametrize("kind", [F64, torch.float32, X6, X9],
-                         ids=["f64", "f32", "x6", "x9"])
+@pytest.mark.parametrize("kind", [F64, torch.float32, X6, X9, X3, TF32X3],
+                         ids=["f64", "f32", "x6", "x9", "x3", "tf32x3"])
 @pytest.mark.parametrize("name", sorted(OPS))
 def test_plain_sum_over_the_spans_is_the_full_sum(name, kind):
     """Zeroed outside the spans themselves, and outside the spans rounded

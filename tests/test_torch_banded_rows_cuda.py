@@ -10,15 +10,17 @@ its split, f16 with and without an f16 result, bf16 with a bf16 result and
 f64), windows of one chunk and of chunk counts no 32-row step divides, odd
 widths and unaligned inputs; each kind bit for bit on an exactness probe;
 and each kind against a float64 product within its class.  The span
-walk's row sub-tiles (F64, X6, X9): packs with empty, short and staggered
-sub-tiles, band entries outside the spans (rounded out to the kind's step)
-poisoned with NaN (the kernel must not read them), the kernel equal bit for
-bit to itself with every span widened to the whole window, a pack without
-spans refused, and the SASS: F64 on the f64 tensor cores (DMMA, no DFMA),
-X6 and X9 on HMMA in the span kernel and in no whole-window kernel.
+walk's row sub-tiles (F64, X3, X6, X9, TF32X3): packs with empty, short
+and staggered sub-tiles, band entries outside the spans (rounded out to the
+kind's step) poisoned with NaN (the kernel must not read them), the kernel
+equal bit for bit to itself with every span widened to the whole window, a
+pack without spans refused, and the SASS: F64 on the f64 tensor cores
+(DMMA, no DFMA), X3, X6 and X9 on HMMA and TF32X3 on tf32 HMMA in the span
+kernel and in no whole-window kernel.
 """
 
 import ctypes
+import re
 import subprocess
 from pathlib import Path
 
@@ -317,8 +319,9 @@ def _hand_pack(case, device, seed=6, kind=F64):
 
 
 F64_CASES = ("staggered", "one_chunk", "wide")
-SPLIT_KINDS = (X6, X9)
-SPAN_KINDS = (F64,) + SPLIT_KINDS
+# the span kinds but F64: the splits on the 128-column tiles
+SPAN_SPLIT_KINDS = (X3, X6, X9, TF32X3)
+SPAN_KINDS = (F64,) + SPAN_SPLIT_KINDS
 
 
 def _sub_tiles_at_ragged_pack(cuda, kind, case, width):
@@ -355,10 +358,11 @@ def test_f64_sub_tiles_at_ragged_packs(cuda, case, width):
 
 @pytest.mark.parametrize("width", [1, 131, 256])
 @pytest.mark.parametrize("case", F64_CASES)
-@pytest.mark.parametrize("kind", SPLIT_KINDS)
+@pytest.mark.parametrize("kind", SPAN_SPLIT_KINDS)
 def test_split_sub_tiles_at_ragged_packs(cuda, kind, case, width):
-    """As the F64 test, for X6 and X9 (one k16 step a chunk, 128-column
-    tiles): within 2^-17 of sum|b||x| of the plain sum."""
+    """As the F64 test, for the splits on the walk (128-column tiles; X3,
+    X6 and X9 one k16 step a chunk, TF32X3 two k8 steps): within 2^-17 of
+    sum|b||x| of the plain sum."""
     _sub_tiles_at_ragged_pack(cuda, kind, case, width)
 
 
@@ -413,10 +417,11 @@ def test_f64_reads_no_band_entry_outside_the_spans(cuda, name, reps):
 
 
 @pytest.mark.parametrize("name,reps", SPAN_PACKS)
-@pytest.mark.parametrize("kind", SPLIT_KINDS)
+@pytest.mark.parametrize("kind", SPAN_SPLIT_KINDS)
 def test_split_reads_no_band_entry_outside_the_spans(cuda, kind, name, reps):
-    """As the F64 test, for X6 and X9: NaN in every part outside the spans
-    rounded out to whole k16 steps."""
+    """As the F64 test, for the splits on the walk: NaN in every part
+    outside the spans rounded out to whole steps (k16 for the bf16 splits,
+    k8 for TF32X3)."""
     _reads_no_band_entry_outside_the_spans(cuda, kind, name, reps)
 
 
@@ -471,9 +476,9 @@ def test_span_kinds_refuse_a_pack_without_spans(cuda, kind):
 def test_f64_kernel_runs_on_the_f64_tensor_cores(cuda):
     """The span kernel's F64 instantiation (both copy paths) issues DMMA and
     no DFMA: the products cannot fall back to the f64 CUDA cores unnoticed.
-    Its X6 and X9 instantiations issue HMMA, and no whole-window kernel is
-    built for a kind of three bf16 parts: X6 and X9 launches run the span
-    walk."""
+    Its X3, X6 and X9 instantiations issue HMMA, its TF32X3 ones tf32 HMMA
+    and no FFMA; and no whole-window kernel is built for a kind of two or
+    three band parts: the split launches run the span walk."""
     build("banded_rows")
     tool = Path(nvcc_path()).with_name("cuobjdump")
     sass = subprocess.run([str(tool), "-sass",
@@ -489,12 +494,23 @@ def test_f64_kernel_runs_on_the_f64_tensor_cores(cuda):
     for name, body in f64.items():
         assert "DMMA" in body, name
         assert "DFMA" not in body, name
-    # Mma<__nv_bfloat16, 3, 2 (X6) or 4 (X9), 0> in the mangled names
+    # Mma<__nv_bfloat16, 2 (X3) or 3 parts, reach 1 (X3), 2 (X6) or 4 (X9),
+    # 0> in the mangled names
     split = {n: b for n, b in span.items() if "Mma16Step" in n}
-    assert len(split) == 4 and len(span) == 6, sorted(span)
-    for reach in ("Li3ELi2E", "Li3ELi4E"):
+    assert len(split) == 6, sorted(span)
+    for reach in ("Li2ELi1E", "Li3ELi2E", "Li3ELi4E"):
         assert sum(reach in n for n in split) == 2, sorted(split)
     for name, body in split.items():
         assert "HMMA" in body, name
+    # Tf32Step<2, 1, 0> (TF32X3)
+    tf32 = {n: b for n, b in span.items() if "Tf32Step" in n}
+    assert len(tf32) == 2 and len(span) == 10, sorted(span)
+    for name, body in tf32.items():
+        assert "Tf32StepILi2ELi1ELi0EE" in name, name
+        assert re.search(r"HMMA\.\S*TF32", body), name
+        assert "FFMA" not in body, name
     whole = [n for n in bodies if "banded_rows_kernel" in n]
-    assert whole and not any("Li3E" in n for n in whole), sorted(whole)
+    # the band parts P of each whole-window Mma<E, P, S, R>
+    parts = [p for n in whole
+             for p in re.findall(r"(?:bfloat16|half|Tf32E)Li(\d)E", n)]
+    assert whole and parts and set(parts) == {"1"}, sorted(whole)
