@@ -21,6 +21,8 @@ import threading
 from pathlib import Path
 from typing import Dict
 
+from .utils.trace import span
+
 PKG_DIR = Path(__file__).resolve().parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build_out"
@@ -110,12 +112,17 @@ def build_all(names=None) -> Dict[str, str]:
 
 def load_function(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
     """The C entry point ``symbol`` of kernel ``name``, building the kernel
-    on first use; it returns an ``int`` (a ``cudaError_t``)."""
+    on first use; it returns an ``int`` (a ``cudaError_t``).  The first
+    load of each entry point is a ``kernels.load`` span noting the kernel,
+    the symbol and whether ``nvcc`` ran for it."""
     with _LOCK:
         fn = _FUNCS.get(symbol)
         if fn is None:
-            build(name)
-            fn = getattr(ctypes.CDLL(str(library_path(name))), symbol)
+            with span("kernels.load") as s:
+                compiled = not library_path(name).exists()
+                build(name)
+                fn = getattr(ctypes.CDLL(str(library_path(name))), symbol)
+                s.note(kernel=name, symbol=symbol, compiled=compiled)
             fn.argtypes = list(argtypes)
             fn.restype = ctypes.c_int
             _FUNCS[symbol] = fn

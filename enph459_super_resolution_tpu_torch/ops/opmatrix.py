@@ -68,6 +68,7 @@ from .banded_rows import (BF16OUT, F16, F16OUT, F64, KINDS, TF32, TF32X3,
                           banded_row_apply_reference, pack_banded,
                           round_result)
 from .resample import bspline_prefilter_kernel, cubic_bspline_weights
+from ..utils.trace import span
 
 # Rows per block of the decomposition, as in the reference: a 128-row
 # block's nonzero column window spans ~2*128+43 columns for the stride-2
@@ -536,11 +537,13 @@ class BandedOp:
         reference's bf16 einsum, and the tf32 and f16 presets); the products
         are exact and summed in float32, and the result is rounded as the
         kind's is (BF16_BF16_BF16, F16_F16_F16).  Split kinds take the
-        float32 matmul, F64 a float64 one (see the module docstring)."""
-        idx, bands_t, n_out = self.col_pack
-        wide = KINDS[self.band_dtype].wide
-        x = _col_operand(self.band_dtype, x)
-        xg = x[..., idx].transpose(-3, -2)                # [..., nb, H, win]
-        y = torch.matmul(xg.to(wide), bands_t.to(wide))   # [..., nb, H, B]
-        y = y.transpose(-3, -2).reshape(*x.shape[:-1], -1)
-        return round_result(self.band_dtype, y[..., :n_out].float())
+        float32 matmul, F64 a float64 one (see the module docstring).
+        A ``col_apply`` span (``utils.trace.span``)."""
+        with span("col_apply"):
+            idx, bands_t, n_out = self.col_pack
+            wide = KINDS[self.band_dtype].wide
+            x = _col_operand(self.band_dtype, x)
+            xg = x[..., idx].transpose(-3, -2)              # [..., nb, H, win]
+            y = torch.matmul(xg.to(wide), bands_t.to(wide))  # [..., nb, H, B]
+            y = y.transpose(-3, -2).reshape(*x.shape[:-1], -1)
+            return round_result(self.band_dtype, y[..., :n_out].float())

@@ -21,6 +21,19 @@ IBP iteration as two kernels instead.  There is no ``jit`` here: the IBP
 loop is a Python loop whose MSE history stays on the device, and a solve
 ends in one device-to-host copy.
 
+A solve marks its phases as spans (``utils.trace.span``; recorded only
+while spans are on): ``solve`` around the call (``solve_batch`` too), and
+inside it ``solve.prepare`` (the checks and the frames' upload),
+``solve.operators`` (the operator tree; on a miss of its in-process cache
+``operators.host``, the disk cache or the host build, and
+``operators.device``, the upload, packs and fused pack), ``solve.prologue``
+(LR mean, zoom, Shift-and-Add), ``solve.ibp`` (the iteration loop) and
+``solve.to_host`` (the copy back); each column apply is a ``col_apply``
+span.  Two counters are always on: ``_prepare.h2d_bytes``, the bytes the
+frames' upload copies to the device (none when they are there already),
+with ``_prepare.calls``, and ``_to_host.d2h_bytes``, the bytes copied back
+to the host.
+
 Band stores (``band_store``; the reference's ``SRTPU_BAND_STORE``):
 
 * ``"f32"`` -- strict float32, the contract default (+-1 uint8 of the
@@ -93,6 +106,7 @@ from ..ops.opmatrix import (
     zoom_op_banded,
 )
 from ..ops.resample import spline_shift, spline_zoom
+from ..utils.trace import span
 
 # Constants shared by all four reference workloads
 # (``mono_barcodes/run_sr.py:60-67``).
@@ -449,8 +463,9 @@ def _device_matrices(psf_bytes, psf_shape, shifts_yx, factor, lr_shape, reps,
     ``solver`` picks the frames' back-projection operators.  The host disk
     cache stays float32."""
     psf = np.frombuffer(psf_bytes, dtype=np.float64).reshape(psf_shape)
-    host = _cached_host_matrices(psf, shifts_yx, factor, lr_shape, reps,
-                                 solver)
+    with span("operators.host"):
+        host = _cached_host_matrices(psf, shifts_yx, factor, lr_shape, reps,
+                                     solver)
     kind, _ = parse_band_store(band_store)
     if kind == "bf16":
         host = _cast_bf16(host)
@@ -459,13 +474,14 @@ def _device_matrices(psf_bytes, psf_shape, shifts_yx, factor, lr_shape, reps,
     if precision != torch.float32:
         host = _map_ops(lambda op: op.astype_band(precision)
                         if op.band_dtype == torch.float32 else op, host)
-    mats = _to_device(host, device)
-    if fused_on:
-        pack = FusedIBP.build(host["frames"], device)
-        if kind == "f32":
-            mats["fused"] = pack
-        else:
-            mats["fused_lo"] = pack.astype_bands(torch.bfloat16)
+    with span("operators.device"):
+        mats = _to_device(host, device)
+        if fused_on:
+            pack = FusedIBP.build(host["frames"], device)
+            if kind == "f32":
+                mats["fused"] = pack
+            else:
+                mats["fused_lo"] = pack.astype_bands(torch.bfloat16)
     return mats
 
 
@@ -542,11 +558,12 @@ def _solve_body(lr_stack: torch.Tensor, mats, n_iter: int, step: float,
     def rows(op, x):
         return op.row_apply(x, plain=plain)
 
-    lr_mean = torch.mean(lr_stack, dim=0)
-    native = mats["zoom_c"].col_apply(rows(mats["zoom_r"], lr_mean))
-    up = mats["zoom_c"].col_apply(rows(mats["zoom_r"], lr_stack))
-    saa = sum(c.col_apply(rows(r, up[i]))
-              for i, (r, c) in enumerate(mats["saa"])) / n
+    with span("solve.prologue"):
+        lr_mean = torch.mean(lr_stack, dim=0)
+        native = mats["zoom_c"].col_apply(rows(mats["zoom_r"], lr_mean))
+        up = mats["zoom_c"].col_apply(rows(mats["zoom_r"], lr_stack))
+        saa = sum(c.col_apply(rows(r, up[i]))
+                  for i, (r, c) in enumerate(mats["saa"])) / n
 
     errs = torch.zeros((n_iter,) + ((reps,) if reps > 1 else ()),
                        dtype=saa.dtype, device=saa.device)
@@ -578,14 +595,15 @@ def _solve_body(lr_stack: torch.Tensor, mats, n_iter: int, step: float,
     hi_spec = (("fused", mats["fused"]) if "fused" in mats
                else ("banded", mats["frames"]))
     kind, tail = parse_band_store(band_store)
-    if lo_spec is not None and kind == "hybrid":
-        n_lo = n_iter - min(tail, n_iter)
-        hr = iterate(*lo_spec, saa, range(n_lo))
-        hr = iterate(*hi_spec, hr, range(n_lo, n_iter))
-    elif lo_spec is not None:  # 'bf16' on the fused engine: all low
-        hr = iterate(*lo_spec, saa, range(n_iter))
-    else:
-        hr = iterate(*hi_spec, saa, range(n_iter))
+    with span("solve.ibp"):
+        if lo_spec is not None and kind == "hybrid":
+            n_lo = n_iter - min(tail, n_iter)
+            hr = iterate(*lo_spec, saa, range(n_lo))
+            hr = iterate(*hi_spec, hr, range(n_lo, n_iter))
+        elif lo_spec is not None:  # 'bf16' on the fused engine: all low
+            hr = iterate(*lo_spec, saa, range(n_iter))
+        else:
+            hr = iterate(*hi_spec, saa, range(n_iter))
     return {"lr_mean": lr_mean, "native": native, "saa": saa, "ibp": hr,
             "mse_history": errs}
 
@@ -603,9 +621,13 @@ def _solve_conv(lr_stack: torch.Tensor, psf, shifts_yx, factor: int,
 
 
 def _to_host(result: Dict) -> Dict[str, np.ndarray]:
-    """All results to the host in ONE device-to-host copy."""
+    """All results to the host in ONE device-to-host copy (its bytes
+    counted in ``_to_host.d2h_bytes``)."""
     keys = list(result)
-    flat = torch.cat([result[k].reshape(-1) for k in keys]).cpu().numpy()
+    flat = torch.cat([result[k].reshape(-1) for k in keys])
+    if flat.device.type != "cpu":
+        _to_host.d2h_bytes += flat.numel() * flat.element_size()
+    flat = flat.cpu().numpy()
     out, pos = {}, 0
     for k in keys:
         size = result[k].numel()
@@ -614,7 +636,14 @@ def _to_host(result: Dict) -> Dict[str, np.ndarray]:
     return out
 
 
+_to_host.d2h_bytes = 0
+
+
 def _prepare(lr, psf, shifts_yx, device):
+    """The solve's device, and its inputs as it takes them: the frames as
+    float32 on the device (the upload's bytes counted in
+    ``_prepare.h2d_bytes``, and the call in ``_prepare.calls``)."""
+    _prepare.calls += 1
     device = resolve_device(device) if isinstance(device, str) else device
     if device.type == "cuda":
         # Strict f32: no TF32 in any matmul or convolution of the solve.
@@ -622,8 +651,15 @@ def _prepare(lr, psf, shifts_yx, device):
         torch.backends.cudnn.allow_tf32 = False
     psf = np.asarray(psf, dtype=np.float64)
     shifts_key = tuple((float(dy), float(dx)) for dy, dx in shifts_yx)
-    lr = torch.as_tensor(lr, dtype=torch.float32).to(device)
-    return lr, psf, shifts_key, device
+    lr = torch.as_tensor(lr, dtype=torch.float32)
+    on_device = lr.to(device)
+    if on_device is not lr:
+        _prepare.h2d_bytes += lr.numel() * lr.element_size()
+    return on_device, psf, shifts_key, device
+
+
+_prepare.calls = 0
+_prepare.h2d_bytes = 0
 
 
 def solve(lr_stack, psf, shifts_yx, factor: int = UPSAMPLE_FACTOR,
@@ -655,17 +691,24 @@ def solve(lr_stack, psf, shifts_yx, factor: int = UPSAMPLE_FACTOR,
     Returns a dict of numpy arrays ``lr_mean, native, saa, ibp,
     mse_history``.
     """
-    check_config(engine, solver, band_store, fused, mm_precision)
-    lr, psf, shifts_key, device = _prepare(lr_stack, psf, shifts_yx, device)
-    if engine == "conv":
-        return _to_host(_solve_conv(lr, psf, shifts_key, int(factor),
-                                    int(n_iter), float(step),
-                                    float(clip_max)))
-    lr_shape = tuple(int(v) for v in lr.shape[-2:])
-    mats = _solve_matrices(psf, shifts_key, int(factor), lr_shape, 1, device,
-                           band_store, fused, mm_precision, solver)
-    return _to_host(_solve_body(lr, mats, int(n_iter), float(step),
-                                float(clip_max), 1, band_store, plain))
+    with span("solve"):
+        with span("solve.prepare"):
+            check_config(engine, solver, band_store, fused, mm_precision)
+            lr, psf, shifts_key, device = _prepare(lr_stack, psf, shifts_yx,
+                                                   device)
+        if engine == "conv":
+            return _to_host(_solve_conv(lr, psf, shifts_key, int(factor),
+                                        int(n_iter), float(step),
+                                        float(clip_max)))
+        lr_shape = tuple(int(v) for v in lr.shape[-2:])
+        with span("solve.operators"):
+            mats = _solve_matrices(psf, shifts_key, int(factor), lr_shape, 1,
+                                   device, band_store, fused, mm_precision,
+                                   solver)
+        out = _solve_body(lr, mats, int(n_iter), float(step),
+                          float(clip_max), 1, band_store, plain)
+        with span("solve.to_host"):
+            return _to_host(out)
 
 
 def solve_batch(lr_stacks, psf, shifts_yx, factor: int = UPSAMPLE_FACTOR,
@@ -686,29 +729,35 @@ def solve_batch(lr_stacks, psf, shifts_yx, factor: int = UPSAMPLE_FACTOR,
     the units one after another (its ``nearest`` boundary taps would leak
     across concatenated reps).  The other arguments are :func:`solve`'s.
     """
-    check_config(engine, solver, band_store, fused, mm_precision)
-    lr, psf, shifts_key, device = _prepare(lr_stacks, psf, shifts_yx, device)
-    r, n, h, w = (int(v) for v in lr.shape)
-    fh = factor * h
-    if engine == "conv":
-        units = [_solve_conv(lr[i], psf, shifts_key, int(factor),
-                             int(n_iter), float(step), float(clip_max))
-                 for i in range(r)]
-        return _to_host({k: torch.stack([u[k] for u in units])
-                         for k in units[0]})
-    mats = _solve_matrices(psf, shifts_key, int(factor), (h, w), r, device,
-                           band_store, fused, mm_precision, solver)
-    stacked = lr.transpose(0, 1).reshape(n, r * h, w)
-    out = _solve_body(stacked, mats, int(n_iter), float(step),
-                      float(clip_max), r, band_store, plain)
-    return _to_host({
-        "lr_mean": out["lr_mean"].reshape(r, h, w),
-        "native": out["native"].reshape(r, fh, -1),
-        "saa": out["saa"].reshape(r, fh, -1),
-        "ibp": out["ibp"].reshape(r, fh, -1),
-        "mse_history": (out["mse_history"].T if r > 1
-                        else out["mse_history"][None]),
-    })
+    with span("solve"):
+        with span("solve.prepare"):
+            check_config(engine, solver, band_store, fused, mm_precision)
+            lr, psf, shifts_key, device = _prepare(lr_stacks, psf, shifts_yx,
+                                                   device)
+        r, n, h, w = (int(v) for v in lr.shape)
+        fh = factor * h
+        if engine == "conv":
+            units = [_solve_conv(lr[i], psf, shifts_key, int(factor),
+                                 int(n_iter), float(step), float(clip_max))
+                     for i in range(r)]
+            return _to_host({k: torch.stack([u[k] for u in units])
+                             for k in units[0]})
+        with span("solve.operators"):
+            mats = _solve_matrices(psf, shifts_key, int(factor), (h, w), r,
+                                   device, band_store, fused, mm_precision,
+                                   solver)
+        stacked = lr.transpose(0, 1).reshape(n, r * h, w)
+        out = _solve_body(stacked, mats, int(n_iter), float(step),
+                          float(clip_max), r, band_store, plain)
+        with span("solve.to_host"):
+            return _to_host({
+                "lr_mean": out["lr_mean"].reshape(r, h, w),
+                "native": out["native"].reshape(r, fh, -1),
+                "saa": out["saa"].reshape(r, fh, -1),
+                "ibp": out["ibp"].reshape(r, fh, -1),
+                "mse_history": (out["mse_history"].T if r > 1
+                                else out["mse_history"][None]),
+            })
 
 
 def landweber_refine(hr0, lr_stack, psf, shifts_yx,
@@ -726,20 +775,24 @@ def landweber_refine(hr0, lr_stack, psf, shifts_yx,
     the host): ``mse_history[i]`` is the forward fit before update ``i``,
     ``final_mse`` that of the returned estimate.
     """
-    lr, psf, shifts_key, device = _prepare(lr_stack, psf, shifts_yx, device)
-    hr = torch.as_tensor(hr0, dtype=torch.float32).to(device)
-    lr_shape = tuple(int(v) for v in lr.shape[-2:])
-    frames = _solve_matrices(psf, shifts_key, int(factor), lr_shape, 1,
-                             device, "f32", "auto", mm_precision,
-                             "adjoint")["frames"]
-    clip = (0.0, float(clip_max))
-    errs = torch.zeros((int(n_iter),), dtype=torch.float32, device=device)
-    for it in range(int(n_iter)):
-        hr, errs[it] = _banded_update(hr, lr, frames, float(step), clip, 1,
-                                      plain)
-    final = sum(_rep_mse(lr[i] - forward_model_mm(hr, frames[i], plain), 1)
-                for i in range(lr.shape[0])) / lr.shape[0]
-    out = _to_host({"hr": hr, "mse_history": errs, "final": final})
+    with span("landweber_refine"):
+        lr, psf, shifts_key, device = _prepare(lr_stack, psf, shifts_yx,
+                                               device)
+        hr = torch.as_tensor(hr0, dtype=torch.float32).to(device)
+        lr_shape = tuple(int(v) for v in lr.shape[-2:])
+        frames = _solve_matrices(psf, shifts_key, int(factor), lr_shape, 1,
+                                 device, "f32", "auto", mm_precision,
+                                 "adjoint")["frames"]
+        clip = (0.0, float(clip_max))
+        errs = torch.zeros((int(n_iter),), dtype=torch.float32,
+                           device=device)
+        for it in range(int(n_iter)):
+            hr, errs[it] = _banded_update(hr, lr, frames, float(step), clip,
+                                          1, plain)
+        final = sum(_rep_mse(lr[i] - forward_model_mm(hr, frames[i], plain),
+                             1)
+                    for i in range(lr.shape[0])) / lr.shape[0]
+        out = _to_host({"hr": hr, "mse_history": errs, "final": final})
     return out["hr"], out["mse_history"], float(out["final"])
 
 

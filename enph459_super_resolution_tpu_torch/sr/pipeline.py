@@ -264,8 +264,8 @@ def _solve_units_batched(pending, psf, cfg, output_base, figures,
         # fresh per-unit timer: the batch solve is amortized evenly so
         # each metrics.json reports its own share, not the batch total
         unit_timer = StageTimer()
-        unit_timer._t["solve"] = t_batch / len(pending)
-        unit_timer._t["solve_batch_total"] = t_batch
+        unit_timer.add("solve", t_batch / len(pending))
+        unit_timer.add("solve_batch_total", t_batch)
         _write_unit_artifacts(unit, result, cfg, output_base, figures,
                               unit_timer)
         n_written += 1

@@ -8,9 +8,12 @@ import contextlib
 import time
 from typing import Dict
 
+from .trace import span
+
 
 class StageTimer:
-    """Accumulates named wall-clock stages; ``as_dict`` for metrics JSON."""
+    """Accumulates named wall-clock stages; ``as_dict`` for metrics JSON.
+    Each stage is also a span of the same name (``utils.trace.span``)."""
 
     def __init__(self) -> None:
         self._t: Dict[str, float] = {}
@@ -19,9 +22,15 @@ class StageTimer:
     def stage(self, name: str):
         t0 = time.perf_counter()
         try:
-            yield
+            with span(name):
+                yield
         finally:
-            self._t[name] = self._t.get(name, 0.0) + time.perf_counter() - t0
+            self.add(name, time.perf_counter() - t0)
+
+    def add(self, name: str, seconds: float) -> None:
+        """Add ``seconds`` to stage ``name`` (time measured elsewhere, such
+        as a share of a batch's stage)."""
+        self._t[name] = self._t.get(name, 0.0) + seconds
 
     def as_dict(self) -> Dict[str, float]:
         return dict(self._t)

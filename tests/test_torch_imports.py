@@ -93,7 +93,8 @@ def test_every_port_module_imports_with_jax_blocked():
 
 @pytest.mark.parametrize("path", sorted(
     [str(p.relative_to(REPO)) for p in PORT.rglob("*.py")]
-    + ["chip_smoke.py", "bench_fused_f32.py", "bench_k1.py"]))
+    + ["chip_smoke.py", "bench_fused_f32.py", "bench_k1.py",
+       "bench_spans.py"]))
 def test_no_jax_import_anywhere_in_source(path):
     """Lazy imports inside functions too: scan the source, not just the
     modules' import-time behavior."""

@@ -149,21 +149,35 @@ def test_metrics_logger_lines_equal_jax_s(tmp_path):
 @pytest.mark.parametrize("enabled", [True, False])
 def test_device_trace_writes_a_trace_on_the_cpu(tmp_path, enabled):
     """``device_trace`` profiles the block with ``torch.profiler`` and
-    writes a Chrome trace naming the block's ops into ``log_dir``;
-    disabled, it writes nothing."""
+    writes a Chrome trace naming the block's ops into ``log_dir``, with
+    spans on and the block's spans on a ``spans`` track on the trace's
+    clock; disabled, it writes nothing and records no span."""
     import torch
 
+    from enph459_super_resolution_tpu_torch.utils import trace as TT
+
+    TT.drain_spans()
     log_dir = tmp_path / "trace"
     with TU.device_trace(str(log_dir), enabled=enabled) as prof:
-        torch.ones(64, 64).matmul(torch.ones(64, 64)).sum()
+        with TT.span("block"):
+            torch.ones(64, 64).matmul(torch.ones(64, 64)).sum()
+    assert TT.set_spans(False) is False
+    kept, _ = TT.drain_spans()
     if not enabled:
-        assert prof is None and not log_dir.exists()
+        assert prof is None and not log_dir.exists() and kept == []
         return
+    assert [s.name for s in kept] == ["block"]
     files = list(log_dir.iterdir())
     assert files == [__import__("pathlib").Path(prof.trace_path)]
     events = json.loads(files[0].read_text())["traceEvents"]
-    assert any("matmul" in e.get("name", "") or "mm" == e.get("name", "")
-               for e in events)
+    mm = [e for e in events
+          if "matmul" in e.get("name", "") or "mm" == e.get("name", "")]
+    assert mm
+    block, = [e for e in events if e.get("cat") == "span"]
+    assert block["name"] == "block" and block["tid"] == "spans"
+    for e in mm:
+        assert block["ts"] <= e["ts"]
+        assert e["ts"] + e["dur"] <= block["ts"] + block["dur"]
 
 
 # ---------------------------------------------------------------------------
