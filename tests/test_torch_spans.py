@@ -7,8 +7,8 @@ inside the block's span).  A CPU ``solve`` and ``solve_batch`` record the
 span tree of ``sr.classical`` with one ``col_apply`` span per column apply;
 ``StageTimer`` stages and the kernels' first load are spans too.  The copy
 counters count the float32 frames' bytes of an upload and nothing where
-nothing crosses.  ``bench_spans.py``'s attribution gives exact values on a
-synthetic trace.
+nothing crosses, and a CPU solve takes no page-locked copy back.
+``bench_spans.py``'s attribution gives exact values on a synthetic trace.
 """
 
 import collections
@@ -301,6 +301,30 @@ def test_a_cpu_solve_copies_nothing_across(frames):
     assert sum(v.nbytes for v in out.values()) > 0
     assert (classical._prepare.h2d_bytes,
             classical._to_host.d2h_bytes) == sent
+
+
+@pytest.mark.parametrize("units", [None, 2])
+def test_a_cpu_solve_takes_no_pinned_copy(frames, units):
+    """On the CPU the results are views of the solve's own tensors: no
+    page-locked buffer, the same keys, shapes and dtype as ever."""
+    pinned = classical._to_host.pinned_calls
+    psf = classical.make_gaussian_psf()
+    if units is None:
+        out = classical.solve(frames, psf, SHIFTS, n_iter=N_ITER,
+                              device="cpu")
+        lead = ()
+    else:
+        out = classical.solve_batch(np.stack([frames] * units), psf, SHIFTS,
+                                    n_iter=N_ITER, device="cpu")
+        lead = (units,)
+    assert classical._to_host.pinned_calls == pinned
+    h, w = frames.shape[1:]
+    assert {k: v.shape for k, v in out.items()} == {
+        "lr_mean": lead + (h, w), "native": lead + (2 * h, 2 * w),
+        "saa": lead + (2 * h, 2 * w), "ibp": lead + (2 * h, 2 * w),
+        "mse_history": lead + (N_ITER,)}
+    assert all(v.dtype == np.float32 and v.flags.writeable
+               for v in out.values())
 
 
 # ---------------------------------------------------------------------------

@@ -9,7 +9,9 @@ inside the innermost span open at its start (spans and kineto on one
 clock), every GEMM is launched inside a ``col_apply`` and no K1 launch is,
 the upload lies in ``solve.prepare`` and the copy back in
 ``solve.to_host``.  The copy counters read the frames' float32 bytes and
-the results' bytes exactly.
+the results' bytes exactly.  The copy back lands in page-locked memory
+(``Device -> Pinned``), one buffer per live result, the device tensors'
+bytes exactly.
 """
 
 import bisect
@@ -120,3 +122,55 @@ def test_copy_counters_read_the_bytes_that_cross(cuda, units):
     classical.solve(torch.as_tensor(_frames(), device="cuda"), psf, SHIFTS,
                     n_iter=1)
     assert classical._prepare.h2d_bytes == sent      # already on the card
+
+
+def test_results_land_in_their_own_pinned_buffers(cuda, monkeypatch):
+    """Two warm solves of different sessions: each result is its device
+    tensors' bytes exactly, the first is untouched by the second (no
+    buffer shared between live results), both took the page-locked path,
+    and the copy back is a ``Device -> Pinned`` copy in ``solve.to_host``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    psf = classical.make_gaussian_psf()
+    sessions = _frames(2)
+    body = classical._solve_body
+    on_card = []
+
+    def seen(*args, **kwargs):
+        """The results ``_to_host`` gets, kept on the card (a copy there
+        moves nothing to the host inside the traced call)."""
+        out = body(*args, **kwargs)
+        on_card.append({k: v.clone() for k, v in out.items()})
+        return out
+
+    monkeypatch.setattr(classical, "_solve_body", seen)
+    classical.solve(sessions[1], psf, SHIFTS, n_iter=N_ITER)    # warm
+    pinned = classical._to_host.pinned_calls
+    first = classical.solve(sessions[0], psf, SHIFTS, n_iter=N_ITER)
+    kept = {k: v.copy() for k, v in first.items()}
+    trace.set_spans(True)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        second = classical.solve(sessions[1], psf, SHIFTS, n_iter=N_ITER)
+    trace.set_spans(False)
+    spans, _ = trace.drain_spans()
+    assert classical._to_host.pinned_calls - pinned == 2
+    for k, v in first.items():
+        assert v.tobytes() == kept[k].tobytes(), k
+    assert not np.array_equal(first["ibp"], second["ibp"])
+    for got, dev in zip((first, second), on_card[1:]):
+        want = {k: v.cpu().numpy() for k, v in dev.items()}
+        assert list(got) == list(want)
+        for k, v in got.items():
+            assert v.shape == want[k].shape and v.dtype == want[k].dtype
+            assert v.flags.writeable
+            assert v.tobytes() == want[k].tobytes(), k
+    events = prof.profiler.kineto_results.events()
+    runtime = {e.correlation_id(): e for e in events
+               if e.device_type() != DeviceType.CUDA
+               and e.correlation_id() > 0 and e.name().startswith("cu")}
+    back = [e for e in events if e.device_type() == DeviceType.CUDA
+            and e.name().startswith("Memcpy DtoH")]
+    assert [e.name() for e in back] == ["Memcpy DtoH (Device -> Pinned)"]
+    launch = runtime[back[0].correlation_id()]
+    assert _innermost(spans, launch.start_ns()).name == "solve.to_host"
