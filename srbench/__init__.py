@@ -3,11 +3,13 @@
 sessions on one H100.
 
 ``BENCHMARK.json`` at the root names the cells; each is a configuration
-(``configs/``) under a traffic mix (``traffic/``), checked against the
-limits ``limits/<cell>.json``, and reports the metrics whose readers are
+(``configs/``) under a traffic mix (``traffic/``), driven by the runner
+the configuration names (``runners/``), checked against the limits
+``limits/<cell>.json``, and reports the metrics whose readers are
 ``e2e_metrics/`` and ``layer_metrics/``.  ``run`` drives one run,
 ``calibrate`` takes the readings the limits are set from, ``reference`` is
 the plain reference, ``generator`` makes the inputs, ``work`` counts the
-work the rooflines divide, ``trace`` reads the profiler.  Nothing here
-imports JAX or the JAX package.
+work the rooflines divide, ``trace`` reads the profiler, ``spans`` puts
+device time down to the program's spans.  Nothing here imports
+JAX or the JAX package.
 """

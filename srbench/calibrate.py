@@ -34,21 +34,23 @@ import time
 
 from . import reference
 from .cells import Cell
-from .run import Bench, point_caches
+from .run import point_caches, window
 
 
 def _ints(text: str):
     return [int(v) for v in text.split(",") if v]
 
 
-def readings(bench: Bench, seeds, control_seeds, seconds: float,
+def readings(bench, seeds, control_seeds, seconds: float,
              program_control=None, emit=print) -> None:
+    """``bench`` is the cell's classical runner
+    (:mod:`srbench.runners.classical`)."""
     cell = bench.cell
     control = cell.traffic["control"]
     k = cell.traffic["check_calls"]
     for seed in seeds:
         bench.load(seed)
-        win = bench.window(seconds, seed)
+        win = window(bench, seconds, seed)
         emit(json.dumps({"seed": seed, "reading": "program",
                          "calls": win.attempted, "failed": win.failed,
                          "kept": sorted(win.kept),
@@ -113,7 +115,7 @@ def main(argv=None) -> int:
         return 0
     point_caches()
     t0 = time.perf_counter()
-    bench = Bench(Cell(args.workload), "cuda")
+    bench = Cell(args.workload).runner("cuda")
     bench.load(args.seeds[0] if args.seeds else args.control_seeds[0])
     bench.warm()
     print(json.dumps({"workload": args.workload,

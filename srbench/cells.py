@@ -1,10 +1,12 @@
 """A benchmark cell, found by name: its entry in ``BENCHMARK.json``, the
-configuration file the entry names, the traffic mix
-``srbench/traffic/<traffic>.json``, the limits of its correctness check
-``srbench/limits/<cell>.json`` and the readers of its metrics
-(``srbench/e2e_metrics/<metric>.py``, ``srbench/layer_metrics/<metric>.py``).
-A new cell, mix or metric is a new file and a new entry; nothing here
-names one."""
+configuration file the entry names, the runner the configuration names
+(``srbench/runners/<runner>.py``, ``classical`` where it names none), the
+traffic mix ``srbench/traffic/<traffic>.json``, the limits of its
+correctness check ``srbench/limits/<cell>.json`` and the readers of its
+metrics (``srbench/e2e_metrics/<metric>.py``,
+``srbench/layer_metrics/<metric>.py``), all under the root that holds
+``BENCHMARK.json``.  A new cell, runner, mix or metric is a new file and a
+new entry; nothing here names one."""
 
 from __future__ import annotations
 
@@ -24,10 +26,11 @@ def _json(path: Path) -> Dict:
         return json.load(fp)
 
 
-def _reader(kind: str, name: str) -> ModuleType:
-    path = HERE / kind / f"{name}.py"
+def _module(base: Path, kind: str, name: str, what: str) -> ModuleType:
+    """``<base>/<kind>/<name>.py``, loaded as ``srbench.<kind>.<name>``."""
+    path = base / kind / f"{name}.py"
     if not path.exists():
-        raise FileNotFoundError(f"metric {name!r} has no reader {path}")
+        raise FileNotFoundError(f"{what} {name!r} has no file {path}")
     spec = importlib.util.spec_from_file_location(f"srbench.{kind}.{name}",
                                                   path)
     module = importlib.util.module_from_spec(spec)
@@ -59,10 +62,12 @@ class Cell:
         cfg_file = root / files.get(entry["config"],
                                     f"srbench/configs/{entry['config']}.json")
         self.name = name
+        self.dir = root / "srbench"
         self.chips = int(entry["chips"])
         self.config = _json(cfg_file)
-        self.traffic = _json(HERE / "traffic" / f"{entry['traffic']}.json")
-        limits = HERE / "limits" / f"{name}.json"
+        self.traffic = _json(self.dir / "traffic" /
+                             f"{entry['traffic']}.json")
+        limits = self.dir / "limits" / f"{name}.json"
         self.limits: Optional[Dict[str, float]] = (
             _json(limits) if limits.exists() else None)
         self.e2e = [dict(m) for m in bench["end_to_end"]
@@ -90,4 +95,16 @@ class Cell:
         """(metric entry, reader module) for each metric of ``kind``
         (``e2e_metrics`` or ``layer_metrics``) this cell reports."""
         metrics = self.e2e if kind == "e2e_metrics" else self.per_layer
-        return [(m, _reader(kind, m["name"])) for m in metrics]
+        return [(m, _module(self.dir, kind, m["name"], "metric"))
+                for m in metrics]
+
+    def runner_module(self) -> ModuleType:
+        """The module of the configuration's runner (``classical`` where
+        the configuration names none): its ``PROGRAM`` and ``Runner``."""
+        return _module(self.dir, "runners",
+                       self.config.get("runner", "classical"), "runner")
+
+    def runner(self, device: str):
+        """The configuration's runner, built for this cell on
+        ``device``."""
+        return self.runner_module().Runner(self, device)

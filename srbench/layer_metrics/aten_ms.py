@@ -4,6 +4,4 @@ elementwise work and the reductions (library kernels), ms."""
 
 
 def read(trace, cell):
-    return trace.ms_per_call(
-        lambda name: trace.port_kernel(name) is None
-        and not name.startswith("Memcpy"))
+    return trace.ms_per_call(trace.is_aten)

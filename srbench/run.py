@@ -5,26 +5,31 @@
 
 from the root of a checkout that holds ``BENCHMARK.json``, ``srbench/``
 and the program, ``enph459_super_resolution_tpu_torch``.  One client sends
-calls back to back (a closed loop) to the program's solve entry,
-``sr.classical.solve`` for one unit and ``solve_batch`` for several, each
-with the frames of one session of a pool rendered from ``--seed``, as
-numpy on the host (as the session loader gives them), and each returning
-numpy results.  Set-up is everything before the first timed call: the
-imports, the kernels' build or load, the operators, the pool and one warm
-call, whose launches are held to those the traffic mix implies.
+calls back to back (a closed loop) to the program through the runner the
+cell's configuration names (:mod:`srbench.runners`; ``classical``, the
+solve entry ``sr.classical.solve`` / ``solve_batch``, where it names
+none), each call on the next input of a pool made from ``--seed``.
+Set-up is everything before the first timed call: the imports, the
+kernels' build or load, the program's state, the pool and one warm call,
+whose launches are held to those the runner says one call implies.
 
 With ``--trace 0`` the result line carries the cell's end-to-end metrics
-on the host clock; with ``--trace 1`` its per-layer metrics, read from a
-``torch.profiler`` trace of the CUDA activity of ``TRACE_CALLS`` whole
-calls inside the window (:mod:`srbench.trace`), and a ``breakdown``.  Either way, once the window has closed, a sample of
-its calls drawn from the seed is compared with the plain reference
-(:mod:`srbench.reference`), and ``correct`` says whether every number
-stayed within its limit (``srbench/limits/<cell>.json``).  Each number is
-printed beside its limit, last on standard error and last in the line.
+on the host clock, with the program's spans off; with ``--trace 1`` its
+per-layer metrics, read from a ``torch.profiler`` trace of the CUDA
+activity of ``TRACE_CALLS`` whole calls inside the window
+(:mod:`srbench.trace`) with the program's spans (``utils.trace.span``)
+on for those calls alone, or from the latencies of the window's other
+calls; and a ``breakdown``.  Either way, once the window has closed, a
+sample of its calls drawn from the seed is compared with the plain
+reference by the runner's check, and ``correct`` says whether every
+number stayed within its limit (``srbench/limits/<cell>.json``).  Each
+number is printed beside its limit, last on standard error and last in
+the line.
 
 It exits 2 without a result where the card, the cell's files or the
-program are missing, 1 where a call took another path than the mix
-implies, and 3 where the process has loaded JAX or the JAX package.
+program are missing, 1 where a call took another path than the runner
+implies or the span buffer dropped a span, and 3 where the process has
+loaded JAX or the JAX package.
 """
 
 import time
@@ -32,7 +37,7 @@ import time
 T_START = time.perf_counter()
 
 import argparse  # noqa: E402
-import gc  # noqa: E402
+import importlib  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
 import subprocess  # noqa: E402
@@ -42,21 +47,30 @@ from typing import Dict, List, NamedTuple, Optional  # noqa: E402
 
 import numpy as np  # noqa: E402
 
-from . import generator, reference, trace  # noqa: E402
+from . import spans, trace  # noqa: E402
 from .cells import Cell  # noqa: E402
-from .work import calls  # noqa: E402
+from .runners import PathError, delta  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 CACHE = ROOT / "srbench" / "_cache"
 PORT = "enph459_super_resolution_tpu_torch"
+SPANS = PORT + ".utils.trace"      # the program's span recorder
 # Top-level module names the process may not hold once the window closes.
 FORBIDDEN = ("jax", "jaxlib", "flax", "enph459_super_resolution_tpu")
-TRACE_AFTER = 2    # calls of the window before the traced stretch
+# The traced stretch starts this many calls after the ``check_calls`` that
+# the reservoir keeps whatever follows.  Between calls the window holds no
+# output but the kept ones, so from call ``check_calls`` + 1 on a call's
+# output reuses memory an earlier one freed (the program's page-locked
+# result blocks among it) and the stretch holds no first allocation.
+TRACE_SETTLE = 2
 TRACE_CALLS = 3    # whole calls in the traced stretch
+# Spans the program's buffer holds: those of the traced stretch (~810 a
+# classical call).
+SPAN_CAPACITY = 1 << 20
 
 
-class PathError(RuntimeError):
-    """A call launched other kernels than the traffic mix implies."""
+class SpanError(RuntimeError):
+    """The program's span buffer dropped spans of a traced run."""
 
 
 class Window(NamedTuple):
@@ -66,7 +80,7 @@ class Window(NamedTuple):
     setup_s: float
     attempted: int
     failed: int
-    kept: Dict[int, tuple]          # call index -> (session, numpy result)
+    kept: Dict[int, tuple]          # call index -> (pool index, kept output)
     trace: Optional[trace.Trace]
     traced_calls: range             # the calls under the profiler
 
@@ -77,22 +91,26 @@ def forbidden_modules() -> List[str]:
                   & set(FORBIDDEN))
 
 
-def launch_counts() -> Dict[str, int]:
-    """The program's launch counters (``launches*`` of each kernel
-    wrapper), by ``<wrapper>.<counter>``."""
-    from enph459_super_resolution_tpu_torch.ops.banded_rows import \
-        banded_row_apply
-    from enph459_super_resolution_tpu_torch.ops.fused_ibp import (
-        fused_bwd_update, fused_fwd_err)
+def program_spans():
+    """The program's span recorder (``set_spans``, ``drain_spans``), or None
+    for a program without one."""
+    try:
+        mod = importlib.import_module(SPANS)
+    except ImportError:
+        return None
+    if getattr(mod, "set_spans", None) and getattr(mod, "drain_spans", None):
+        return mod
+    return None
 
-    return {f"{fn.__name__}.{k}": v
-            for fn in (banded_row_apply, fused_fwd_err, fused_bwd_update)
-            for k, v in vars(fn).items() if k.startswith("launches")}
 
-
-def _delta(after: Dict[str, int], before: Dict[str, int]) -> Dict[str, int]:
-    return {k: v - before.get(k, 0) for k, v in after.items()
-            if v != before.get(k, 0)}
+def _drain(recorder) -> list:
+    """The spans closed since the last drain; raises :class:`SpanError`
+    where the buffer dropped any."""
+    got, dropped = recorder.drain_spans()
+    if dropped:
+        raise SpanError(f"the program's span buffer dropped {dropped} "
+                        f"spans (it holds {SPAN_CAPACITY})")
+    return got
 
 
 def point_caches() -> None:
@@ -107,145 +125,86 @@ def point_caches() -> None:
         os.environ[var] = str(CACHE / sub)
 
 
-class Bench:
-    """The program driven as the cell's traffic mix says, on ``device``."""
+def Bench(cell: Cell, device: str):
+    """The cell's runner on ``device`` (the name ``bench_spans.py``
+    drives it by)."""
+    return cell.runner(device)
 
-    def __init__(self, cell: Cell, device: str):
-        from enph459_super_resolution_tpu_torch.sr import classical
 
-        self.classical = classical
-        self.cell, self.device = cell, device
-        cfg, mix = cell.config, cell.traffic
-        self.psf = reference.psf(cfg)
-        self.shifts = tuple((float(dy), float(dx)) for dy, dx in
-                            cfg["shifts"])
-        self.opts = dict(factor=cfg["factor"],
-                         n_iter=cfg["ibp"]["iterations"],
-                         step=cfg["ibp"]["step"],
-                         clip_max=cfg["ibp"]["clip_max"], device=device,
-                         **mix["solve"])
-        self.units = cell.units
-        self.pixels = (self.units * cfg["factor"] ** 2
-                       * cfg["lr_shape"][0] * cfg["lr_shape"][1])
-        self.expected = calls.launches(cfg, mix)
-        self.pool: List[np.ndarray] = []
+def window(runner, seconds: float, seed: int, traced: bool = False,
+           setup_s: float = 0.0, recorder=None) -> Window:
+    """Calls back to back until ``seconds`` have passed, the last one
+    ending after; with ``traced``, ``TRACE_CALLS`` calls under the
+    profiler, ``TRACE_SETTLE`` calls after the first ``check_calls`` (the
+    window runs on until they are done), with the program's spans on
+    meanwhile where it has a span ``recorder``: the spans those calls
+    close go to the trace.  Keeps ``runner.keep`` of the output of
+    ``check_calls`` calls drawn uniformly from the seed (reservoir
+    sampling)."""
+    import torch
 
-    def call(self, session: np.ndarray, **overrides):
-        """One call of the program's solve entry on a session's units."""
-        opts = dict(self.opts, **overrides)
-        if self.units == 1:
-            return self.classical.solve(session[0], self.psf, self.shifts,
-                                        **opts)
-        return self.classical.solve_batch(session[: self.units], self.psf,
-                                          self.shifts, **opts)
+    k = runner.cell.traffic["check_calls"]
+    rng = np.random.default_rng([int(seed), 7])
+    slots: List[int] = []           # the kept calls' indices
+    kept: Dict[int, tuple] = {}
+    lat: List[float] = []
+    traced_spans: list = []
+    first = k + TRACE_SETTLE        # the traced stretch's calls
+    stop = first + TRACE_CALLS
+    failed = 0
+    prof = None
+    before = runner.launch_counts()
+    t0 = end = time.perf_counter()
+    i = 0
+    while end - t0 < seconds or (traced and i < stop):
+        sid = i % len(runner.pool)
+        if traced and i == first:
+            if recorder is not None:
+                recorder.drain_spans()
+                recorder.set_spans(True, capacity=SPAN_CAPACITY)
+            prof = torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CUDA])
+            prof.__enter__()
+        start = time.perf_counter()
+        try:
+            out = runner.call(runner.pool[sid])
+        except Exception as exc:  # noqa: BLE001 -- counted as failed
+            print(f"call {i} failed: {exc!r}", file=sys.stderr)
+            failed += 1
+            out = None
+        end = time.perf_counter()
+        lat.append(end - start)
+        if traced and i == stop - 1:
+            prof.__exit__(None, None, None)
+            if recorder is not None:
+                recorder.set_spans(False)
+                traced_spans = _drain(recorder)
+        # reservoir sampling: call i replaces a kept one w.p. k / (i+1)
+        slot = i if i < k else int(rng.integers(0, i + 1))
+        if slot < k and out is not None:
+            if slot < len(slots):
+                kept.pop(slots[slot])
+                slots[slot] = i
+            else:
+                slots.append(i)
+            kept[i] = (sid, runner.keep(out))
+        out = None      # between calls the window holds the kept alone
+        i += 1
+    done = delta(runner.launch_counts(), before)
+    want = {key: v * i for key, v in runner.expected.items()}
+    if runner.device == "cuda" and failed == 0 and done != want:
+        raise PathError(f"the window's {i} calls launched {done}, the "
+                        f"traffic mix implies {want}")
+    tr = None
+    if prof is not None:
+        import enph459_super_resolution_tpu_torch as port
 
-    def load(self, seed: int) -> None:
-        """The session pool of ``seed``."""
-        self.pool = generator.render_pool(self.cell.config, self.cell.traffic,
-                                          seed, self.device)
-
-    def warm(self) -> Dict[str, int]:
-        """One call of the cell's shape; on the card, raises
-        :class:`PathError` unless its launches are those the mix implies
-        (on the CPU the program runs its kernels' plain versions and
-        launches none)."""
-        before = launch_counts()
-        self.call(self.pool[0])
-        counts = _delta(launch_counts(), before)
-        if self.device == "cuda" and counts != self.expected:
-            raise PathError(f"one call launched {counts}, the traffic mix "
-                            f"implies {self.expected}")
-        return counts
-
-    def window(self, seconds: float, seed: int, traced: bool = False,
-               setup_s: float = 0.0) -> Window:
-        """Calls back to back until ``seconds`` have passed, the last one
-        ending after; with ``traced``, calls ``TRACE_AFTER`` ..
-        ``TRACE_AFTER + TRACE_CALLS - 1`` under the profiler (the window
-        runs on until they are done).  Keeps the results of
-        ``check_calls`` calls drawn uniformly from the seed (reservoir
-        sampling)."""
-        import torch
-
-        k = self.cell.traffic["check_calls"]
-        rng = np.random.default_rng([int(seed), 7])
-        slots: List[int] = []           # the kept calls' indices
-        kept: Dict[int, tuple] = {}
-        lat: List[float] = []
-        failed = 0
-        prof = None
-        before = launch_counts()
-        t0 = end = time.perf_counter()
-        i = 0
-        while end - t0 < seconds or (traced and i < TRACE_AFTER
-                                     + TRACE_CALLS):
-            sid = i % len(self.pool)
-            if traced and i == TRACE_AFTER:
-                prof = torch.profiler.profile(activities=[
-                    torch.profiler.ProfilerActivity.CUDA])
-                prof.__enter__()
-            start = time.perf_counter()
-            try:
-                out = self.call(self.pool[sid])
-            except Exception as exc:  # noqa: BLE001 -- counted as failed
-                print(f"call {i} failed: {exc!r}", file=sys.stderr)
-                failed += 1
-                out = None
-            end = time.perf_counter()
-            lat.append(end - start)
-            if traced and i == TRACE_AFTER + TRACE_CALLS - 1:
-                prof.__exit__(None, None, None)
-            # reservoir sampling: call i replaces a kept one w.p. k / (i+1)
-            slot = i if i < k else int(rng.integers(0, i + 1))
-            if slot < k and out is not None:
-                if slot < len(slots):
-                    kept.pop(slots[slot])
-                    slots[slot] = i
-                else:
-                    slots.append(i)
-                kept[i] = (sid, reference.with_units_axis(out))
-            i += 1
-        done = _delta(launch_counts(), before)
-        want = {key: v * i for key, v in self.expected.items()}
-        if self.device == "cuda" and failed == 0 and done != want:
-            raise PathError(f"the window's {i} calls launched {done}, the "
-                            f"traffic mix implies {want}")
-        tr = None
-        if prof is not None:
-            import enph459_super_resolution_tpu_torch as port
-
-            tr = trace.from_profiler(
-                prof, TRACE_CALLS,
-                trace.port_kernels(Path(port.__file__).parent))
-        return Window(lat, (i - failed) * self.pixels, end - t0, setup_s, i,
-                      failed, kept, tr,
-                      range(TRACE_AFTER, TRACE_AFTER + TRACE_CALLS)
-                      if traced else range(0))
-
-    def release(self) -> None:
-        """Drop the program's device state (its operator tree)."""
-        self.classical._device_matrices.cache_clear()
-        gc.collect()
-        if self.device == "cuda":
-            import torch
-
-            torch.cuda.empty_cache()
-
-    def check(self, kept: Dict[int, tuple],
-              arith: str = "f64") -> Dict[str, float]:
-        """The worst of each number over the kept calls, against the
-        reference computed in ``arith`` on this device."""
-        dops = reference.device_operators(self.cell.ops, arith, self.device)
-        worst = {name: 0.0 for _, name in reference.GAPS}
-        refs: Dict[int, dict] = {}
-        for _, (sid, out) in sorted(kept.items()):
-            if sid not in refs:
-                refs[sid] = reference.solve_call(
-                    self.pool[sid][: self.units], dops, self.cell.config,
-                    arith)
-            for name, v in reference.gaps(out, refs[sid]).items():
-                worst[name] = max(worst[name], v)
-        return worst
+        tr = trace.from_profiler(
+            prof, TRACE_CALLS,
+            trace.port_kernels(Path(port.__file__).parent), traced_spans)
+    return Window(lat, (i - failed) * runner.pixels, end - t0, setup_s, i,
+                  failed, kept, tr,
+                  range(first, stop) if traced else range(0))
 
 
 def _number(v: float) -> Optional[float]:
@@ -278,12 +237,13 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool,
 
     if device == "cuda":
         emit(json.dumps(card_line(torch)))
-    bench = Bench(cell, device)
-    bench.load(seed)
-    emit(json.dumps({"srbench": "path", "one_call": bench.warm(),
-                     "implied": bench.expected}))
-    win = bench.window(seconds, seed, traced,
-                       setup_s=time.perf_counter() - T_START)
+    runner = cell.runner(device)
+    runner.load(seed)
+    emit(json.dumps({"srbench": "path", "one_call": runner.warm(),
+                     "implied": runner.expected}))
+    win = window(runner, seconds, seed, traced,
+                 setup_s=time.perf_counter() - T_START,
+                 recorder=program_spans() if traced else None)
     dev = {"platform": "gpu" if device == "cuda" else "cpu",
            "kind": (torch.cuda.get_device_name(0) if device == "cuda"
                     else "cpu"),
@@ -300,13 +260,19 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool,
         dev["busy_s"] = win.trace.busy_s()
         dev["window_s"] = win.trace.window_s
         breakdown = win.trace.breakdown()
+        emit(json.dumps({
+            "srbench": "spans", "traced": len(win.trace.spans),
+            "device_ms_by_span": spans.device_ms_by_span(win.trace),
+            "aten_by_span": spans.device_ms_by_span(win.trace,
+                                                    win.trace.is_aten),
+            "no_launch": spans.no_launch(win.trace)}))
     else:
         for m, reader in cell.readers("e2e_metrics"):
             metrics[m["name"]] = {"value": reader.read(win, cell),
                                   "unit": m["unit"]}
-    bench.release()
+    runner.release()
     t_check = time.perf_counter()
-    worst = bench.check(win.kept)
+    worst = runner.check(win.kept)
     emit(json.dumps({"srbench": "timing", "setup_s": win.setup_s,
                      "window_s": win.seconds,
                      "calls": win.attempted,
@@ -353,14 +319,15 @@ def main(argv=None) -> int:
         return 2
     point_caches()
     try:
-        __import__(PORT + ".sr.classical")
-    except ImportError as exc:
-        print(f"srbench: the program {PORT} cannot be imported: {exc}",
+        program = cell.runner_module().PROGRAM
+        importlib.import_module(program)
+    except (ImportError, FileNotFoundError) as exc:
+        print(f"srbench: the program cannot be imported: {exc}",
               file=sys.stderr)
         return 2
     try:
         result = run_cell(cell, args.seed, args.seconds, bool(args.trace))
-    except PathError as exc:
+    except (PathError, SpanError) as exc:
         print(f"srbench: {exc}", file=sys.stderr)
         return 1
     bad = forbidden_modules()

@@ -243,7 +243,8 @@ def test_a_reader_finds_nothing_where_nothing_ran():
     cell = Cell("mono_cal_target.f32_fused")
     for m, r in cell.readers("layer_metrics"):
         if m["name"] in ("k1_ms", "fused_ms", "row_apply_roofline",
-                         "fused_roofline", "aten_ms", "d2h_ms"):
+                         "fused_roofline", "aten_ms", "d2h_ms",
+                         "col_apply_ms", "ibp_update_ms"):
             assert r.read(t, cell) is None
 
 

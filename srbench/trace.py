@@ -9,14 +9,20 @@ of the first device operation of its calls (the first call's upload) to
 the end of the last (the last call's copy to the host), so it holds the
 gaps between its calls but the first's lead-in and the last's tail.  The
 program's own kernels are known by the ``__global__`` names of its CUDA
-sources.
+sources.  Each device operation carries the host interval of the CUDA
+runtime call that launched it (the runtime event of its correlation id),
+and the trace holds the program's spans closed during the stretch, both in
+the trace's own frame (us from the profiler's start), so that
+:mod:`srbench.spans` can put device time down to the span the host was
+in.
 """
 
 from __future__ import annotations
 
 import re
 from pathlib import Path
-from typing import Callable, Iterable, List, NamedTuple, Optional, Sequence
+from typing import (Callable, Iterable, List, NamedTuple, Optional,
+                    Sequence, Tuple)
 
 NAME_CHARS = 200        # a name in the breakdown is cut to this length
 TOP = 10                # entries of each breakdown list
@@ -25,6 +31,18 @@ TOP = 10                # entries of each breakdown list
 class Op(NamedTuple):
     name: str
     start: float        # us from the profiler's start
+    end: float
+    # a device operation's launch call on the host (us), where the trace
+    # holds it
+    launch: Optional[Tuple[float, float]] = None
+
+
+class Span(NamedTuple):
+    """One of the program's spans (``utils.trace.Span``) in the trace's
+    frame: its name, its parent's name, its host interval in us."""
+    name: str
+    parent: Optional[str]
+    start: float
     end: float
 
 
@@ -62,11 +80,13 @@ class Trace:
 
     def __init__(self, device: Sequence[Op], host: Sequence[Op],
                  start: float, end: float, calls: int,
-                 kernels: Sequence[str] = ()):
+                 kernels: Sequence[str] = (), spans: Sequence[Span] = ()):
         self.start, self.end, self.calls = start, end, calls
-        self.device = [Op(o.name, max(o.start, start), min(o.end, end))
+        self.device = [o._replace(start=max(o.start, start),
+                                  end=min(o.end, end))
                        for o in device if o.end > start and o.start < end]
         self.host = [o for o in host if o.end > start and o.start < end]
+        self.spans = list(spans)
         self._kernel = (re.compile(r"\b(" + "|".join(map(re.escape, kernels))
                                    + r")\b") if kernels else None)
 
@@ -82,6 +102,12 @@ class Trace:
         """The program's kernel that a device operation is, or None."""
         m = self._kernel.search(name) if self._kernel else None
         return m.group(1) if m else None
+
+    def is_aten(self, name: str) -> bool:
+        """Whether a device operation is neither a kernel of the program
+        nor a copy: a library kernel (``aten_ms``'s operations)."""
+        return self.port_kernel(name) is None and not name.startswith(
+            "Memcpy")
 
     def ms_per_call(self, match: Callable[[str], bool]) -> Optional[float]:
         """Device time per call of the operations whose name ``match``
@@ -118,9 +144,14 @@ class Trace:
                               for g in self.idle_gaps()]}
 
 
-def from_profiler(prof, calls: int, kernels: Sequence[str]) -> Trace:
+def from_profiler(prof, calls: int, kernels: Sequence[str],
+                  spans: Sequence = ()) -> Trace:
     """A :class:`Trace` of a finished ``torch.profiler.profile`` of CUDA
-    activity that held ``calls`` whole calls and nothing else."""
+    activity that held ``calls`` whole calls and nothing else, with the
+    program's ``spans`` (``utils.trace.Span``, Unix ns, the clock of
+    kineto's events) closed meanwhile.  A device operation's launch is the
+    CUDA runtime call (``cu*``) of its correlation id: not CUPTI's own
+    host events, which can share it."""
     from torch.autograd import DeviceType
 
     device, host = [], []
@@ -128,8 +159,16 @@ def from_profiler(prof, calls: int, kernels: Sequence[str]) -> Trace:
         op = Op(e.name, float(e.time_range.start), float(e.time_range.end))
         if getattr(e, "is_user_annotation", False):
             continue
-        (device if e.device_type == DeviceType.CUDA else host).append(op)
+        (device if e.device_type == DeviceType.CUDA else host).append(
+            (e.id, op))
     if not device:
         raise RuntimeError("the trace holds no device operation")
-    return Trace(device, host, min(o.start for o in device),
-                 max(o.end for o in device), calls, kernels)
+    runtime = {cid: (o.start, o.end) for cid, o in host
+               if cid > 0 and o.name.startswith("cu")}
+    ops = [o._replace(launch=runtime.get(cid)) for cid, o in device]
+    # the events' us count from kineto's trace start, in Unix ns
+    base = prof.profiler.kineto_results.trace_start_ns()
+    return Trace(ops, [o for _, o in host], min(o.start for o in ops),
+                 max(o.end for o in ops), calls, kernels,
+                 [Span(s.name, s.parent, (s.t0_ns - base) / 1e3,
+                       (s.t1_ns - base) / 1e3) for s in spans])
