@@ -4,17 +4,18 @@ The benchmark's own runs do not run this.
     python3 -m srbench.calibrate --workload <cell> --seeds 11,12,... \\
         --control-seeds 21,22,23 [--seconds 3] [--program-control PRESET]
 
-In one process on the card: for each of ``--seeds``, a window of the cell
-at its own load (``--seconds`` long) and the worst of each number over its
-kept calls, as a run reads them (the lower readings); for each of
-``--control-seeds``, the same numbers of the control, the reference put in
-the program's place and computed in the precision below the one the mix
-states (the mix's ``control``: TF32 below strict float32, fp8 below bf16
-operands), on the first ``check_calls`` sessions of the pool (the upper
-readings).  ``--program-control`` adds the program itself on those
-sessions with its own lower-precision path switched on (an
-``mm_precision`` preset, such as ``TF32_TF32_F32``).  One JSON line per
-reading.
+In one process on the card, for the runner the cell's configuration
+names: for each of ``--seeds``, a window of the cell at its own load
+(``--seconds`` long) and the worst of each number over its kept calls, as
+a run reads them (the runner's ``check``: the lower readings); for each
+of ``--control-seeds``, the same numbers of the control, the reference
+put in the program's place and computed in the precision below the one
+the mix states (the mix's ``control``: TF32 below strict float32, fp8
+below bf16 operands), on the first ``check_calls`` items of the pool (the
+runner's ``control``: the upper readings).  ``--program-control``, for
+the classical runner alone, adds the program itself on those sessions
+with its own lower-precision path switched on (an ``mm_precision``
+preset, such as ``TF32_TF32_F32``).  One JSON line per reading.
 
     python3 -m srbench.calibrate --summarize readings.jsonl
 
@@ -30,9 +31,9 @@ from __future__ import annotations
 
 import argparse
 import json
+import sys
 import time
 
-from . import reference
 from .cells import Cell
 from .run import point_caches, window
 
@@ -43,8 +44,8 @@ def _ints(text: str):
 
 def readings(bench, seeds, control_seeds, seconds: float,
              program_control=None, emit=print) -> None:
-    """``bench`` is the cell's classical runner
-    (:mod:`srbench.runners.classical`)."""
+    """``bench`` is the cell's runner (:mod:`srbench.runners`);
+    ``program_control`` is for the classical runner alone."""
     cell = bench.cell
     control = cell.traffic["control"]
     k = cell.traffic["check_calls"]
@@ -55,31 +56,28 @@ def readings(bench, seeds, control_seeds, seconds: float,
                          "calls": win.attempted, "failed": win.failed,
                          "kept": sorted(win.kept),
                          "gaps": bench.check(win.kept)}))
-    ref = reference.device_operators(cell.ops, "f64", bench.device)
-    low = reference.device_operators(cell.ops, control, bench.device)
     for seed in control_seeds:
         bench.load(seed)
         for sid in range(k):
-            units = bench.pool[sid][: bench.units]
-            want = reference.solve_call(units, ref, cell.config)
-            got = reference.solve_call(units, low, cell.config, control)
             emit(json.dumps({"seed": seed, "session": sid,
                              "reading": f"control {control}",
-                             "gaps": reference.gaps(got, want)}))
+                             "gaps": bench.control(sid)}))
             if program_control:
-                out = reference.with_units_axis(bench.call(
+                out = bench.keep(bench.call(
                     bench.pool[sid], mm_precision=program_control))
                 emit(json.dumps({"seed": seed, "session": sid,
                                  "reading": f"program {program_control}",
-                                 "gaps": reference.gaps(out, want)}))
+                                 "gaps": bench.check({sid: (sid, out)})}))
 
 
 def propose(lines) -> dict:
     """Lower and upper readings and the limit of each number, from the
-    JSON lines :func:`readings` printed."""
+    JSON lines :func:`readings` printed.  The numbers are those the
+    readings carry: the runner's ``GAPS``, which its ``check`` and
+    ``control`` key them by."""
     rows = [json.loads(line) for line in lines if '"reading"' in line]
     out = {}
-    for _, name in reference.GAPS:
+    for name in rows[0]["gaps"]:
         lower = max(r["gaps"][name] for r in rows
                     if r["reading"] == "program")
         uppers = {}
@@ -113,9 +111,15 @@ def main(argv=None) -> int:
         lines = [ln for path in args.summarize for ln in open(path)]
         print(json.dumps(propose(lines), indent=1))
         return 0
+    cell = Cell(args.workload)
+    runner = cell.config.get("runner", "classical")
+    if args.program_control and runner != "classical":
+        print(f"srbench.calibrate: --program-control is for the classical "
+              f"runner; {args.workload} runs {runner!r}", file=sys.stderr)
+        return 2
     point_caches()
     t0 = time.perf_counter()
-    bench = Cell(args.workload).runner("cuda")
+    bench = cell.runner("cuda")
     bench.load(args.seeds[0] if args.seeds else args.control_seeds[0])
     bench.warm()
     print(json.dumps({"workload": args.workload,

@@ -48,6 +48,7 @@ class Runner(_Runner):
                        * cfg["lr_shape"][0] * cfg["lr_shape"][1])
         self.expected = calls.launches(cfg, mix)
         self.pool: List[np.ndarray] = []
+        self._control_ops = None
 
     def call(self, session: np.ndarray, **overrides):
         """One call of the program's solve entry on a session's units."""
@@ -90,3 +91,25 @@ class Runner(_Runner):
             for name, v in reference.gaps(out, refs[sid]).items():
                 worst[name] = max(worst[name], v)
         return worst
+
+    def control(self, sid: int) -> Dict[str, float]:
+        """The reference computed in the mix's ``control`` arithmetic
+        against the reference in float64, on session ``sid``'s units."""
+        arith = self.cell.traffic["control"]
+        if self._control_ops is None:
+            self._control_ops = tuple(
+                reference.device_operators(self.cell.ops, a, self.device)
+                for a in ("f64", arith))
+        ref, low = self._control_ops
+        units = self.pool[sid][: self.units]
+        want = reference.solve_call(units, ref, self.cell.config)
+        got = reference.solve_call(units, low, self.cell.config, arith)
+        return reference.gaps(got, want)
+
+    @classmethod
+    def shrink(cls, cell, card: bool = False) -> None:
+        """As the base, but LR 128 x 256 where the mix takes the fused
+        kernels: the smallest shape they qualify at."""
+        super().shrink(cell, card)
+        if any(e == "fused" for e, _, _ in cell.traffic["launches"]["ibp"]):
+            cell.config["lr_shape"] = [128, 256]

@@ -1,6 +1,7 @@
-"""The harness end to end on the card, at a small size the fused kernels
-take (LR 128 x 256): the path check passes, every listed per-layer metric
-reads, and the run is correct.  Skips without a card.
+"""The harness end to end on the card, at the size each cell's runner
+shrinks it to for the card (LR 128 x 256, which the fused kernels take):
+the path check passes, every listed per-layer metric reads, and the run
+is correct.  Skips without a card.
 
     python3 -m pytest srbench/tests/test_srbench_card.py -q
 """
@@ -29,8 +30,7 @@ def card():
 @pytest.mark.parametrize("name", CELLS)
 def test_a_small_run_on_the_card(card, name):
     cell = Cell(name)
-    cell.config["lr_shape"] = [128, 256]
-    cell.traffic["pool_sessions"] = 2
+    cell.runner_module().Runner.shrink(cell, card=True)
     lines = []
     traced = run.run_cell(cell, 2 ** 31 + 5, 0.5, True, emit=lines.append)
     path = json.loads(lines[1])

@@ -1,9 +1,11 @@
-"""The check that decides ``correct`` fails what it must, on the CPU at a
-size a test run holds: the control (the reference in the precision below
-the one the mix states) comes out not correct under each cell's limits,
-and so does a whole run of the harness (the look for a card skipped) with
-the program's timed path broken underneath, once for each fault a cell
-can have.  The same run unbroken comes out correct.
+"""The check that decides ``correct`` fails what it must, on the CPU at
+the size each cell's runner shrinks it to: the control (the reference in
+the precision below the one the mix states, the runner's ``control``)
+comes out not correct under each cell's limits, and the same run unbroken
+comes out correct.  For the classical cells, so does a whole run of the
+harness (the look for a card skipped) with the program's timed path
+broken underneath, once for each fault a cell can have; another runner's
+faults are in ``test_srbench_runner_<name>.py``.
 
     python3 -m pytest srbench/tests/test_srbench_control.py -q
 """
@@ -16,7 +18,7 @@ import torch
 
 from enph459_super_resolution_tpu_torch.ops.fused_ibp import FusedIBP
 from enph459_super_resolution_tpu_torch.sr import classical
-from srbench import generator, reference, run
+from srbench import generator, reference, run, runners
 from srbench.cells import HERE, Cell
 
 # the benchmark's cells, and the bf16 mix on rgb_barcodes, whose cell has
@@ -24,16 +26,15 @@ from srbench.cells import HERE, Cell
 CELLS = [w["name"] for w in
          json.loads((HERE.parent / "BENCHMARK.json").read_text())[
              "workloads"]] + ["rgb_barcodes.bf16"]
+# those whose configuration names no runner, or the classical one
+CLASSICAL = [n for n in CELLS
+             if Cell(n).config.get("runner", "classical") == "classical"]
 
 
 def small(name):
-    """The cell at a small size: LR 128 x 256 where the mix takes the fused
-    kernels (the smallest shape they qualify at), 24 x 32 otherwise."""
+    """The cell at the size its runner's ``shrink`` gives."""
     cell = Cell(name)
-    fused = any(e == "fused" for e, _, _ in cell.traffic["launches"]["ibp"])
-    cell.config["lr_shape"] = [128, 256] if fused else [24, 32]
-    cell.traffic["pool_sessions"] = 2
-    cell.traffic["check_calls"] = 2
+    cell.runner_module().Runner.shrink(cell)
     return cell
 
 
@@ -53,6 +54,24 @@ def _run(cell):
 @pytest.mark.parametrize("name", CELLS)
 def test_the_control_comes_out_not_correct(name):
     cell = small(name)
+    runner = cell.runner("cpu")
+    runner.load(2 ** 31 + 3)
+    gaps = runner.control(0)
+    assert set(gaps) == set(runner.GAPS)
+    assert any(v > cell.limits[k] for k, v in gaps.items()), gaps
+
+
+@pytest.mark.parametrize("name", CLASSICAL)
+def test_the_classical_control_is_the_reference_in_the_mixs_arithmetic(
+        name):
+    """The classical runner's control, number for number: the reference
+    in the mix's ``control`` arithmetic against float64, on the first
+    session of the seed's pool; at the base runner's CPU size (LR 24 x
+    32), since the control runs no kernel of the program."""
+    cell = Cell(name)
+    runners.Runner.shrink(cell)
+    runner = cell.runner("cpu")
+    runner.load(2 ** 31 + 3)
     session = generator.render_session(cell.config, 2 ** 31 + 3, 0)
     units = session[: cell.units]
     want = reference.solve_call(
@@ -62,8 +81,7 @@ def test_the_control_comes_out_not_correct(name):
     got = reference.solve_call(
         units, reference.device_operators(cell.ops, control, "cpu"),
         cell.config, control)
-    gaps = reference.gaps(got, want)
-    assert any(v > cell.limits[k] for k, v in gaps.items()), gaps
+    assert runner.control(0) == reference.gaps(got, want)
 
 
 @pytest.mark.parametrize("name", CELLS)
@@ -122,7 +140,7 @@ def _altered(monkeypatch):
 
 
 @pytest.mark.parametrize("fault", [_unchanged, _half, _altered])
-@pytest.mark.parametrize("name", CELLS)
+@pytest.mark.parametrize("name", CLASSICAL)
 def test_a_broken_timed_path_comes_out_not_correct(name, fault,
                                                    monkeypatch):
     cell = small(name)

@@ -2,19 +2,27 @@
 (``srbench/runners/<runner>.py``, found by file name), and a runner that
 is only new files runs through the shared window, check and result line;
 a configuration that names none gets the classical runner, with the path
-line and checks the benchmark has always printed.
+line and checks the benchmark has always printed.  A cell of a new runner
+is new files and new entries of ``BENCHMARK.json``: the benchmark's own
+tests pass on a copy with one added, its limits can be calibrated, and
+a cell whose runner has no fault tests is found.
 
     python3 -m pytest srbench/tests/test_srbench_runners.py -q
 """
 
 import json
+import os
 import shutil
+import subprocess
+import sys
 
 import pytest
 
-from srbench import reference, run
+from srbench import calibrate, reference, run, runners
 from srbench.cells import HERE, Cell
 from srbench.work import calls
+
+ROOT = HERE.parent
 
 TOY = '''"""A toy runner: the program doubles a small tensor."""
 
@@ -49,6 +57,42 @@ class Runner(_Runner):
             ref = self.pool[sid] + self.pool[sid]
             worst = max(worst, float((out - ref).abs().max()))
         return {"double_max_abs": worst}
+
+    def control(self, sid):
+        x = self.pool[sid]
+        low = {"bf16": torch.bfloat16, "f16": torch.float16}[
+            self.cell.traffic["control"]]
+        got = (x.to(low) * 2).float()
+        return {"double_max_abs": float((got - (x + x)).abs().max())}
+'''
+
+TOY_CONFIG = {"name": "toy", "runner": "toy", "n": 64}
+TOY_MIX = {"name": "double", "pool_sessions": 3, "check_calls": 2,
+           "control": "bf16"}
+
+# The toy runner's fault tests, as a cell of a new runner brings them.
+TOY_FAULTS = '''"""The toy runner's fault: a call that returns its input."""
+
+from srbench import run
+from srbench.cells import Cell
+
+
+def test_a_call_that_returns_its_input_comes_out_not_correct(monkeypatch):
+    cell = Cell("toy.double")
+    module = cell.runner_module()
+    monkeypatch.setattr(cell, "runner_module", lambda: module)
+    monkeypatch.setattr(module.Runner, "call", lambda self, x: x)
+    result = run.run_cell(cell, 2 ** 31 + 29, 0.2, False, device="cpu",
+                          emit=lambda line: None)
+    assert not result["correct"], result["checks"]
+'''
+
+# A per-layer metric of the toy cell's own: every cell reports one.
+TOY_READER = '''"""Device time per call of every operation traced, ms."""
+
+
+def read(trace, cell):
+    return trace.ms_per_call(lambda name: True)
 '''
 
 
@@ -66,10 +110,8 @@ def _toy_root(tmp_path):
                             {"name": "setup_s", "unit": "s"}],
              "per_layer": []}
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
-    (d / "configs" / "toy.json").write_text(json.dumps(
-        {"name": "toy", "runner": "toy", "n": 64}))
-    (d / "traffic" / "double.json").write_text(json.dumps(
-        {"name": "double", "pool_sessions": 3, "check_calls": 2}))
+    (d / "configs" / "toy.json").write_text(json.dumps(TOY_CONFIG))
+    (d / "traffic" / "double.json").write_text(json.dumps(TOY_MIX))
     (d / "limits" / "toy.double.json").write_text(json.dumps(
         {"double_max_abs": 0.0}))
     (d / "runners" / "toy.py").write_text(TOY)
@@ -154,3 +196,122 @@ def test_the_classical_runner_prints_the_path_and_checks_it_always_has():
     timing = json.loads(lines[1])
     assert set(timing) == {"srbench", "setup_s", "window_s", "calls",
                            "check_s", "kept", "latencies_ms"}
+
+
+def runners_without_fault_tests(root):
+    """The runners that cells of ``root``'s ``BENCHMARK.json`` name, other
+    than the classical one, with no ``test_srbench_runner_<name>.py``."""
+    bench = json.loads((root / "BENCHMARK.json").read_text())
+    names = {Cell(w["name"], root=root).config.get("runner", "classical")
+             for w in bench["workloads"]}
+    tests = root / "srbench" / "tests"
+    return sorted(n for n in names - {"classical"}
+                  if not (tests / f"test_srbench_runner_{n}.py").exists())
+
+
+def test_every_runner_of_a_cell_has_its_fault_tests():
+    assert runners_without_fault_tests(ROOT) == []
+
+
+def _copy_with_a_new_cell(tmp_path, fault_tests=True):
+    """``BENCHMARK.json`` and ``srbench/`` copied, and the toy cell added
+    to them as a new runner's cell is: new files, and one entry each in
+    ``configs``, ``workloads`` and ``per_layer``."""
+    root = tmp_path / "copy"
+    root.mkdir()
+    shutil.copy(ROOT / "BENCHMARK.json", root)
+    shutil.copytree(HERE, root / "srbench",
+                    ignore=shutil.ignore_patterns("_cache", "__pycache__"))
+    d = root / "srbench"
+    files = {"runners/toy.py": TOY,
+             "configs/toy.json": json.dumps(TOY_CONFIG),
+             "traffic/double.json": json.dumps(TOY_MIX),
+             "limits/toy.double.json": json.dumps({"double_max_abs": 0.0}),
+             "layer_metrics/toy_device_ms.py": TOY_READER}
+    if fault_tests:
+        files["tests/test_srbench_runner_toy.py"] = TOY_FAULTS
+    for name, text in files.items():
+        assert not (d / name).exists(), name
+        (d / name).write_text(text)
+    bench = json.loads((root / "BENCHMARK.json").read_text())
+    bench["configs"].append({
+        "name": "toy", "source": "https://pytorch.org",
+        "file": "srbench/configs/toy.json", "reduced": [],
+        "why": "a tensor doubled"})
+    bench["workloads"].append({
+        "name": "toy.double", "config": "toy", "traffic": "double",
+        "chips": 1, "why": "64 numbers doubled a call"})
+    bench["per_layer"].append({
+        "name": "toy_device_ms", "unit": "ms", "better": "lower",
+        "source": "device_trace", "layer": "device",
+        "moves": "hr_mpix_per_s", "workloads": ["toy.double"]})
+    (root / "BENCHMARK.json").write_text(json.dumps(bench, indent=1))
+    return root
+
+
+def test_a_cell_of_a_new_runner_passes_the_benchmarks_own_tests(tmp_path):
+    """The benchmark's tests, run on a copy with the toy cell added as new
+    files and entries, pass every case of that cell."""
+    root = _copy_with_a_new_cell(tmp_path)
+    assert runners_without_fault_tests(root) == []
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (str(ROOT), os.environ.get("PYTHONPATH")) if p))
+    proc = subprocess.run(
+        [sys.executable, "-m", "pytest", "srbench/tests", "-q", "-rA",
+         "-k", "toy", "-p", "no:cacheprovider", "-p", "no:randomly"],
+        cwd=root, env=env, capture_output=True, text=True, timeout=600)
+    out = proc.stdout
+    assert proc.returncode == 0, out[-4000:] + proc.stderr[-2000:]
+    assert "FAILED" not in out and "ERROR" not in out
+    for case in (
+            "test_srbench_harness.py::"
+            "test_every_cell_finds_its_files_by_name[toy.double]",
+            "test_srbench_control.py::"
+            "test_the_control_comes_out_not_correct[toy.double]",
+            "test_srbench_control.py::"
+            "test_the_reference_matches_the_programs_plain_path[toy.double]",
+            "test_srbench_runner_toy.py::"
+            "test_a_call_that_returns_its_input_comes_out_not_correct"):
+        assert f"PASSED srbench/tests/{case}" in out, (case, out[-4000:])
+    assert ("SKIPPED" in out and "test_srbench_card.py" in out), out[-4000:]
+
+
+def test_a_runner_without_fault_tests_is_found(tmp_path):
+    root = _copy_with_a_new_cell(tmp_path, fault_tests=False)
+    assert runners_without_fault_tests(root) == ["toy"]
+
+
+def test_limits_of_a_new_runner_are_calibrated(tmp_path):
+    """``readings`` takes the toy runner's program and control readings,
+    and ``propose`` sets its limit from them."""
+    cell = Cell("toy.double", root=_toy_root(tmp_path))
+    lines = []
+    calibrate.readings(cell.runner("cpu"), [2 ** 31 + 23, 2 ** 31 + 24],
+                       [2 ** 31 + 25], 0.1, emit=lines.append)
+    rows = [json.loads(line) for line in lines]
+    assert [r["reading"] for r in rows] == ["program"] * 2 + \
+        ["control bf16"] * 2
+    assert all(set(r["gaps"]) == {"double_max_abs"} for r in rows)
+    got = calibrate.propose(lines)["double_max_abs"]
+    # the program doubles exactly: an exact comparison, which bf16 fails
+    assert got["lower"] == 0.0 and got["upper"] > 0.0
+    assert got["limit"] == 0.0
+
+
+def test_program_control_is_refused_for_another_runner(tmp_path,
+                                                       monkeypatch, capsys):
+    root = _toy_root(tmp_path)
+    monkeypatch.setattr(calibrate, "Cell", lambda name: Cell(name, root))
+    assert calibrate.main(["--workload", "toy.double", "--control-seeds",
+                           "1", "--program-control", "TF32_TF32_F32"]) == 2
+    out = capsys.readouterr()
+    assert out.out == "" and "'toy'" in out.err
+
+
+def test_a_runner_without_a_control_names_itself():
+    class Runner(runners.Runner):
+        pass
+
+    Runner.__module__ = "srbench.runners.plain"
+    with pytest.raises(NotImplementedError, match="runner 'plain'"):
+        Runner(None, "cpu").control(0)

@@ -4,9 +4,11 @@
 HBM_BYTES_PER_S = 3.35e12
 # dense rates by the type the products take
 FLOPS = {"f32": 66.9e12,    # CUDA cores (FMA); float64 tensor cores alike
-         "bf16": 989e12}    # tensor cores
-# bytes of one band entry, image element or err element by store
-BYTES = {"f32": 4, "bf16": 2}
+         "bf16": 989e12,    # tensor cores
+         "f16": 989e12}     # tensor cores, the same dense rate as bf16
+# bytes of one element (a band entry, an image, err or activation element)
+# by store
+BYTES = {"f32": 4, "bf16": 2, "f16": 2}
 
 
 def bound_s(flops: float, nbytes: float, store: str) -> float:
